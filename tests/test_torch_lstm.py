@@ -1,0 +1,210 @@
+"""The port's LSTM against the JAX reference: the one-step cell, the
+model's ``apply`` (shared weights) and ``apply_rows`` (one weight set
+per row), the CPU dispatch, the kernel wrapper's refusals and the CUDA
+build driver.  Inputs come from numpy with a seed; JAX parameters cross
+through ``params_from_numpy``.
+
+Tolerance: ``atol=1e-5`` on normalized forecasts.  Both sides compute in
+fp32 and differ only in summation order, which drifts by ~1e-7 over 12
+recurrent steps at H=128.
+
+The CUDA kernel itself is held against its plain twin in
+``tests/test_torch_gpu.py``.
+"""
+import stat
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.lstm_cell import lstm_cell_pallas
+from repro.kernels.ref import lstm_cell_ref
+from repro.models import LSTMModel as JaxLSTM
+from repro_torch.kernels import _build, lstm_cell, ops
+from repro_torch.kernels.ref import lstm_cell_plain, lstm_forward_plain
+from repro_torch.models import LSTMModel, params_from_numpy
+
+ATOL = 1e-5
+L = 12
+
+
+def _np_params(hidden, seed, input_size=1):
+    p = JaxLSTM(hidden=hidden, input_size=input_size).init(jax.random.PRNGKey(seed))
+    return {k: np.asarray(v) for k, v in p.items()}
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def _cell_inputs(b, i, h, seed):
+    rng = np.random.default_rng(seed)
+    return (
+        rng.normal(size=(b, i)).astype(np.float32),
+        rng.normal(size=(b, h)).astype(np.float32),
+        rng.normal(size=(b, h)).astype(np.float32),
+        (rng.normal(size=(i, 4 * h)) / np.sqrt(i)).astype(np.float32),
+        (rng.normal(size=(h, 4 * h)) / np.sqrt(h)).astype(np.float32),
+        rng.normal(size=(4 * h,)).astype(np.float32),
+    )
+
+
+# ------------------------------------------------------------------- (a)
+
+
+@pytest.mark.parametrize("b,i,h", [(4, 1, 8), (16, 3, 32), (128, 1, 128)])
+def test_cell_plain_matches_jax_ref(b, i, h):
+    args = _cell_inputs(b, i, h, seed=b + h)
+    hj, cj = lstm_cell_ref(*(jnp.asarray(a) for a in args))
+    ht, ct = lstm_cell_plain(*(_t(a) for a in args))
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=0, atol=ATOL)
+
+
+def test_cell_plain_matches_pallas_interpret():
+    args = _cell_inputs(128, 1, 128, seed=7)
+    hj, cj = lstm_cell_pallas(*(jnp.asarray(a) for a in args), interpret=True)
+    ht, ct = lstm_cell_plain(*(_t(a) for a in args))
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=0, atol=ATOL)
+
+
+# ------------------------------------------------------------------- (b)
+
+
+@pytest.mark.parametrize("hidden", [8, 32, 128])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_apply_matches_jax_apply(hidden, use_kernel):
+    """Shared weights, a batch of windows: the port's apply against
+    LSTMModel.apply (use_kernel=True is the Pallas interpret path at
+    H=128; below it ops.lstm_cell falls back to the reference)."""
+    np_params = _np_params(hidden, seed=hidden)
+    x = np.random.default_rng(hidden).normal(size=(9, L)).astype(np.float32)
+    want = JaxLSTM(hidden=hidden, use_kernel=use_kernel).apply(
+        {k: jnp.asarray(v) for k, v in np_params.items()}, jnp.asarray(x))
+    got = LSTMModel(hidden=hidden).apply(params_from_numpy(np_params, "cpu"), _t(x))
+    assert got.shape == (9,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
+# ------------------------------------------------------------------- (c)
+
+
+@pytest.mark.parametrize("hidden", [8, 128])
+def test_apply_rows_matches_per_row_jax_apply(hidden):
+    g = 5
+    rows = [_np_params(hidden, seed=s) for s in range(g)]
+    x = np.random.default_rng(1).normal(size=(g, L)).astype(np.float32)
+    stacked = params_from_numpy({k: np.stack([r[k] for r in rows]) for k in rows[0]}, "cpu")
+    got = LSTMModel(hidden=hidden).apply_rows(stacked, _t(x))
+    jm = JaxLSTM(hidden=hidden)
+    want = [float(jm.apply({k: jnp.asarray(v) for k, v in rows[i].items()},
+                           jnp.asarray(x[i : i + 1]))[0]) for i in range(g)]
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+def test_apply_rows_row_is_bitwise_independent_of_batch():
+    """The serving contract on the CPU path: row g of a G-row call is
+    bitwise the same row called alone, and the shared-weight apply."""
+    g, hidden = 6, 32
+    rows = [_np_params(hidden, seed=10 + s) for s in range(g)]
+    stacked = params_from_numpy({k: np.stack([r[k] for r in rows]) for k in rows[0]}, "cpu")
+    x = _t(np.random.default_rng(2).normal(size=(g, L)))
+    model = LSTMModel(hidden=hidden)
+    full = model.apply_rows(stacked, x)
+    for i in range(g):
+        one = {k: v[i : i + 1] for k, v in stacked.items()}
+        assert torch.equal(model.apply_rows(one, x[i : i + 1])[0], full[i])
+        shared = {k: v[i] for k, v in stacked.items()}
+        assert torch.equal(model.apply(shared, x[i : i + 1])[0], full[i])
+
+
+def test_init_matches_jax_shapes_and_forget_bias():
+    like = _np_params(16, seed=0, input_size=2)
+    got = LSTMModel(hidden=16, input_size=2).init(torch.Generator().manual_seed(0))
+    assert {k: tuple(v.shape) for k, v in got.items()} == {k: v.shape for k, v in like.items()}
+    assert (got["b"][16:32] == 1).all() and (got["b"][:16] == 0).all() and (got["b"][32:] == 0).all()
+    again = LSTMModel(hidden=16, input_size=2).init(torch.Generator().manual_seed(0))
+    assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+# ------------------------------------------------------- plain + dispatch
+
+
+def _forward_inputs(g, r, steps, isz, hsz, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(_t(a) for a in (
+        rng.normal(size=(g, r, steps, isz)),
+        rng.normal(size=(g, isz, 4 * hsz)) / np.sqrt(isz),
+        rng.normal(size=(g, hsz, 4 * hsz)) / np.sqrt(hsz),
+        rng.normal(size=(g, 4 * hsz)),
+        rng.normal(size=(g, hsz, 1)) / np.sqrt(hsz),
+        rng.normal(size=(g, 1)),
+    ))
+
+
+def test_forward_plain_multirow_multivariate_matches_jax():
+    """R > 1 rows per group and I > 1 inputs: each group is the JAX cell
+    scanned over L steps, then the head."""
+    g, r, steps, isz, hsz = 3, 4, 5, 2, 16
+    args = _forward_inputs(g, r, steps, isz, hsz, seed=3)
+    got = lstm_forward_plain(*args)
+    x, wx, wh, b, w_out, b_out = (jnp.asarray(a.numpy()) for a in args)
+    for gi in range(g):
+        h = c = jnp.zeros((r, hsz))
+        for t in range(steps):
+            h, c = lstm_cell_ref(x[gi, :, t], h, c, wx[gi], wh[gi], b[gi])
+        want = (h @ w_out[gi] + b_out[gi])[:, 0]
+        np.testing.assert_allclose(got[gi].numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
+def test_cpu_dispatch_runs_plain_without_launching():
+    args = _forward_inputs(2, 1, L, 1, 8, seed=4)
+    before = lstm_cell.LAUNCHES
+    assert torch.equal(ops.lstm_forward(*args), lstm_forward_plain(*args))
+    assert lstm_cell.LAUNCHES == before
+
+
+def test_kernel_wrapper_refuses_cpu_tensors_and_ops_refuses_other_devices():
+    args = _forward_inputs(2, 1, L, 1, 8, seed=5)
+    before = lstm_cell.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm_cell.lstm_forward(*args)
+    with pytest.raises(ValueError, match="meta"):
+        ops.lstm_forward(*(a.to("meta") for a in args))
+    assert lstm_cell.LAUNCHES == before
+
+
+# ---------------------------------------------------------------- build
+
+
+def _fake_nvcc(tmp_path, fail=False):
+    """An ``nvcc`` stand-in that writes its ``-o`` target (or fails)."""
+    script = tmp_path / "fake_nvcc"
+    body = "import sys\n"
+    body += "sys.exit(3)\n" if fail else (
+        "out = sys.argv[sys.argv.index('-o') + 1]\nopen(out, 'w').write('lib')\n")
+    script.write_text(f"#!{sys.executable}\n{body}")
+    script.chmod(script.stat().st_mode | stat.S_IEXEC)
+    return str(script)
+
+
+def test_build_compiles_each_source_once_into_a_hashed_library(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_nvcc", lambda: _fake_nvcc(tmp_path))
+    assert _build.build() == ["lstm_forward"]
+    lib = _build.library_path("lstm_forward")
+    assert lib.parent == tmp_path / "kernels" and lib.name.startswith("lstm_forward-")
+    assert lib.read_text() == "lib" and not list(lib.parent.glob("*.tmp"))
+    assert _build.build() == []  # cached by the sources' hash
+
+
+def test_build_failure_raises_with_the_log(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_nvcc", lambda: _fake_nvcc(tmp_path, fail=True))
+    with pytest.raises(RuntimeError, match="nvcc failed for lstm_forward"):
+        _build.build(["lstm_forward"])
+    assert not _build.library_path("lstm_forward").exists()
