@@ -30,6 +30,46 @@ Phases, each printing one JSON line:
   7. profile  — ``torch.profiler`` over a replay of 1024 requests: the
                 card's busy time and share of the wall time, and the
                 largest device items;
+  8. gossip   — the four gossip kernels against their plain twins at
+                N in {1, 12, 37, 226}, D in {1, 513, 66,689}, active
+                ratios 0, 0.3 and 1, on real mixing matrices and (N, 8)
+                neighbor tables (max |diff| <= 1e-6); inactive rows
+                bitwise copies, also with a NaN planted in an active row;
+                two launches bitwise equal;
+  9. train    — the training path at full width through the CLI entry
+                point (``repro_torch.launch.train.run``): REPLACE-BG
+                (N=226) with the sparse kernel, then OhioT1DM (N=12)
+                with the dense kernel; H=128, 30% of nodes inactive,
+                64 rounds, Adam at 1e-3 and batch 64 (TrainConfig),
+                eval every 16 rounds; the data are the 6-day fast twins
+                (the round's work does not depend on the series'
+                length).  Each run: the gossip-repr the CLI resolved,
+                one gossip launch per round, ``lstm_forward`` launches
+                for the evals, the last 16 rounds' loss below the first
+                16's, the last val RMSE record and every patient's test
+                forecasts within 1e-5 of the plain twin on the trained
+                population, and the checkpoint served through
+                ``load_population`` + ``GlucoseServable`` with a bitwise
+                selfcheck; then rounds/s over a 32-round chunk;
+ 10. dp       — the local-DP training path (``GluADFL`` with
+                ``dp_noise_sigma=0.01``, kernel mixer) for 8 rounds at
+                each representation, at full width: one launch of the
+                fused DP kernel per round;
+ 11. mixers   — one state and one round's draws through the kernel
+                mixer and the tree mixer, both representations, DP off
+                and on: the mixed params agree within 1e-6;
+ 12. gtiming  — each gossip kernel at its main-path shape (sparse:
+                N=226, dense: N=12, D=66,689, 30% inactive): CUDA-event
+                time, its plain twin, a PyTorch yardstick (dense:
+                ``torch.where(act, M @ W, W)``; sparse: ``torch.sparse.mm``
+                of the table as a CSR matrix; DP: the same on W + Z
+                with the self-restore), and the least time the card
+                could take;
+ 13. tprofile — ``torch.profiler`` over an 8-round chunk of the sparse
+                training path: the card's busy time split by the
+                trainer's spans (draws, mixing operator, gossip, local
+                step, mask, eval, sync) and its share of the wall, and
+                the local step's GEMM kernels' own device time;
 
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -38,6 +78,8 @@ stands alone without the repository.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import statistics
@@ -58,10 +100,27 @@ TOL = 1e-5  # fp32 summation order over 12 recurrent steps, H <= 256
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
-# (G, R, L, I, H): serving shapes (R=1, L=12, I=1) across widths, and
-# one multivariate, multi-row, single-step case
+# (G, R, L, I, H): serving shapes (R=1, L=12, I=1) across widths, one
+# multivariate, multi-row, single-step case, and the training path's
+# population forward (G=1, H=128): the streaming eval's val windows at
+# REPLACE-BG (226 x 9) and OhioT1DM (12 x 170), and the longest
+# per-patient test split of the REPLACE-BG fast twin
 CASES = [(1, 1, 12, 1, 8), (37, 1, 12, 1, 32), (64, 1, 12, 1, 128),
-         (64, 1, 12, 1, 256), (5, 3, 1, 3, 16)]
+         (64, 1, 12, 1, 256), (5, 3, 1, 3, 16),
+         (1, 2034, 12, 1, 128), (1, 2040, 12, 1, 128), (1, 329, 12, 1, 128)]
+
+# gossip: fp32 sums of <= B+1 = 8 row-stochastic weights times values
+# ~1, the kernel with FMAs against the twin's multiply-then-add
+GOSSIP_TOL = 1e-6
+COMM_BATCH = 7  # B of Algorithm 1 (FLConfig default): tables of 8 slots
+GOSSIP_NODES = (1, 12, 37, 226)
+GOSSIP_COLS = (1, 513, 66_689)  # 66,689 = the H=128 LSTM's parameter count
+GOSSIP_RATIOS = (0.0, 0.3, 1.0)
+TRAIN_ROUNDS = 64
+EVAL_EVERY = 16
+# the trainer's record_function spans, in the order of a round
+SPANS = ("round.draws", "round.mixing_operator", "round.gossip", "round.local_step",
+         "round.mask", "round.eval", "chunk.sync")
 
 
 def require(cond, what) -> None:
@@ -127,6 +186,123 @@ def lstm_forward_cost(x, wx, wh, b, w_out, b_out) -> tuple[float, float]:
     return nbytes, ops
 
 
+def gossip_inputs(gen: torch.Generator, n: int, d: int, ratio: float):
+    """Seeded (N, D) params and DP noise, an active mask, and the round's
+    mixing matrix and neighbor table from a random topology."""
+    from repro_torch.core.topology import mixing_matrix, neighbor_table, random_adjacency
+
+    w = torch.randn((n, d), generator=gen, device="cuda")
+    z = 0.01 * torch.randn((n, d), generator=gen, device="cuda")
+    act = (torch.rand(n, generator=gen, device="cuda") >= ratio).float()
+    if n > 1:
+        adj = random_adjacency(torch.rand((n, n), generator=gen, device="cuda"),
+                               min(COMM_BATCH, n - 1))
+    else:
+        adj = torch.zeros((1, 1), device="cuda")
+    idx, wgt = neighbor_table(adj, act, COMM_BATCH)
+    return w, z, act, mixing_matrix(adj, act, COMM_BATCH), idx, wgt
+
+
+def gossip_calls(w, z, act, mix, idx, wgt):
+    """(name, kernel wrapper, plain twin, args) for the four kernels."""
+    from repro_torch.kernels import gossip_mix as gk
+    from repro_torch.kernels import ref
+
+    return [
+        ("gossip_mix", gk.gossip_mix, ref.gossip_mix_plain, (mix, w, act)),
+        ("gossip_mix_sparse", gk.gossip_mix_sparse, ref.gossip_mix_sparse_plain,
+         (idx, wgt, w, act)),
+        ("gossip_mix_dp", gk.gossip_mix_dp, ref.gossip_mix_dp_plain, (mix, w, z, act)),
+        ("gossip_mix_sparse_dp", gk.gossip_mix_sparse_dp, ref.gossip_mix_sparse_dp_plain,
+         (idx, wgt, w, z, act)),
+    ]
+
+
+def gossip_library(name, w, z, act, mix, idx, wgt):
+    """The PyTorch yardstick for one gossip kernel (timed, never used by
+    the port): dense ``torch.where(act, M @ W, W)``; sparse
+    ``torch.sparse.mm`` of the table as a CSR matrix; the DP variants
+    the same on ``W + Z`` with the clean-self restore."""
+    n = w.shape[0]
+    keep = act[:, None] > 0
+    if name in ("gossip_mix", "gossip_mix_dp"):
+        if name == "gossip_mix":
+            return lambda: torch.where(keep, mix @ w, w)
+        diag = torch.diagonal(mix)[:, None]
+        return lambda: torch.where(keep, mix @ (w + z) - diag * z, w)
+    from repro_torch.core.topology import densify_neighbor_table
+
+    # a well-formed CSR matrix: sorted columns, the zero-weight padding
+    # slots dropped
+    table = densify_neighbor_table(idx, wgt).to_sparse_csr()
+    if name == "gossip_mix_sparse":
+        return lambda: torch.where(keep, torch.sparse.mm(table, w), w)
+    self_w = wgt[:, :1]
+    return lambda: torch.where(keep, torch.sparse.mm(table, w + z) - self_w * z, w)
+
+
+def gossip_cost(name, w, act, idx) -> tuple[float, float]:
+    """Bytes (each input read once, the output written once) and the
+    operations this run's data needs: an FMA (2 operations) per weight
+    and column of each ACTIVE row (inactive rows are copies), plus for
+    DP one add per weight and column and the restore's multiply-add."""
+    n, d = w.shape
+    rows = float(act.sum())
+    sparse = "sparse" in name
+    dp = name.endswith("_dp")
+    slots = idx.shape[1] if sparse else n
+    table = n * slots * 8 if sparse else n * n * 4
+    nbytes = 4 * n * d * (3 if dp else 2) + table + 4 * n
+    ops = rows * d * (2 * slots + (slots + 2 if dp else 0))
+    return nbytes, ops
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0, just before a path runs."""
+    from repro_torch.kernels import gossip_mix as gk
+    from repro_torch.kernels import lstm_cell
+
+    lstm_cell.LAUNCHES = 0
+    for k in gk.LAUNCHES:
+        gk.LAUNCHES[k] = 0
+
+
+def launches() -> dict[str, int]:
+    from repro_torch.kernels import gossip_mix as gk
+    from repro_torch.kernels import lstm_cell
+
+    return {"lstm_forward": lstm_cell.LAUNCHES, **gk.LAUNCHES}
+
+
+def span_breakdown(prof) -> tuple[dict[str, float], dict[str, float], float, int]:
+    """Device busy time (ms) of one profile, split by the trainer's
+    spans: each device kernel or copy goes to the span whose range on
+    the device timeline holds its start ("other" if none).  Also the
+    same split of the GEMM kernels alone (a "gemm" in the kernel's
+    name), the total, and the number of device kernels and copies."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.events())
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    ranges = [(e.name, e.time_range.start, e.time_range.end) for e in on_device if e.name in SPANS]
+    busy = dict.fromkeys(SPANS + ("other",), 0.0)
+    gemm = dict.fromkeys(SPANS + ("other",), 0.0)
+    work = [e for e in on_device if e.name not in SPANS]
+    for e in work:
+        start = e.time_range.start
+        owner = next((name for name, lo, hi in ranges if lo <= start < hi), "other")
+        busy[owner] += (e.time_range.end - start) / 1e3
+        if "gemm" in e.name.lower():
+            gemm[owner] += (e.time_range.end - start) / 1e3
+    return busy, gemm, sum(busy.values()), len(work)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -139,6 +315,7 @@ def main() -> int:
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import LSTMModel
     from repro_torch.serve import GlucoseServable, MicroBatcher, replay
+    from repro_torch.utils.pytree import tree_to_vector
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -154,9 +331,13 @@ def main() -> int:
     # 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
     compiled = _build.build()
-    ptxas = [ln.strip() for ln in _build.build_log("lstm_forward").splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=time.perf_counter() - t0, compiled=compiled, ptxas=ptxas)
+    seconds = time.perf_counter() - t0
+    require(all(_build.library_path(name).exists() for name in ("gossip_mix", "lstm_forward")),
+            f"a kernel library is missing after the build (compiled {compiled})")
+    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name in ("lstm_forward", "gossip_mix")}
+    emit("build", seconds=seconds, compiled=compiled, ptxas=ptxas)
 
     # 3. kernel vs plain -------------------------------------------------
     gen = torch.Generator().manual_seed(1234)
@@ -193,14 +374,15 @@ def main() -> int:
     batches: list[int] = []
     batcher = CountingBatcher(sv.buckets)
     reqs = build_request_stream(fed, sv, 4096, seed=0)
-    lstm_cell.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     sv.warmup(history_len=fed.x.shape[-1])
     preds = replay(sv, batcher, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = lstm_cell.LAUNCHES
-    require(launches >= len(batches) > 0, f"{launches} launches for {len(batches)} batches")
+    launches_serve = lstm_cell.LAUNCHES
+    require(launches_serve >= len(batches) > 0,
+            f"{launches_serve} launches for {len(batches)} batches")
     require(sorted(preds) == list(range(len(reqs))), "a request went unanswered")
     served = torch.tensor([preds[r.rid] for r in reqs])
     require(bool(torch.isfinite(served).all()), "non-finite forecast")
@@ -220,7 +402,7 @@ def main() -> int:
     stats = batcher.stats()
     emit("serve", dataset=fed.name, patients=fed.num_nodes, hidden=128,
          requests=len(reqs), batches=len(batches), full_batches=batches.count(64),
-         launches=launches, selfcheck_bitwise=len(reqs) - bad,
+         launches=launches_serve, selfcheck_bitwise=len(reqs) - bad,
          max_abs_err_vs_plain=plain_err, wall_s=wall,
          p50_latency_ms=stats["p50_latency_ms"], p99_latency_ms=stats["p99_latency_ms"],
          forecasts_per_sec=stats["forecasts_per_sec"])
@@ -264,8 +446,9 @@ def main() -> int:
     nbytes, ops = lstm_forward_cost(*inputs)
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bound_bytes_ms, bound_ops_ms)
-    bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    bound_ms, bound_by = bound(nbytes, ops)
+    lstm_row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms)
     emit("timing", shape=dict(G=64, R=1, L=12, I=1, H=128), ms=ms, ms_l2_flushed=ms_flushed,
          plain_ms=plain_ms, library_ms=library_ms, library="torch.nn.LSTM (cuDNN) + nn.Linear",
          library_max_abs_err=library_err, bytes=nbytes, ops=ops,
@@ -298,14 +481,248 @@ def main() -> int:
          lstm_forward_us_per_launch=kernel[0][1] / kernel[0][0], launches=kernel[0][0],
          top_device=[{"name": k[:80], "count": n, "us": us} for k, (n, us) in top])
 
-    print(json.dumps({"kernels": [{
+    # 8. gossip kernels vs plain -----------------------------------------
+    from repro_torch.config import FLConfig
+    from repro_torch.core import GluADFL
+    from repro_torch.launch.train import run as train_run
+    from repro_torch.launch.train import val_windows
+    from repro_torch.optim import get_optimizer
+    from repro_torch.serve import load_population
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    gossip_err: dict[str, float] = {}
+    n_cases = 0
+    for n in GOSSIP_NODES:
+        for d in GOSSIP_COLS:
+            for active_share in GOSSIP_RATIOS:
+                w, z, act, mix, idx, wgt = gossip_inputs(gen, n, d, 1.0 - active_share)
+                inactive = act == 0
+                for name, kernel, plain, args in gossip_calls(w, z, act, mix, idx, wgt):
+                    out, again, want = kernel(*args), kernel(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    err = float((out - want).abs().max())
+                    where = f"{name} at N={n} D={d} active={active_share}"
+                    require(out.shape == w.shape, f"shape of {where}")
+                    require(err <= GOSSIP_TOL, f"{where} vs plain: {err}")
+                    require(torch.equal(out, again), f"{where}: two launches differ")
+                    require(torch.equal(out[inactive], w[inactive]), f"{where}: inactive rows")
+                    gossip_err[name] = max(gossip_err.get(name, 0.0), err)
+                n_cases += 1
+    w, z, act, mix, idx, wgt = gossip_inputs(gen, 37, 513, 0.3)
+    inactive = act == 0
+    require(bool(inactive.any()) and bool((~inactive).any()), "NaN case needs both kinds of rows")
+    w[int(torch.nonzero(~inactive)[0]), 5] = float("nan")
+    for name, kernel, _, args in gossip_calls(w, z, act, mix, idx, wgt):
+        out = kernel(*args)
+        require(torch.equal(out[inactive], w[inactive]), f"{name}: NaN reached an inactive row")
+    emit("gossip", cases=n_cases, kernels=4, max_abs_err=gossip_err, tol=GOSSIP_TOL,
+         inactive_bitwise=True, nan_inactive_bitwise=True, repeat_bitwise=True)
+
+    # 9. training at full width, sparse then dense (the main path) -------
+    out_dir = ROOT / "build" / "chip_smoke"
+    feds, trained = {}, {}
+    for dataset, repr_, name in (("replace-bg", "sparse", "gossip_mix_sparse"),
+                                 ("ohiot1dm", "dense", "gossip_mix")):
+        argv = ["--dataset", dataset, "--mixer", "kernel", "--hidden", "128",
+                "--inactive-ratio", "0.3", "--rounds", str(TRAIN_ROUNDS),
+                "--eval-every", str(EVAL_EVERY), "--fast-data", "--out", str(out_dir)]
+        log = io.StringIO()
+        reset_launches()
+        with contextlib.redirect_stdout(log):
+            run = train_run(argv)
+        counts = launches()
+        text = log.getvalue()
+        n_nodes = run.trainer.cfg.num_nodes
+        evals = TRAIN_ROUNDS // EVAL_EVERY
+        require(f"gossip-repr auto -> {repr_}" in text, f"{dataset}: gossip-repr auto did not pick {repr_}")
+        require(counts[name] == TRAIN_ROUNDS, f"{dataset}: {counts[name]} {name} launches in {TRAIN_ROUNDS} rounds")
+        require(all(v == 0 for k, v in counts.items() if k not in (name, "lstm_forward")),
+                f"{dataset}: another gossip kernel ran: {counts}")
+        require(counts["lstm_forward"] == evals + n_nodes,
+                f"{dataset}: {counts['lstm_forward']} lstm_forward launches, want {evals} evals + {n_nodes} patients")
+        losses = [h["loss"] for h in run.history]
+        vals = [h["val_rmse"] for h in run.history if "val_rmse" in h]
+        require(len(losses) == TRAIN_ROUNDS and np.isfinite(losses).all(), f"{dataset}: losses")
+        require(len(vals) == evals and np.isfinite(vals).all(), f"{dataset}: val RMSE records")
+        first, last = float(np.mean(losses[:16])), float(np.mean(losses[-16:]))
+        require(last < first, f"{dataset}: loss did not fall ({first} -> {last})")
+        require(bool(torch.isfinite(tree_to_vector(run.population)).all()), f"{dataset}: population")
+        fed = feds[dataset] = load_federated_dataset(dataset, fast=True)
+        # the path's population forwards against the plain twin: the last
+        # eval record is the trained population's, and the test forecasts
+        # are one G=1 launch per patient
+        pop_rows = {k: v[None] for k, v in run.population.items()}
+
+        def plain(x):
+            xs = torch.as_tensor(x, dtype=torch.float32, device="cuda")[None, :, :, None]
+            return lstm_forward_plain(xs, pop_rows["wx"], pop_rows["wh"], pop_rows["b"],
+                                      pop_rows["w_out"], pop_rows["b_out"])[0]
+
+        vx, vy = val_windows(fed)
+        val_plain = float(torch.sqrt(torch.mean(torch.square(
+            plain(vx) - torch.as_tensor(vy, device="cuda")))))
+        val_err = abs(val_plain - vals[-1])
+        require(val_err <= TOL, f"{dataset}: val RMSE {vals[-1]} vs plain twin {val_plain}")
+        test_err = 0.0
+        for p in fed.patients:
+            with torch.no_grad():
+                got = run.trainer.model.apply(
+                    run.population, torch.as_tensor(p.test_x, dtype=torch.float32, device="cuda"))
+            test_err = max(test_err, float((got - plain(p.test_x)).abs().max()))
+        require(test_err <= TOL, f"{dataset}: test forecasts vs plain twin: {test_err}")
+        errs += [val_err, test_err]
+        model, pop = load_population(run.checkpoint)
+        served = GlucoseServable(model, pop, buckets=(1, 4, 16, 64))
+        reqs = build_request_stream(fed, served, 256, seed=1)
+        preds = replay(served, MicroBatcher(served.buckets), reqs)
+        bad = selfcheck(served, reqs, preds)
+        require(bad == 0 and all(math.isfinite(v) for v in preds.values()),
+                f"{dataset}: {bad} forecasts from the checkpoint differ from a direct apply")
+        # steady state: one 32-round chunk from a fresh state
+        trainer = run.trainer
+        chunk_gen = torch.Generator(device="cuda").manual_seed(1)
+        state = trainer.init(chunk_gen)
+        trainer.train(chunk_gen, fed.x, fed.y, fed.counts, batch_size=64, rounds=2, state=state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(chunk_gen, fed.x, fed.y, fed.counts, batch_size=64, rounds=32, chunk=32,
+                      state=state)
+        torch.cuda.synchronize()
+        chunk_s = time.perf_counter() - t0
+        trained[dataset] = (run, counts)
+        emit("train", dataset=dataset, nodes=n_nodes, hidden=128, gossip_repr=repr_,
+             rounds=TRAIN_ROUNDS, launches=counts, loss_first16=first, loss_last16=last,
+             val_rmse=vals, val_windows=len(vx), val_rmse_vs_plain_abs_err=val_err,
+             test_forecasts_vs_plain_max_abs_err=test_err, rounds_per_s_whole_run=TRAIN_ROUNDS / run.seconds,
+             rounds_per_s_32_round_chunk=32 / chunk_s, served_from_checkpoint=len(reqs),
+             selfcheck="bitwise")
+
+    # 10. the local-DP training path ---------------------------------------
+    def trainer_for(dataset, repr_, mixer, sigma):
+        return GluADFL(LSTMModel(hidden=128).as_model(), get_optimizer("adam", 1e-3),
+                       FLConfig(num_nodes=feds[dataset].num_nodes, inactive_ratio=0.3),
+                       mixer=mixer, gossip_repr=repr_, dp_noise_sigma=sigma)
+
+    dp_counts = {}
+    for dataset, repr_, name in (("replace-bg", "sparse", "gossip_mix_sparse_dp"),
+                                 ("ohiot1dm", "dense", "gossip_mix_dp")):
+        fed = feds[dataset]
+        trainer = trainer_for(dataset, repr_, "kernel", 0.01)
+        dp_gen = torch.Generator(device="cuda").manual_seed(2)
+        reset_launches()
+        _, hist, state = trainer.train(dp_gen, fed.x, fed.y, fed.counts, batch_size=64, rounds=8)
+        torch.cuda.synchronize()
+        counts = launches()
+        require(counts[name] == 8 and sum(counts.values()) == 8,
+                f"DP {dataset}: launches {counts}, want 8 of {name}")
+        require(all(math.isfinite(h["loss"]) for h in hist) and bool(torch.isfinite(state.params).all()),
+                f"DP {dataset}: non-finite training")
+        dp_counts[name] = counts[name]
+        emit("dp", dataset=dataset, gossip_repr=repr_, sigma=0.01, rounds=8, launches=counts,
+             losses=[h["loss"] for h in hist])
+
+    # 11. one state, one round's draws, two mixers -----------------------
+    for dataset, repr_ in (("replace-bg", "sparse"), ("ohiot1dm", "dense")):
+        fed = feds[dataset]
+        for sigma in (0.0, 0.01):
+            tk = trainer_for(dataset, repr_, "kernel", sigma)
+            tt = trainer_for(dataset, repr_, "tree", sigma)
+            mix_gen = torch.Generator(device="cuda").manual_seed(3)
+            state = tk.init(mix_gen)
+            data = tk.to_device(fed.x, fed.y, fed.counts)
+            draws = tk.draw(mix_gen, data, 64)
+            after_k, loss_k = tk.round(state, data, draws)
+            after_t, loss_t = tt.round(state, data, draws)
+            active, operand = tk.mixing_operator(state, draws)
+            noise = sigma * draws.dp_noise if sigma else None
+            mixed_err = float((tk.plan.gossip(state.params, operand, active, noise)
+                               - tt.plan.gossip(state.params, operand, active, noise)).abs().max())
+            require(mixed_err <= GOSSIP_TOL, f"{dataset} sigma={sigma}: kernel vs tree mix {mixed_err}")
+            inactive = active == 0
+            require(torch.equal(after_k.params[inactive], state.params[inactive]),
+                    f"{dataset} sigma={sigma}: inactive rows moved")
+            emit("mixers", dataset=dataset, gossip_repr=repr_, sigma=sigma,
+                 mixed_max_abs_diff=mixed_err,
+                 params_after_round_max_abs_diff=float((after_k.params - after_t.params).abs().max()),
+                 loss_kernel=float(loss_k), loss_tree=float(loss_t))
+
+    # 12. gossip kernel timings at the main-path shapes -------------------
+    timing_gen = torch.Generator(device="cuda").manual_seed(5)
+    d_main = trained["replace-bg"][0].trainer.layout.dim
+    main_inputs = {"sparse": gossip_inputs(timing_gen, 226, d_main, 0.3),
+                   "dense": gossip_inputs(timing_gen, 12, d_main, 0.3)}
+    gossip_rows = {}
+    for name in ("gossip_mix", "gossip_mix_sparse", "gossip_mix_dp", "gossip_mix_sparse_dp"):
+        w, z, act, mix, idx, wgt = main_inputs["sparse" if "sparse" in name else "dense"]
+        _, kernel, plain, args = next(c for c in gossip_calls(w, z, act, mix, idx, wgt) if c[0] == name)
+        library = gossip_library(name, w, z, act, mix, idx, wgt)
+        library_err = float((library() - kernel(*args)).abs().max())
+        nbytes, ops = gossip_cost(name, w, act, idx)
+        row = dict(ms=time_ms(lambda: kernel(*args), 200),
+                   plain_ms=time_ms(lambda: plain(*args), 20),
+                   library_ms=time_ms(library, 100))
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+        gossip_rows[name] = row
+        emit("gtiming", kernel=name, nodes=w.shape[0], cols=w.shape[1], slots=idx.shape[1],
+             active=int(act.sum()), ms_l2_flushed=time_ms(lambda: kernel(*args), 100, flush),
+             library_max_abs_err=library_err, bytes=nbytes, ops=ops, **row)
+
+    # 13. where a training round's time goes (sparse, N=226, H=128) ------
+    run, _ = trained["replace-bg"]
+    trainer, fed = run.trainer, feds["replace-bg"]
+    prof_gen = torch.Generator(device="cuda").manual_seed(6)
+    state = trainer.init(prof_gen)
+    chunk_walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, state = trainer.train(prof_gen, fed.x, fed.y, fed.counts, batch_size=64,
+                                    rounds=8, chunk=8, state=state)
+        torch.cuda.synchronize()
+        chunk_walls.append(time.perf_counter() - t0)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        trainer.train(prof_gen, fed.x, fed.y, fed.counts, batch_size=64, rounds=8, chunk=8,
+                      state=state)
+        torch.cuda.synchronize()
+    by_span, gemm_by_span, busy_ms, device_items = span_breakdown(prof)
+    # an estimate, not a count: the local step's matmul operations a
+    # round, h @ wh and x @ wx for each of L steps over N nodes x B
+    # windows, once forward and taken as twice that backward (the
+    # elementwise work and the head are not counted)
+    hsz, steps = 128, fed.x.shape[-1]
+    local_ops = 3 * 2 * fed.num_nodes * 64 * steps * (hsz + 1) * 4 * hsz
+    local_gemm_ms = gemm_by_span["round.local_step"]
+    require(by_span["round.gossip"] > 0 and by_span["round.local_step"] > 0,
+            f"the profile saw no gossip or local-step work: {by_span}")
+    wall_ms = statistics.median(chunk_walls) * 1e3
+    emit("tprofile", dataset="replace-bg", nodes=fed.num_nodes, hidden=128, rounds=8,
+         wall_ms=wall_ms, rounds_per_s=8e3 / wall_ms, device_busy_ms=busy_ms,
+         device_busy_share=busy_ms / wall_ms, host_ms=wall_ms - busy_ms, device_ms_by_span=by_span,
+         device_items_per_round=device_items / 8, gemm_device_ms_by_span=gemm_by_span,
+         local_step_est_matmul_ops_per_round=local_ops,
+         local_step_est_tflop_per_s_over_span=local_ops * 8 / (by_span["round.local_step"] * 1e-3) / 1e12,
+         local_step_est_tflop_per_s_over_gemm=(local_ops * 8 / (local_gemm_ms * 1e-3) / 1e12
+                                               if local_gemm_ms else None))
+
+    sources = "src/repro_torch/kernels/csrc/"
+    rows = [{
         "name": "lstm_forward", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lstm_forward.cu",
+        "source": sources + "lstm_forward.cu",
         "replaces": "src/repro/kernels/lstm_cell.py:51",
-        "launches": launches, "max_abs_err": max(errs),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
-    }]}), flush=True)
+        "launches": launches_serve, "max_abs_err": max(errs), **lstm_row,
+    }]
+    path_launches = {"gossip_mix": trained["ohiot1dm"][1]["gossip_mix"],
+                     "gossip_mix_sparse": trained["replace-bg"][1]["gossip_mix_sparse"],
+                     **dp_counts}
+    replaces = {"gossip_mix": 62, "gossip_mix_sparse": 102, "gossip_mix_dp": 201,
+                "gossip_mix_sparse_dp": 150}
+    for name, line in replaces.items():
+        rows.append({"name": name, "route": "cuda", "source": sources + "gossip_mix.cu",
+                     "replaces": f"src/repro/kernels/gossip_mix.py:{line}",
+                     "launches": path_launches[name], "max_abs_err": gossip_err[name],
+                     **gossip_rows[name]})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

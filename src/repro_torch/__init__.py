@@ -7,8 +7,12 @@ its JAX-free modules (those are copied here).  Every kernel that the
 JAX package writes in Pallas is a hand-written CUDA kernel here, under
 ``kernels/csrc/``, with a plain PyTorch twin in ``kernels/ref.py``.
 
-This slice covers population-model serving: ``data`` -> ``models.lstm``
--> ``kernels`` (``lstm_forward``) -> ``serve`` -> ``launch.serve``.
+Two slices are ported: population-model serving (``data`` ->
+``models.lstm`` -> ``kernels`` (``lstm_forward``) -> ``serve`` ->
+``launch.serve``), and single-process training (``config``, ``optim``,
+``core`` (topology, schedules, gossip and its plan, the trainer) ->
+``kernels`` (``gossip_mix*``, ``lstm_forward`` for evaluation) ->
+``metrics`` -> ``launch.train``).
 Entry points run on CUDA unless the caller asks for the CPU
 (:func:`repro_torch.device.resolve_device`).
 """

@@ -1,0 +1,51 @@
+"""Gossip parameter mixing, the paper's Step 2+3, on the federation's
+flat ``(N, D)`` parameter matrix (the counterpart of
+``repro.core.gossip``).
+
+The JAX package mixes leaf by leaf; here the whole matrix is mixed at
+once, which is the same arithmetic per column.  This module holds the
+reference ("tree") contractions in plain PyTorch and the composed
+local-DP stage the tree mixer runs; the kernel mixer calls
+``kernels.ops`` (the hand-written CUDA kernels for CUDA tensors, their
+plain twins for CPU tensors), whose DP variants fuse the same stage
+into one pass.  ``core.gossip_plan`` picks among them once per trainer.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+
+def gossip_mix_tree(w: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
+    """Dense reference: ``out = mix @ w`` (identity rows keep inactive
+    nodes' rows, for finite data)."""
+    return mix.to(torch.float32) @ w
+
+
+def gossip_mix_sparse_tree(w: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
+                           active: torch.Tensor | None = None) -> torch.Tensor:
+    """Sparse reference: ``out[n] = sum_b wgt[n,b] w[idx[n,b]]``; with
+    ``active``, inactive rows are where-selected copies of ``w``."""
+    out = torch.einsum("nb,nbd->nd", wgt.to(torch.float32), w[idx.long()])
+    if active is not None:
+        out = torch.where(active[:, None] > 0, out, w)
+    return out
+
+
+def gossip_dp_composed(mix_fn: Callable, premix: torch.Tensor, noise: torch.Tensor,
+                       operand, active: torch.Tensor) -> torch.Tensor:
+    """Local DP composed from a plain mix: neighbours mix the noised
+    view ``premix + noise``, then each node re-adds its own clean
+    self-contribution (``noise`` is already scaled by sigma).
+
+    Dense: ``mix(W + Z) - diag(M) Z``; inactive rows are left to the
+    trainer's where-mask, as in the JAX package.  Sparse (``operand``
+    the ``(idx, wgt)`` table, slot 0 self, so ``wgt[:, 0]`` is the
+    diagonal): the same, and since the plain mix selected inactive rows
+    back to the noised view, they are restored to the clean premix."""
+    mixed_noisy = mix_fn(premix + noise, operand, active)
+    if isinstance(operand, tuple):
+        out = mixed_noisy - operand[1][:, :1] * noise
+        return torch.where(active[:, None] > 0, out, premix)
+    return mixed_noisy - torch.diagonal(operand)[:, None] * noise

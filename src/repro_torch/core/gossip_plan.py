@@ -1,0 +1,137 @@
+"""The gossip pipeline, resolved once per trainer: the single-process
+subset of ``repro.core.gossip_plan``.
+
+A :class:`GossipPlan` holds every knob decision:
+
+  * the representation of the round's mixing operator, ``"dense"``
+    (the (N, N) ``mixing_matrix``) or ``"sparse"`` (the (N, B+1)
+    neighbor table); ``"auto"`` picks sparse once ``N >= 4 (B + 1)``;
+  * the mixer: ``"tree"`` (the plain PyTorch reference contractions) or
+    ``"kernel"`` (the hand-written CUDA kernels on the card);
+  * the local-DP stage: the kernel mixer fuses noise, mix and the clean
+    self-restore into one pass; the tree mixer composes them
+    (noise-add -> mix -> self-restore), as the JAX package does.
+
+On one process every mix is the JAX package's ``allgather`` schedule,
+so there is no ``gossip_impl`` knob here.  The sharded mixer is not
+ported yet and raises here, at construction; the ``psum``, ``masked``
+and ``gather`` schedules, sweeps and multi-host runs are refused by the
+training CLI.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.gossip import gossip_dp_composed, gossip_mix_sparse_tree, gossip_mix_tree
+from repro_torch.core.topology import mixing_matrix, neighbor_candidates, neighbor_table
+from repro_torch.kernels import ops
+
+MIXERS = ("tree", "kernel")
+GOSSIP_REPRS = ("dense", "sparse")
+NOT_PORTED_MIXERS = ("sharded",)
+
+# sparse tables win once the kept row (B+1 entries) is a small fraction
+# of N; 4x covers the gather bookkeeping the dense matmul doesn't pay
+SPARSE_GOSSIP_FACTOR = 4
+
+
+class GossipPlanError(ValueError):
+    """A knob value or combination this port does not run."""
+
+
+def choose_gossip_repr(num_nodes: int, comm_batch: int, *,
+                       factor: int = SPARSE_GOSSIP_FACTOR) -> str:
+    """``--gossip-repr auto``: the sparse table once
+    ``num_nodes >= factor * (comm_batch + 1)`` (sparse at the paper's
+    N=226, B=7; dense at ohiot1dm's N=12)."""
+    return "sparse" if num_nodes >= factor * (comm_batch + 1) else "dense"
+
+
+@dataclass(frozen=True, eq=False)
+class GossipPlan:
+    """One resolved mixing pipeline; the round calls :meth:`build_repr`
+    and :meth:`gossip`."""
+
+    mixer: str
+    gossip_repr: str                 # "dense" | "sparse", never "auto"
+    comm_batch: int
+    neighbor_cand: Any = None        # static-topology candidates (sparse)
+    _mix: Callable = None
+    _dp: Callable = None
+
+    def build_repr(self, adj: torch.Tensor, active: torch.Tensor):
+        """The round's operator: the (N, N) matrix or the ``(idx, wgt)``
+        table built from a dense adjacency."""
+        if self.gossip_repr == "sparse":
+            return neighbor_table(adj, active, self.comm_batch)
+        return mixing_matrix(adj, active, self.comm_batch)
+
+    def gossip(self, premix: torch.Tensor, operand, active: torch.Tensor,
+               noise: torch.Tensor | None = None) -> torch.Tensor:
+        """One round's mixing step; ``noise`` is the (N, D) DP noise
+        already scaled by sigma, or None when DP is off."""
+        if noise is None:
+            return self._mix(premix, operand, active)
+        return self._dp(premix, noise, operand, active)
+
+
+def _tree_stages(sparse: bool) -> tuple[Callable, Callable]:
+    """The tree mixer: the reference contractions, DP composed."""
+    if sparse:
+        def mix(w, op, active):
+            return gossip_mix_sparse_tree(w, op[0], op[1], active)
+    else:
+        def mix(w, op, active):
+            # dense identity rows already encode inactivity, as in the JAX tree path
+            return gossip_mix_tree(w, op)
+
+    def dp(premix, noise, op, active):
+        return gossip_dp_composed(mix, premix, noise, op, active)
+    return mix, dp
+
+
+def _kernel_stages(sparse: bool) -> tuple[Callable, Callable]:
+    """The kernel mixer: ``kernels.ops``, DP fused into the kernel."""
+    if sparse:
+        return (lambda w, op, active: ops.gossip_mix_sparse(op[0], op[1], w, active),
+                lambda premix, noise, op, active: ops.gossip_mix_sparse_dp(
+                    op[0], op[1], premix, noise, active))
+    return (lambda w, op, active: ops.gossip_mix(op, w, active),
+            lambda premix, noise, op, active: ops.gossip_mix_dp(op, premix, noise, active))
+
+
+def resolve_gossip_plan(
+    *,
+    mixer: str | None = None,
+    gossip_repr: str = "dense",
+    num_nodes: int,
+    comm_batch: int,
+    topology: str | None = None,
+    cluster_size: int = 4,
+    device=None,
+) -> GossipPlan:
+    """Resolve the knobs into a :class:`GossipPlan`, or raise
+    :class:`GossipPlanError` naming the knob.  For a static topology
+    under the sparse representation, the neighbor candidates are built
+    here once (on ``device``), so no (N, N) array is built per round."""
+    mixer = "tree" if mixer is None else mixer
+    if mixer in NOT_PORTED_MIXERS:
+        raise GossipPlanError(f"mixer={mixer!r} is not ported to PyTorch yet; this port "
+                              f"runs mixer in {MIXERS} on one process")
+    if mixer not in MIXERS:
+        raise GossipPlanError(f"mixer {mixer!r} not in {MIXERS}")
+    if gossip_repr == "auto":
+        gossip_repr = choose_gossip_repr(num_nodes, comm_batch)
+    if gossip_repr not in GOSSIP_REPRS:
+        raise GossipPlanError(f"gossip_repr {gossip_repr!r} not in {GOSSIP_REPRS} or 'auto'")
+    sparse = gossip_repr == "sparse"
+    mix_fn, dp_fn = (_kernel_stages if mixer == "kernel" else _tree_stages)(sparse)
+    cand = None
+    if sparse and topology is not None:
+        cand = neighbor_candidates(topology, num_nodes, cluster_size)
+        if cand is not None and device is not None:
+            cand = tuple(t.to(device) for t in cand)
+    return GossipPlan(mixer, gossip_repr, comm_batch, cand, mix_fn, dp_fn)

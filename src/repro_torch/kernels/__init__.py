@@ -1,9 +1,16 @@
 """The port's kernels: hand-written CUDA for Hopper under ``csrc/``,
-built by ``_build.py`` and launched through a ctypes wrapper
-(``lstm_cell.py``), with plain PyTorch twins in ``ref.py`` and the
-CUDA-or-CPU dispatch in ``ops.py``.
+built by ``_build.py`` and launched through ctypes wrappers
+(``lstm_cell.py``, ``gossip_mix.py``), with plain PyTorch twins in
+``ref.py`` and the CUDA-or-CPU dispatch in ``ops.py``.
 
-  lstm_forward — L LSTM steps + linear head, per-group weights
-                 (ports ``repro.kernels.lstm_cell.lstm_cell_pallas``)
+  lstm_forward          L LSTM steps + linear head, per-group weights
+                        (ports ``repro.kernels.lstm_cell.lstm_cell_pallas``)
+  gossip_mix            dense gossip mix       (``gossip_mix_pallas``)
+  gossip_mix_sparse     neighbor-table mix     (``gossip_mix_sparse_pallas``)
+  gossip_mix_dp         dense local-DP mix     (``gossip_mix_dp_pallas``)
+  gossip_mix_sparse_dp  sparse local-DP mix    (``gossip_mix_sparse_dp_pallas``)
+
+Callers use ``ops``; the package re-exports only ``lstm_forward``, so
+that ``repro_torch.kernels.gossip_mix`` stays the wrapper module.
 """
 from repro_torch.kernels.ops import lstm_forward

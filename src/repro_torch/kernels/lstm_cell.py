@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._checks import check_operands, refuse_autograd
 
 LAUNCHES = 0
 
@@ -41,15 +42,8 @@ def _fn():
 
 def _check(x, wx, wh, b, w_out, b_out) -> tuple[int, int, int, int, int]:
     named = {"x": x, "wx": wx, "wh": wh, "b": b, "w_out": w_out, "b_out": b_out}
-    for name, t in named.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"lstm_forward: {name} is on {t.device}, the kernel takes CUDA tensors")
-        if t.device != x.device:
-            raise ValueError(f"lstm_forward: {name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"lstm_forward: {name} is {t.dtype}, the kernel takes float32")
-        if not t.is_contiguous():
-            raise ValueError(f"lstm_forward: {name} is not contiguous")
+    refuse_autograd("lstm_forward", named)
+    check_operands("lstm_forward", named)
     if x.dim() != 4:
         raise ValueError(f"lstm_forward: x must be (G, R, L, I), got {tuple(x.shape)}")
     g, r, steps, isz = x.shape
@@ -70,7 +64,9 @@ def lstm_forward(x, wx, wh, b, w_out, b_out) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream: x (G, R, L, I),
     wx (G, I, 4H), wh (G, H, 4H), b (G, 4H), w_out (G, H, 1),
     b_out (G, 1), all float32, contiguous and on one CUDA device ->
-    y (G, R).  Raises on anything else and on a failed launch."""
+    y (G, R).  Raises on anything else, on a failed launch, and when
+    grad mode is on and an input requires grad (the kernel has no
+    backward: the trainer's loss goes through the plain forward)."""
     global LAUNCHES
     g, r, steps, isz, hsz = _check(x, wx, wh, b, w_out, b_out)
     y = torch.empty((g, r), dtype=torch.float32, device=x.device)

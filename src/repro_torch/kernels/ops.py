@@ -3,23 +3,55 @@ counterpart of ``repro.kernels.ops``).
 
 A tensor on a CUDA device goes to the kernel, which launches or raises;
 a tensor on the CPU goes to the plain twin.  There is no fallback from
-one to the other, and no padding: the kernel masks any H, unlike
-``repro.kernels.ops.lstm_cell``, which falls back to the reference when
-``H % 128 != 0``.
+one to the other, and no padding: the kernels mask any shape, unlike
+``repro.kernels.ops``, which pads N to 8 rows and D to 512 columns and
+falls back to the reference LSTM cell when ``H % 128 != 0``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import gossip_mix as gossip_kernels
 from repro_torch.kernels import lstm_cell
-from repro_torch.kernels.ref import lstm_forward_plain
+from repro_torch.kernels import ref
+
+
+def _route(name: str, t: torch.Tensor, kernel, plain):
+    if t.device.type == "cuda":
+        return kernel
+    if t.device.type == "cpu":
+        return plain
+    raise ValueError(f"{name} runs on CUDA or the CPU, not {t.device}")
 
 
 def lstm_forward(x, wx, wh, b, w_out, b_out) -> torch.Tensor:
     """L LSTM steps plus the linear head with per-group weights:
     x (G, R, L, I) -> y (G, R); see ``kernels/lstm_cell.py``."""
-    if x.device.type == "cuda":
-        return lstm_cell.lstm_forward(x, wx, wh, b, w_out, b_out)
-    if x.device.type == "cpu":
-        return lstm_forward_plain(x, wx, wh, b, w_out, b_out)
-    raise ValueError(f"lstm_forward runs on CUDA or the CPU, not {x.device}")
+    fn = _route("lstm_forward", x, lstm_cell.lstm_forward, ref.lstm_forward_plain)
+    return fn(x, wx, wh, b, w_out, b_out)
+
+
+def gossip_mix(mix, w, active) -> torch.Tensor:
+    """Dense gossip mix with the active-row select (N, D) -> (N, D)."""
+    fn = _route("gossip_mix", w, gossip_kernels.gossip_mix, ref.gossip_mix_plain)
+    return fn(mix, w, active)
+
+
+def gossip_mix_sparse(idx, wgt, w, active) -> torch.Tensor:
+    """Neighbor-table gossip mix with the active-row select."""
+    fn = _route("gossip_mix_sparse", w, gossip_kernels.gossip_mix_sparse,
+                ref.gossip_mix_sparse_plain)
+    return fn(idx, wgt, w, active)
+
+
+def gossip_mix_dp(mix, w, z, active) -> torch.Tensor:
+    """Dense local-DP gossip (z: the scaled noise)."""
+    fn = _route("gossip_mix_dp", w, gossip_kernels.gossip_mix_dp, ref.gossip_mix_dp_plain)
+    return fn(mix, w, z, active)
+
+
+def gossip_mix_sparse_dp(idx, wgt, w, z, active) -> torch.Tensor:
+    """Sparse local-DP gossip (z: the scaled noise)."""
+    fn = _route("gossip_mix_sparse_dp", w, gossip_kernels.gossip_mix_sparse_dp,
+                ref.gossip_mix_sparse_dp_plain)
+    return fn(idx, wgt, w, z, active)

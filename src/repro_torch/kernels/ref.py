@@ -42,3 +42,44 @@ def lstm_forward_plain(x, wx, wh, b, w_out, b_out):
             h, c = lstm_cell_plain(x[g, :, t, :], h, c, wx[g], wh[g], b[g])
         ys.append((h @ w_out[g] + b_out[g])[:, 0])
     return torch.stack(ys)
+
+
+def _select(active, mixed, w):
+    """Active rows take the mix, inactive rows are bitwise copies of w."""
+    return torch.where(active[:, None] > 0, mixed, w)
+
+
+def _table_sum(idx, wgt, v):
+    """``sum_b wgt[:, b] v[idx[:, b]]`` over the table's slots."""
+    return torch.einsum("nb,nbd->nd", wgt, v[idx.long()])
+
+
+def gossip_mix_plain(mix, w, active):
+    """``out[n] = sum_m mix[n, m] w[m]`` where active, else ``w[n]``:
+    the function the ``gossip_mix`` kernel computes.  mix (N, N),
+    w (N, D), active (N,), float32.  Unlike
+    ``repro.kernels.ref.gossip_mix_ref``, which blends
+    ``act*mixed + (1-act)*w``, inactive rows are selected, so a NaN in an
+    active row cannot reach them."""
+    return _select(active, mix @ w, w)
+
+
+def gossip_mix_sparse_plain(idx, wgt, w, active):
+    """``out[n] = sum_b wgt[n, b] w[idx[n, b]]`` where active, else
+    ``w[n]``: the ``gossip_mix_sparse`` kernel's function.  idx/wgt
+    (N, S) neighbor table (slot 0 self), w (N, D)."""
+    return _select(active, _table_sum(idx, wgt, w), w)
+
+
+def gossip_mix_dp_plain(mix, w, z, active):
+    """Dense local-DP gossip, ``sum_m mix[n, m] (w + z)[m] - mix[n, n]
+    z[n]`` where active, else ``w[n]``: every node shares a noised view
+    and re-adds its own clean self-contribution."""
+    return _select(active, mix @ (w + z) - torch.diagonal(mix)[:, None] * z, w)
+
+
+def gossip_mix_sparse_dp_plain(idx, wgt, w, z, active):
+    """Sparse local-DP gossip, ``sum_b wgt[n, b] (w + z)[idx[n, b]] -
+    wgt[n, 0] z[n]`` where active, else ``w[n]`` (slot 0 is self, so
+    ``wgt[:, 0]`` is the densified diagonal)."""
+    return _select(active, _table_sum(idx, wgt, w + z) - wgt[:, :1] * z, w)

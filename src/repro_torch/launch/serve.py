@@ -19,8 +19,8 @@ Lifecycle:
      ``forecast`` method, one ``lstm_forward`` launch per batch;
      per-request latency stats print at the end.
 
-``--personalize`` (cold-start fine-tuning) takes the LSTM backward pass,
-which arrives with the training slice: a positive value exits 2.
+``--personalize`` (cold-start fine-tuning) is not ported yet: a positive
+value exits 2.
 
 ``--selfcheck`` additionally asserts that EVERY served forecast
 bitwise-matches a direct ``model.apply(params_row, window)`` call through

@@ -7,9 +7,12 @@ A :class:`Model` bundles plain functions on parameter dicts:
                               weight set shared by every row
   apply_rows(stacked, x)   -> (G,) prediction with one weight set per
                               row (``stacked`` leaves carry a leading G)
+  apply_nodes(stacked, x)  -> (N, B) prediction of node n's batch
+                              x[n] under node n's weights, in plain
+                              differentiable ops (the trainer's loss)
 
-``apply_rows`` replaces the ``vmap`` of ``apply`` that the JAX package
-uses over stacked params.
+``apply_rows`` and ``apply_nodes`` replace the ``vmap`` of ``apply``
+that the JAX package uses over stacked params.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ class Model:
     init: Callable[..., Params]
     apply: Callable[[Params, torch.Tensor], torch.Tensor]
     apply_rows: Callable[[Params, torch.Tensor], torch.Tensor]
+    apply_nodes: Callable[[Params, torch.Tensor], torch.Tensor]
 
 
 def params_from_numpy(np_params: Mapping[str, Any], device=None) -> Params:

@@ -5,9 +5,12 @@ A univariate CGM history (B, L) runs through one LSTM layer and the last
 hidden state is projected to the glucose level ahead.  The parameter
 dict is the JAX model's: ``wx (I, 4H)``, ``wh (H, 4H)``, ``b (4H,)``
 with the forget-gate bias set to 1, ``w_out (H, 1)``, ``b_out (1,)``,
-gates ordered i, f, g, o.  The whole forward pass is one call of
-``kernels.ops.lstm_forward``: the CUDA kernel for CUDA tensors, its
-plain twin for CPU tensors.
+gates ordered i, f, g, o.  ``apply`` and ``apply_rows`` (evaluation
+and serving) are one call of ``kernels.ops.lstm_forward``: the CUDA
+kernel for CUDA tensors, its plain twin for CPU tensors.
+``apply_nodes`` is the trainer's differentiable forward over the
+federation, in plain PyTorch ops that autograd follows; the JAX package
+also trains through its plain ``jnp`` cell (``use_kernel=False``).
 """
 from __future__ import annotations
 
@@ -18,6 +21,18 @@ import torch
 
 from repro_torch.kernels.ops import lstm_forward
 from repro_torch.models.base import Model, Params
+
+
+def lstm_cell(x_t, h, c, wx, wh, b):
+    """One LSTM step with a leading node axis on every operand, gates
+    ordered (i, f, g, o) as in ``repro.models.lstm.lstm_cell_ref``:
+    x_t (N, B, I), h/c (N, B, H), wx (N, I, 4H), wh (N, H, 4H),
+    b (N, 1, 4H)."""
+    z = torch.bmm(x_t, wx) + torch.bmm(h, wh) + b
+    i, f, g, o = z.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, c_new
 
 
 def _as_steps(x: torch.Tensor) -> torch.Tensor:
@@ -64,6 +79,20 @@ class LSTMModel:
         (one launch, R=1).  A row's result does not depend on G."""
         return self._forward(stacked, _as_steps(x)[:, None])[:, 0]
 
+    def apply_nodes(self, stacked: Params, x: torch.Tensor) -> torch.Tensor:
+        """x: (N, Bt, L) -> (N, Bt), node n's batch under its own
+        weights ``stacked[k][n]``.  Plain batched matmuls (``torch.bmm``
+        per step), so autograd gives each node its own gradient; the
+        kernels are never on this path."""
+        xs = x if x.dim() == 4 else x[..., None]
+        n, bt, steps, _ = xs.shape
+        h = xs.new_zeros((n, bt, self.hidden))
+        c = xs.new_zeros((n, bt, self.hidden))
+        b = stacked["b"][:, None, :]
+        for t in range(steps):
+            h, c = lstm_cell(xs[:, :, t, :], h, c, stacked["wx"], stacked["wh"], b)
+        return (torch.bmm(h, stacked["w_out"]) + stacked["b_out"][:, None, :])[..., 0]
+
     @staticmethod
     def _forward(stacked: Params, xs: torch.Tensor) -> torch.Tensor:
         return lstm_forward(
@@ -72,4 +101,4 @@ class LSTMModel:
         )
 
     def as_model(self) -> Model:
-        return Model("lstm", self.init, self.apply, self.apply_rows)
+        return Model("lstm", self.init, self.apply, self.apply_rows, self.apply_nodes)

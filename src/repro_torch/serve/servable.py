@@ -16,9 +16,9 @@
     same whoever shares its batch and padding is inert: pinned by
     ``tests/test_torch_serve.py`` and the launcher's ``--selfcheck``.
 
-Cold-start personalization fine-tunes through the LSTM's backward pass;
-it arrives with the backward kernel in the training slice, and until
-then :meth:`GlucoseServable.personalize` raises.
+Cold-start personalization (``repro.core.personalize``) is not ported
+yet; it will fine-tune through the same plain-PyTorch autograd path the
+trainer uses, and until then :meth:`GlucoseServable.personalize` raises.
 
 The batching policy lives in ``serve.batcher``; :func:`replay` is the
 deterministic driver that marries the two.
@@ -43,8 +43,8 @@ KNOWN_HIDDEN = (4, 8, 16, 32, 64, 128, 256)
 DEFAULT_BUCKETS = (1, 4, 16, 64)
 
 PERSONALIZE_PENDING = (
-    "cold-start personalization fine-tunes through the LSTM backward pass; "
-    "it arrives with the LSTM backward kernel in the training slice of the port"
+    "cold-start personalization is not ported to PyTorch yet; it waits on "
+    "core/personalize.py over the trainer's autograd path"
 )
 
 

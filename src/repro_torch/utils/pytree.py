@@ -1,12 +1,20 @@
-"""Flat-vector views of a parameter dict (``repro.utils.pytree``'s
-``tree_to_vector``/``vector_to_tree`` for the port).
+"""Parameter-dict helpers (the counterpart of ``repro.utils.pytree``).
 
-Parameters are plain ``dict[str, Tensor]``.  The vector concatenates the
-leaves in sorted-key order, which is the order ``jax.tree.leaves`` gives
-a dict (``b, b_out, w_out, wh, wx`` for the LSTM), so a checkpoint's
-``vec`` written by the JAX launcher loads unchanged.
+Parameters are plain ``dict[str, Tensor]``.  Flat vectors concatenate
+the leaves in sorted-key order, which is the order ``jax.tree.leaves``
+gives a dict (``b, b_out, w_out, wh, wx`` for the LSTM), so a
+checkpoint's ``vec`` written by either launcher loads in the other.
+
+The trainer keeps a whole federation in one ``(N, D)`` buffer:
+:class:`ParamLayout` maps it to named per-leaf views ``(N, *shape)`` in
+that same order, so a gossip contraction runs once on the whole matrix
+instead of once per leaf (each column's arithmetic is the same) and the
+optimizer updates the flat buffer directly.
 """
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
 
 import torch
 
@@ -28,3 +36,61 @@ def vector_to_tree(vec: torch.Tensor, like: dict[str, torch.Tensor]) -> dict[str
         out[k] = vec[pos : pos + n].reshape(like[k].shape).to(like[k].dtype)
         pos += n
     return out
+
+
+def tree_mean(stacked: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Mean over the leading (node) axis of every leaf."""
+    return {k: v.mean(dim=0) for k, v in stacked.items()}
+
+
+def tree_weighted_mix(stacked: dict[str, torch.Tensor], mix: torch.Tensor) -> dict[str, torch.Tensor]:
+    """``out[n] = sum_m mix[n, m] * stacked[m]`` for every leaf, in
+    float32: the reference gossip contraction on a stacked dict."""
+    out = {}
+    for k, leaf in stacked.items():
+        flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+        out[k] = (mix.to(torch.float32) @ flat).to(leaf.dtype).reshape(leaf.shape)
+    return out
+
+
+@dataclass(frozen=True)
+class ParamLayout:
+    """Where each leaf of one node's params lives in a flat row of D
+    floats: sorted names, their shapes and their offsets."""
+
+    names: tuple[str, ...]
+    shapes: tuple[tuple[int, ...], ...]
+    offsets: tuple[int, ...]
+    dim: int
+
+    @classmethod
+    def of(cls, params: dict[str, torch.Tensor]) -> "ParamLayout":
+        """The layout of one node's param dict (unstacked leaves)."""
+        names = tuple(sorted(params))
+        shapes = tuple(tuple(params[k].shape) for k in names)
+        offsets, pos = [], 0
+        for shape in shapes:
+            offsets.append(pos)
+            pos += math.prod(shape)
+        return cls(names, shapes, tuple(offsets), pos)
+
+    def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Named views ``(N, *shape)`` into a ``(N, D)`` buffer (no copy;
+        gradients taken through them land in ``flat``)."""
+        n = flat.shape[0]
+        return {
+            k: flat[:, o : o + math.prod(s)].view(n, *s)
+            for k, s, o in zip(self.names, self.shapes, self.offsets)
+        }
+
+    def row(self, vec: torch.Tensor) -> dict[str, torch.Tensor]:
+        """One node's params from a ``(D,)`` vector (views)."""
+        return {k: v[0] for k, v in self.views(vec[None]).items()}
+
+    def flatten(self, stacked: dict[str, torch.Tensor]) -> torch.Tensor:
+        """A stacked dict (leaves ``(N, *shape)``) -> a new ``(N, D)``
+        float32 buffer."""
+        n = stacked[self.names[0]].shape[0]
+        return torch.cat(
+            [stacked[k].reshape(n, -1).to(torch.float32) for k in self.names], dim=1
+        ).contiguous()

@@ -1,0 +1,61 @@
+"""One round's randomness as explicit tensors (replaces
+``repro.utils.rng.split_like`` and the trainer's key chain).
+
+JAX's threefry stream cannot be reproduced with a ``torch.Generator``,
+so the port's round takes its random draws as inputs: a
+:class:`RoundDraws` record.  Production draws it with
+:func:`draw_round` from a ``torch.Generator`` on the device; the parity
+tests draw the same record with ``jax.random`` in ``GluADFL._round``'s
+split order and hand it in.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass
+class RoundDraws:
+    """The draws one round consumes.
+
+    * ``u_act``     (N,) uniforms in [0, 1): the activity schedule's draw;
+    * ``scores``    (N, N) uniforms for the random topology, else None;
+    * ``batch_idx`` (N, local_steps, batch) int64: window indices, each
+      in ``[0, max(count_n, 1))``;
+    * ``dp_noise``  (N, D) standard normals, unscaled, when local DP is
+      on, else None (the trainer scales them by sigma).
+    """
+
+    u_act: torch.Tensor
+    scores: torch.Tensor | None
+    batch_idx: torch.Tensor
+    dp_noise: torch.Tensor | None = None
+
+
+def draw_round(
+    generator: torch.Generator,
+    counts: torch.Tensor,
+    *,
+    local_steps: int,
+    batch_size: int,
+    random_topology: bool,
+    dp_dim: int = 0,
+) -> RoundDraws:
+    """Draw one round on ``generator``'s device.  ``counts`` (N,) are
+    the nodes' true window counts; ``dp_dim`` > 0 also draws the
+    (N, dp_dim) DP noise."""
+    dev = generator.device
+    n = counts.shape[0]
+    u_act = torch.rand(n, generator=generator, device=dev)
+    scores = torch.rand((n, n), generator=generator, device=dev) if random_topology else None
+    # floor(u * hi) over float64 uniforms: uniform on [0, hi) like
+    # jax.random.randint; the clamp guards the rounding at u -> 1
+    hi = counts.to(dev, torch.int64).clamp_min(1)
+    u = torch.rand((n, local_steps, batch_size), generator=generator, device=dev,
+                   dtype=torch.float64)
+    batch_idx = torch.minimum((u * hi[:, None, None]).long(), hi[:, None, None] - 1)
+    noise = None
+    if dp_dim:
+        noise = torch.randn((n, dp_dim), generator=generator, device=dev)
+    return RoundDraws(u_act, scores, batch_idx, noise)

@@ -1,6 +1,8 @@
-"""The port's CUDA kernel on the card: held against its plain twin, a
-row's result bitwise independent of the launch it shares, the wrapper's
-refusals, and the servable's bitwise contract through the kernel.
+"""The port's CUDA kernels on the card: ``lstm_forward`` and the four
+gossip kernels held against their plain twins, a row's result bitwise
+independent of the launch it shares, the wrappers' refusals, the
+servable's bitwise contract through ``lstm_forward``, and a few
+training rounds through the gossip kernels.
 
 These tests need a CUDA device and skip elsewhere (decided inside the
 ``cuda`` fixture).  They import neither ``jax`` nor ``repro``, so they
@@ -12,8 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import lstm_cell
+from repro_torch.config import FLConfig
+from repro_torch.core import GluADFL
+from repro_torch.core.topology import mixing_matrix, neighbor_table, random_adjacency
+from repro_torch.kernels import gossip_mix as gossip_kernels
+from repro_torch.kernels import lstm_cell, ref
 from repro_torch.kernels.ref import lstm_forward_plain
+from repro_torch.optim import adam
 from repro_torch.launch.serve import selfcheck
 from repro_torch.models import LSTMModel
 from repro_torch.serve import GlucoseServable, MicroBatcher, Request, replay
@@ -21,6 +28,9 @@ from repro_torch.serve import GlucoseServable, MicroBatcher, Request, replay
 pytestmark = pytest.mark.gpu
 
 ATOL = 1e-5  # fp32 summation order over 12 recurrent steps
+# gossip: fp32 sums of <= B+1 = 8 row-stochastic weights times values
+# ~1, kernel (FMA) against twin (multiply, then add)
+GOSSIP_ATOL = 1e-6
 L = 12
 
 
@@ -86,3 +96,93 @@ def test_served_equals_direct_apply_through_the_kernel(cuda):
     preds = replay(sv, MicroBatcher(sv.buckets), reqs)
     assert lstm_cell.LAUNCHES > before
     assert selfcheck(sv, reqs, preds) == 0
+
+
+def _gossip_case(n, d, ratio, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((n, d), generator=gen, device=device)
+    z = 0.01 * torch.randn((n, d), generator=gen, device=device)
+    act = (torch.rand(n, generator=gen, device=device) >= ratio).float()
+    scores = torch.rand((n, n), generator=gen, device=device)
+    adj = random_adjacency(scores, min(7, n - 1)) if n > 1 else torch.zeros((1, 1), device=device)
+    mix = mixing_matrix(adj, act, 7)
+    idx, wgt = neighbor_table(adj, act, 7)
+    return w, z, act, mix, idx, wgt
+
+
+def _gossip_calls(w, z, act, mix, idx, wgt):
+    return [
+        ("gossip_mix", gossip_kernels.gossip_mix, ref.gossip_mix_plain, (mix, w, act)),
+        ("gossip_mix_sparse", gossip_kernels.gossip_mix_sparse, ref.gossip_mix_sparse_plain,
+         (idx, wgt, w, act)),
+        ("gossip_mix_dp", gossip_kernels.gossip_mix_dp, ref.gossip_mix_dp_plain, (mix, w, z, act)),
+        ("gossip_mix_sparse_dp", gossip_kernels.gossip_mix_sparse_dp,
+         ref.gossip_mix_sparse_dp_plain, (idx, wgt, w, z, act)),
+    ]
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (12, 513), (37, 66689), (226, 4099)])
+@pytest.mark.parametrize("ratio", [0.0, 0.3, 1.0])
+def test_gossip_kernels_match_plain(cuda, n, d, ratio):
+    w, z, act, mix, idx, wgt = _gossip_case(n, d, ratio, seed=n + d, device=cuda)
+    inactive = act == 0
+    for name, kernel, plain, args in _gossip_calls(w, z, act, mix, idx, wgt):
+        before = gossip_kernels.LAUNCHES[name]
+        got = kernel(*args)
+        again = kernel(*args)
+        torch.cuda.synchronize()
+        assert gossip_kernels.LAUNCHES[name] == before + 2
+        torch.testing.assert_close(got, plain(*args), rtol=0, atol=GOSSIP_ATOL)
+        assert torch.equal(got, again), name
+        assert torch.equal(got[inactive], w[inactive]), name
+
+
+def test_gossip_kernels_keep_inactive_rows_bitwise_under_nan(cuda):
+    w, z, act, mix, idx, wgt = _gossip_case(12, 513, 0.0, seed=3, device=cuda)
+    act[4] = 0.0
+    mix = mixing_matrix(torch.ones((12, 12), device=cuda) - torch.eye(12, device=cuda), act, 7)
+    idx, wgt = neighbor_table(torch.ones((12, 12), device=cuda) - torch.eye(12, device=cuda), act, 7)
+    w[0, 7] = float("nan")
+    for name, kernel, _, args in _gossip_calls(w, z, act, mix, idx, wgt):
+        out = kernel(*args)
+        assert torch.equal(out[4], w[4]), name
+        assert torch.isnan(out[1, 7]), name
+
+
+def test_gossip_wrapper_checks(cuda):
+    w, z, act, mix, idx, wgt = _gossip_case(6, 40, 0.3, seed=5, device=cuda)
+    before = dict(gossip_kernels.LAUNCHES)
+    with pytest.raises(TypeError, match="int32"):
+        gossip_kernels.gossip_mix_sparse(idx.long(), wgt, w, act)
+    with pytest.raises(ValueError, match="mix must be"):
+        gossip_kernels.gossip_mix(mix[:, :5].contiguous(), w, act)
+    with pytest.raises(ValueError, match="contiguous"):
+        gossip_kernels.gossip_mix_dp(mix, w, z.t().contiguous().t(), act)
+    with pytest.raises(ValueError, match="CUDA"):
+        gossip_kernels.gossip_mix(mix, w, act.cpu())
+    with pytest.raises(RuntimeError, match="require"):
+        gossip_kernels.gossip_mix(mix, w.clone().requires_grad_(True), act)
+    assert gossip_kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n,repr_", [(12, "dense"), (40, "sparse")])
+@pytest.mark.parametrize("sigma", [0.0, 0.01])
+def test_training_rounds_go_through_the_gossip_kernels(cuda, n, repr_, sigma):
+    from repro_torch.models import LSTMModel
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, 64, L)).astype(np.float32)
+    y = x[:, :, -1].copy()
+    counts = np.full(n, 64, np.int32)
+    trainer = GluADFL(LSTMModel(hidden=32).as_model(), adam(1e-3),
+                      FLConfig(num_nodes=n, inactive_ratio=0.3), mixer="kernel",
+                      gossip_repr=repr_, dp_noise_sigma=sigma)
+    name = {("dense", False): "gossip_mix", ("sparse", False): "gossip_mix_sparse",
+            ("dense", True): "gossip_mix_dp", ("sparse", True): "gossip_mix_sparse_dp"}[
+                (repr_, sigma > 0)]
+    before = gossip_kernels.LAUNCHES[name]
+    _, hist, state = trainer.train(gen, x, y, counts, batch_size=16, rounds=5)
+    assert gossip_kernels.LAUNCHES[name] == before + 5
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    assert bool(torch.isfinite(state.params).all())

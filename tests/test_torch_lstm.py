@@ -168,6 +168,22 @@ def test_cpu_dispatch_runs_plain_without_launching():
     assert lstm_cell.LAUNCHES == before
 
 
+def test_kernel_wrapper_refuses_inputs_that_require_grad():
+    """The kernel has no backward: with grad mode on, an input that
+    requires grad is refused before anything else is checked (a ctypes
+    launch would return a tensor without grad_fn and training would
+    silently stop learning).  Under no_grad the same call gets past that
+    check (and then stops at the CPU-tensor check)."""
+    args = list(_forward_inputs(2, 1, L, 1, 8, seed=6))
+    args[2].requires_grad_(True)
+    before = lstm_cell.LAUNCHES
+    with pytest.raises(RuntimeError, match="wh require"):
+        lstm_cell.lstm_forward(*args)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        lstm_cell.lstm_forward(*args)
+    assert lstm_cell.LAUNCHES == before
+
+
 def test_kernel_wrapper_refuses_cpu_tensors_and_ops_refuses_other_devices():
     args = _forward_inputs(2, 1, L, 1, 8, seed=5)
     before = lstm_cell.LAUNCHES
@@ -195,7 +211,7 @@ def _fake_nvcc(tmp_path, fail=False):
 def test_build_compiles_each_source_once_into_a_hashed_library(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(_build, "_nvcc", lambda: _fake_nvcc(tmp_path))
-    assert _build.build() == ["lstm_forward"]
+    assert _build.build() == ["gossip_mix", "lstm_forward"]
     lib = _build.library_path("lstm_forward")
     assert lib.parent == tmp_path / "kernels" and lib.name.startswith("lstm_forward-")
     assert lib.read_text() == "lib" and not list(lib.parent.glob("*.tmp"))

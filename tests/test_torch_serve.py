@@ -156,7 +156,7 @@ def test_store_rows_and_personalize_pending(servable):
     assert servable.row_of_or_population("never-seen") == 0
     with pytest.raises(KeyError):
         servable.row_of("never-seen")
-    with pytest.raises(NotImplementedError, match="backward kernel"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         servable.personalize(["a"], None, None, None, None)
     with pytest.raises(ValueError, match="batch_mode"):
         GlucoseServable(servable.model, servable.population, batch_mode="scan", device="cpu")
@@ -238,7 +238,7 @@ def test_launcher_serves_fresh_init_population():
 def test_launcher_personalize_exits_nonzero():
     out = _cli("--device", "cpu", "--personalize", "1")
     assert out.returncode != 0
-    assert "backward kernel" in out.stderr
+    assert "not ported" in out.stderr
 
 
 # ------------------------------------------------------------------- (i)
