@@ -70,6 +70,34 @@ Phases, each printing one JSON line:
                 trainer's spans (draws, mixing operator, gossip, local
                 step, mask, eval, sync) and its share of the wall, and
                 the local step's GEMM kernels' own device time;
+ 14. swa      — ``swa_attention`` against its plain twin at S in {128,
+                256, 1000 (a ragged edge), 1024, 3072} x window in {64,
+                100, 300, 1024, 4096} x hd in {64, 128} x H/K in {1, 12}
+                x B in {1, 2}, fp32 (max |diff| <= 3e-5) and bf16
+                (<= 5e-2), TF32 off; at the LM prefill's shape (B=1,
+                S=32,768, H=96, K=8, hd=128, window 4096, bf16) against
+                the plain ``banded_flash_attention`` run in bf16 and in
+                fp32 (<= 5e-2); two launches bitwise equal;
+ 15. lmprefill — the third slice at full width: Mistral-Large-123B
+                (d=12288, 96 heads, 8 KV heads, d_ff=28672) with its
+                depth cut to 4 of 88 layers and the batch to 1 of 32,
+                bf16 weights from a seeded ``torch.Generator``, through
+                ``repro_torch.arch.build_arch``: ``prefill_fn`` on a
+                32,768-token prompt (one ``swa_attention`` launch and one
+                banded branch per layer, finite logits, caches of the
+                window), then 16 greedy ``decode_fn`` steps; the same
+                path at the reduced width (fp32, window 1024, S=3072) on
+                the card and on the CPU from the same weights (logits
+                within 1e-4, caches within 1e-5, 4 decode steps); and the
+                ``arch_demo`` CLI on the card;
+ 16. lmtiming — the kernel at the prefill's shape: CUDA-event time, the
+                plain banded twin, ``scaled_dot_product_attention`` with
+                a band mask per 1024-row query block (the yardstick; the
+                port never calls it), and the least time the card could
+                take (bf16 tensor-core peak; the fp32 one beside it);
+                then the prefill's wall time, tokens/s and its device
+                time split into the kernel, the GEMMs and the rest, and
+                decode steps/s;
 
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -82,6 +110,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -99,6 +128,7 @@ TOL = 1e-5  # fp32 summation order over 12 recurrent steps, H <= 256
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense, tensor cores
 
 # (G, R, L, I, H): serving shapes (R=1, L=12, I=1) across widths, one
 # multivariate, multi-row, single-step case, and the training path's
@@ -118,6 +148,19 @@ GOSSIP_COLS = (1, 513, 66_689)  # 66,689 = the H=128 LSTM's parameter count
 GOSSIP_RATIOS = (0.0, 0.3, 1.0)
 TRAIN_ROUNDS = 64
 EVAL_EVERY = 16
+# swa_attention: JAX's own tolerances for this kernel (tests/test_kernels.py):
+# fp32 sums over <= 4096 keys in another order; bf16 inputs with fp32
+# inside on both sides and the output rounded to bf16 (at the prefill's
+# shape the plain banded path also rounds scores and probabilities to bf16)
+SWA_TOL = {torch.float32: 3e-5, torch.bfloat16: 5e-2}
+SWA_SEQS = (128, 256, 1000, 1024, 3072)
+SWA_WINDOWS = (64, 100, 300, 1024, 4096)
+LM_ARCH = "mistral-large-123b"
+LM_LAYERS = 4           # of 88
+LM_DECODE_STEPS = 16
+LM_SLICE_TOL = {"logits": 1e-4, "caches": 1e-5}  # fp32, card against CPU, 2 layers
+# substrings of the names of cuBLAS's GEMM kernels on Hopper
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 # the trainer's record_function spans, in the order of a round
 SPANS = ("round.draws", "round.mixing_operator", "round.gossip", "round.local_step",
          "round.mask", "round.eval", "chunk.sync")
@@ -148,14 +191,14 @@ def random_inputs(gen: torch.Generator, g, r, steps, isz, hsz):
     )
 
 
-def time_ms(fn, runs: int, flush: torch.Tensor | None = None) -> float:
+def time_ms(fn, runs: int, flush: torch.Tensor | None = None, warmup: int = 5) -> float:
     """Median device time of ``fn`` over ``runs`` CUDA-event pairs,
-    after warm-up; with ``flush``, the L2 is overwritten before each.
+    after ``warmup`` calls; with ``flush``, the L2 is overwritten before each.
     A spin kernel (~0.2 s) holds the card while the host queues the runs,
     so the events time the card and not the host's launch overhead, as
     long as queueing takes less than the spin (a host-bound ``fn``, such
     as the plain twin's ~9,000 small launches, still times the host)."""
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     torch.cuda._sleep(350_000_000)  # cycles of the SM clock
@@ -257,27 +300,72 @@ def gossip_cost(name, w, act, idx) -> tuple[float, float]:
     return nbytes, ops
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def swa_cost(q: torch.Tensor, k: torch.Tensor, window: int) -> tuple[float, float]:
+    """Bytes (q, k, v read once, o written once) and operations of one
+    ``swa_attention`` call: 4 hd per (query, key) pair in the band (the
+    two products' multiply-adds; the softmax is not counted)."""
+    b, s, h, hd = q.shape
+    w = min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w  # per (batch, head)
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return nbytes, 4.0 * hd * pairs * b * h
+
+
+def swa_inputs(gen: torch.Generator, b, s, h, kh, hd, dtype):
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+
+
+def band_sdpa(q, k, v, window: int, block: int = 1024):
+    """The PyTorch yardstick for ``swa_attention`` (timed, never used by
+    the port): ``scaled_dot_product_attention`` once per ``block`` query
+    rows, over that block's band of keys with a boolean band mask, the
+    KV heads repeated to H beforehand.  Returns the call; its output is
+    (B, H, S, hd)."""
+    s, h = q.shape[1], q.shape[2]
+    rep = h // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    kv_blocks = -(-window // block) + 1
+    pos = torch.arange(s, device=q.device)
+    calls = []
+    for i in range(s // block):
+        lo, hi = max(i - kv_blocks + 1, 0) * block, (i + 1) * block
+        qp, kp = pos[i * block:hi, None], pos[None, lo:hi]
+        calls.append((slice(i * block, hi), slice(lo, hi), (kp <= qp) & (kp > qp - window)))
+
+    def run():
+        return torch.cat([torch.nn.functional.scaled_dot_product_attention(
+            qt[:, :, rows], kt[:, :, keys], vt[:, :, keys], attn_mask=mask)
+            for rows, keys, mask in calls], dim=2)
+
+    return run
 
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
     from repro_torch.kernels import gossip_mix as gk
-    from repro_torch.kernels import lstm_cell
+    from repro_torch.kernels import lstm_cell, swa_attention
 
     lstm_cell.LAUNCHES = 0
+    swa_attention.LAUNCHES = 0
     for k in gk.LAUNCHES:
         gk.LAUNCHES[k] = 0
 
 
 def launches() -> dict[str, int]:
     from repro_torch.kernels import gossip_mix as gk
-    from repro_torch.kernels import lstm_cell
+    from repro_torch.kernels import lstm_cell, swa_attention
 
-    return {"lstm_forward": lstm_cell.LAUNCHES, **gk.LAUNCHES}
+    return {"lstm_forward": lstm_cell.LAUNCHES, **gk.LAUNCHES,
+            "swa_attention": swa_attention.LAUNCHES}
 
 
 def span_breakdown(prof) -> tuple[dict[str, float], dict[str, float], float, int]:
@@ -332,11 +420,12 @@ def main() -> int:
     t0 = time.perf_counter()
     compiled = _build.build()
     seconds = time.perf_counter() - t0
-    require(all(_build.library_path(name).exists() for name in ("gossip_mix", "lstm_forward")),
+    libraries = ("gossip_mix", "lstm_forward", "swa_attention")
+    require(all(_build.library_path(name).exists() for name in libraries),
             f"a kernel library is missing after the build (compiled {compiled})")
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln]
-             for name in ("lstm_forward", "gossip_mix")}
+             for name in libraries}
     emit("build", seconds=seconds, compiled=compiled, ptxas=ptxas)
 
     # 3. kernel vs plain -------------------------------------------------
@@ -705,6 +794,202 @@ def main() -> int:
          local_step_est_tflop_per_s_over_gemm=(local_ops * 8 / (local_gemm_ms * 1e-3) / 1e12
                                                if local_gemm_ms else None))
 
+    # 14. swa_attention against its twin ----------------------------------
+    import dataclasses
+
+    from repro_torch.arch import build_arch
+    from repro_torch.config import get_arch_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as swa_kernel
+    from repro_torch.nn import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    swa_err = {str(dtype): 0.0 for dtype in SWA_TOL}
+    n_swa = 0
+    for s in SWA_SEQS:
+        for window in SWA_WINDOWS:
+            for hd in (64, 128):
+                for h, kh in ((4, 4), (12, 1)):
+                    for b in (1, 2):
+                        for dtype, tol in SWA_TOL.items():
+                            q, k, v = swa_inputs(gen, b, s, h, kh, hd, dtype)
+                            out = swa_kernel.swa_attention(q, k, v, window=window)
+                            again = swa_kernel.swa_attention(q, k, v, window=window)
+                            want = ref.swa_attention_plain(q, k, v, window=window)
+                            torch.cuda.synchronize()
+                            err = float((out.float() - want.float()).abs().max())
+                            where = f"swa_attention B={b} S={s} H={h} K={kh} hd={hd} w={window} {dtype}"
+                            require(out.shape == q.shape and out.dtype == dtype, f"shape of {where}")
+                            require(err <= tol, f"{where} vs plain: {err}")
+                            require(torch.equal(out, again), f"{where}: two launches differ")
+                            swa_err[str(dtype)] = max(swa_err[str(dtype)], err)
+                            n_swa += 1
+    lm_cfg = get_arch_config(LM_ARCH)
+    heads, kv_heads, head_dim, window = (lm_cfg.num_heads, lm_cfg.num_kv_heads, lm_cfg.head_dim,
+                                         lm_cfg.sliding_window)
+    seq = 32_768  # SHAPES["prefill_32k"]
+    q, k, v = swa_inputs(gen, 1, seq, heads, kv_heads, head_dim, torch.bfloat16)
+    out = swa_kernel.swa_attention(q, k, v, window=window)
+    again = swa_kernel.swa_attention(q, k, v, window=window)
+    require(bool(torch.isfinite(out).all()), "swa_attention at the prefill's shape: non-finite")
+    require(torch.equal(out, again), "swa_attention at the prefill's shape: two launches differ")
+    # the plain banded path as JAX runs it in bf16 (scores and probabilities
+    # rounded to bf16), and on the same inputs in fp32, as the kernel computes
+    path_err = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        banded = attn.banded_flash_attention(q.to(dtype), k.to(dtype), v.to(dtype), window=window)
+        path_err[name] = float((out.float() - banded.float()).abs().max())
+        del banded
+        require(path_err[name] <= SWA_TOL[torch.bfloat16],
+                f"swa_attention at the prefill's shape vs the plain banded path in {name}: {path_err[name]}")
+    swa_path_err = max(path_err.values())
+    del out, again
+    emit("swa", cases=n_swa, max_abs_err=swa_err, tol={str(d): t for d, t in SWA_TOL.items()},
+         repeat_bitwise=True, path_shape=dict(B=1, S=seq, H=heads, K=kv_heads, hd=head_dim,
+                                               window=window, dtype="bfloat16"),
+         path_max_abs_err_vs_banded=path_err)
+
+    # 15. the LM prefill and decode at full width (the main path) ----------
+    cfg = dataclasses.replace(lm_cfg, num_layers=LM_LAYERS)
+    arch = build_arch(cfg)
+    t0 = time.perf_counter()
+    params = arch.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for v in params.values()
+                   for t in (v.values() if isinstance(v, dict) else [v]))
+    spec = arch.input_specs("prefill_32k", override_batch=1)["tokens"]
+    tokens = torch.randint(0, cfg.vocab_size, tuple(spec.shape), dtype=spec.dtype, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    prompt = {"tokens": tokens}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    branches_before = dict(attn.BRANCHES)
+    t0 = time.perf_counter()
+    logits, caches = arch.prefill_fn(params, prompt)
+    torch.cuda.synchronize()
+    prefill_first_s = time.perf_counter() - t0
+    lm_counts = launches()
+    taken = {name: attn.BRANCHES[name] - branches_before[name] for name in attn.BRANCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(lm_counts["swa_attention"] == LM_LAYERS,
+            f"{lm_counts['swa_attention']} swa_attention launches in a {LM_LAYERS}-layer prefill")
+    require(sum(lm_counts.values()) == LM_LAYERS, f"another kernel ran in the prefill: {lm_counts}")
+    require(taken == {"plain": 0, "flash": 0, "banded": LM_LAYERS}, f"attention branches {taken}")
+    vocab_padded = params["lm_head"].shape[1]
+    require(tuple(logits.shape) == (1, 1, vocab_padded) and bool(torch.isfinite(logits).all()),
+            f"prefill logits {tuple(logits.shape)} or non-finite")
+    cache_shape = (LM_LAYERS, 1, window, kv_heads, head_dim)
+    require(tuple(caches.k.shape) == cache_shape and tuple(caches.v.shape) == cache_shape,
+            f"caches {tuple(caches.k.shape)}, want {cache_shape}")
+    require(bool((caches.pos == seq).all()), f"cache positions {caches.pos.tolist()}")
+    decoded = []
+    state = caches
+    step_logits = logits
+    for t in range(LM_DECODE_STEPS):
+        tok = torch.argmax(step_logits[:, -1, :cfg.vocab_size], dim=-1)[:, None].to(torch.int32)
+        decoded.append(int(tok))
+        step_logits, state = arch.decode_fn(params, state, {"token": tok, "pos": seq + t})
+        require(bool(torch.isfinite(step_logits).all()), f"decode step {t}: non-finite logits")
+    torch.cuda.synchronize()
+    require(launches()["swa_attention"] == LM_LAYERS, "decode launched swa_attention")
+
+    # the slice held as a whole: card (kernel) against CPU (twin), fp32
+    small = dataclasses.replace(lm_cfg.reduced(), sliding_window=1024)
+    small_arch = build_arch(small)
+    cpu_params = small_arch.init_params(torch.Generator().manual_seed(2))
+    gpu_params = {key: ({n: t.cuda() for n, t in val.items()} if isinstance(val, dict) else val.cuda())
+                  for key, val in cpu_params.items()}
+    small_tokens = torch.randint(0, small.vocab_size, (1, 3072), dtype=torch.int32,
+                                 generator=torch.Generator().manual_seed(3))
+    before = swa_kernel.LAUNCHES
+    g_logits, g_cache = small_arch.prefill_fn(gpu_params, {"tokens": small_tokens.cuda()})
+    require(swa_kernel.LAUNCHES - before == small.num_layers, "the reduced prefill missed the kernel")
+    c_logits, c_cache = small_arch.prefill_fn(cpu_params, {"tokens": small_tokens})
+    slice_err = {"logits": float((g_logits.cpu() - c_logits).abs().max()),
+                 "caches": max(float((g_cache.k.cpu() - c_cache.k).abs().max()),
+                               float((g_cache.v.cpu() - c_cache.v).abs().max()))}
+    for t in range(4):  # both sides fed the card's greedy tokens
+        tok = torch.argmax(g_logits[:, -1, :small.vocab_size], dim=-1)[:, None].to(torch.int32)
+        g_logits, g_cache = small_arch.decode_fn(gpu_params, g_cache, {"token": tok, "pos": 3072 + t})
+        c_logits, c_cache = small_arch.decode_fn(cpu_params, c_cache, {"token": tok.cpu(), "pos": 3072 + t})
+        slice_err["logits"] = max(slice_err["logits"], float((g_logits.cpu() - c_logits).abs().max()))
+    slice_err["caches"] = max(slice_err["caches"], float((g_cache.k.cpu() - c_cache.k).abs().max()),
+                              float((g_cache.v.cpu() - c_cache.v).abs().max()))
+    for key, tol in LM_SLICE_TOL.items():
+        require(slice_err[key] <= tol, f"reduced slice, card vs CPU {key}: {slice_err[key]}")
+    demo = subprocess.run([sys.executable, "-m", "repro_torch.launch.arch_demo", "--arch", LM_ARCH,
+                           "--tokens", "8"], capture_output=True, text=True, cwd=ROOT, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    require(demo.returncode == 0, f"arch_demo exited {demo.returncode}: {demo.stderr[-2000:]}")
+    emit("lmprefill", arch=LM_ARCH, d_model=cfg.d_model, heads=heads, kv_heads=kv_heads,
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, window=window, layers=LM_LAYERS, params=n_params,
+         dtype=cfg.dtype, reduced={"num_layers": f"88->{LM_LAYERS}", "batch": "32->1"},
+         prompt=seq, launches=lm_counts, branches=taken, logits_shape=list(logits.shape),
+         cache_shape=list(cache_shape), init_s=init_s, first_prefill_s=prefill_first_s,
+         peak_memory_gb=peak_gb, decode_steps=LM_DECODE_STEPS, decoded_tokens=decoded,
+         slice_card_vs_cpu=slice_err, slice_tol=LM_SLICE_TOL,
+         arch_demo=demo.stdout.strip().splitlines()[-2:])
+
+    # 16. the kernel and the prefill timed at the path's shape --------------
+    swa_call = lambda: swa_kernel.swa_attention(q, k, v, window=window)  # noqa: E731
+    library = band_sdpa(q, k, v, window)
+    library_err = float((library().transpose(1, 2).float() - swa_call().float()).abs().max())
+    swa_ms = time_ms(swa_call, 20)
+    swa_plain_ms = time_ms(lambda: attn.banded_flash_attention(q, k, v, window=window), 5, warmup=1)
+    swa_library_ms = time_ms(library, 10, warmup=2)
+    nbytes, ops = swa_cost(q, k, window)
+    swa_bound_ms, swa_bound_by = bound(nbytes, ops, BF16_OPS_PER_S)
+    swa_row = dict(ms=swa_ms, plain_ms=swa_plain_ms, bound_ms=swa_bound_ms, bound_by=swa_bound_by,
+                   library_ms=swa_library_ms)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arch.prefill_fn(params, prompt)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        arch.prefill_fn(params, prompt)
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    split = {"swa_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    top: dict[str, float] = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if e.self_cpu_time_total != 0 or us <= 0:
+            continue
+        name = e.key.lower()
+        kind = ("swa_attention" if "swa_attention_kernel" in name
+                else "gemm" if any(g in name for g in GEMM_NAMES) else "other")
+        split[kind] += us / 1e3
+        top[e.key[:80]] = us / 1e3
+    require(split["swa_attention"] > 0, f"the profiler saw no swa_attention kernel: {split}")
+    decode_walls = []
+    state = caches
+    tok = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    for t in range(LM_DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state = arch.decode_fn(params, state, {"token": tok, "pos": seq + t})
+        torch.cuda.synchronize()
+        decode_walls.append(time.perf_counter() - t0)
+    prefill_s = statistics.median(walls)
+    busy_ms = sum(split.values())
+    emit("lmtiming", kernel="swa_attention", shape=dict(B=1, S=seq, H=heads, K=kv_heads, hd=head_dim,
+                                                         window=window, dtype="bfloat16"),
+         bytes=nbytes, ops=ops, bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+         bound_bf16_ops_ms=ops / BF16_OPS_PER_S * 1e3, bound_fp32_ops_ms=ops / FP32_OPS_PER_S * 1e3,
+         library="scaled_dot_product_attention, band mask, per 1024-row query block, KV repeated",
+         library_max_abs_err=library_err, **swa_row,
+         prefill_wall_s=prefill_s, prefill_walls_s=walls, prefill_tokens_per_s=seq / prefill_s,
+         prefill_device_ms=split, profiled_prefill_wall_s=profiled_s,
+         prefill_device_busy_share=busy_ms / (profiled_s * 1e3),
+         prefill_top_device_ms=dict(sorted(top.items(), key=lambda kv: -kv[1])[:8]),
+         decode_step_ms_median=statistics.median(decode_walls) * 1e3,
+         decode_steps_per_s=1 / statistics.median(decode_walls), nvidia_smi=card)
+
     sources = "src/repro_torch/kernels/csrc/"
     rows = [{
         "name": "lstm_forward", "route": "cuda",
@@ -722,6 +1007,11 @@ def main() -> int:
                      "replaces": f"src/repro/kernels/gossip_mix.py:{line}",
                      "launches": path_launches[name], "max_abs_err": gossip_err[name],
                      **gossip_rows[name]})
+    rows.append({"name": "swa_attention", "route": "cuda", "source": sources + "swa_attention.cu",
+                 "replaces": "src/repro/kernels/swa_attention.py:82",
+                 "launches": lm_counts["swa_attention"], "max_abs_err": swa_path_err,
+                 "max_abs_err_sweep": swa_err, **swa_row,
+                 "bound_fp32_ms": ops / FP32_OPS_PER_S * 1e3})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,15 @@ its JAX-free modules (those are copied here).  Every kernel that the
 JAX package writes in Pallas is a hand-written CUDA kernel here, under
 ``kernels/csrc/``, with a plain PyTorch twin in ``kernels/ref.py``.
 
-Two slices are ported: population-model serving (``data`` ->
+Three slices are ported: population-model serving (``data`` ->
 ``models.lstm`` -> ``kernels`` (``lstm_forward``) -> ``serve`` ->
-``launch.serve``), and single-process training (``config``, ``optim``,
+``launch.serve``); single-process training (``config``, ``optim``,
 ``core`` (topology, schedules, gossip and its plan, the trainer) ->
 ``kernels`` (``gossip_mix*``, ``lstm_forward`` for evaluation) ->
-``metrics`` -> ``launch.train``).
+``metrics`` -> ``launch.train``); and the LM zoo's dense and VLM
+prefill and decode (``config`` registry, ``configs`` -> ``arch``
+(``build_arch``, ``lm``) -> ``nn`` (layers, attention) -> ``kernels``
+(``swa_attention`` on the banded branch) -> ``launch.arch_demo``).
 Entry points run on CUDA unless the caller asks for the CPU
 (:func:`repro_torch.device.resolve_device`).
 """

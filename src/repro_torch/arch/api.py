@@ -1,0 +1,117 @@
+"""Uniform architecture API and the assigned input shapes (a port of
+``repro.arch.api``).
+
+``build_arch(cfg)`` dispatches on ``cfg.family`` and returns an
+:class:`Arch` with JAX's surface:
+
+    init_params(gen) -> params               (a torch.Generator; its device)
+    loss_fn(params, batch) -> scalar         (value only)
+    prefill_fn(params, batch) -> (logits, caches)
+    decode_fn(params, caches, batch) -> (logits, caches)
+    init_decode_state(params, batch_size, seq_len) -> caches
+    input_specs(shape_name) -> the batch as "meta" tensors (no allocation)
+
+The dense and VLM families are ported (``arch/lm.py``); MoE, SSM,
+hybrid and enc-dec raise ``NotImplementedError`` until their modules
+are (ROADMAP Queue 1 item 15), as does ``decode_state_specs``, which
+waits for the dry-run's port.
+
+Input shapes (assigned):
+    train_4k     seq 4096    global batch 256   train step
+    prefill_32k  seq 32768   global batch 32    prefill
+    decode_32k   seq 32768   global batch 128   decode step (1 token)
+    long_500k    seq 524288  global batch 1     decode step (sliding
+                                                 window or recurrent only)
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.config import ArchConfig
+
+PyTree = Any
+
+PENDING = {
+    "moe": "mixture-of-experts layers (nn/moe.py)",
+    "ssm": "the Mamba2 SSM family (arch/ssm_lm.py)",
+    "hybrid": "the RG-LRU hybrid family (arch/hybrid_lm.py, nn/rglru.py)",
+    "encdec": "the encoder-decoder family (arch/encdec.py)",
+}
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass
+class Arch:
+    cfg: ArchConfig
+    init_params: Callable
+    loss_fn: Callable
+    prefill_fn: Callable
+    decode_fn: Callable
+    init_decode_state: Callable
+    supports_long: bool
+
+    def supports(self, shape: str) -> bool:
+        return self.supports_long if shape == "long_500k" else True
+
+    def input_specs(self, shape_name: str, *, override_batch: int | None = None,
+                    override_seq: int | None = None) -> PyTree:
+        """The batch of ``shape_name`` as tensors on the meta device."""
+        from repro_torch.arch.common import compute_dtype
+        from repro_torch.arch.lm import VISION_STUB_DIM
+
+        cfg, sh = self.cfg, SHAPES[shape_name]
+        b = override_batch or sh.global_batch
+        s = override_seq or sh.seq_len
+
+        def spec(*shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if sh.kind == "decode":
+            return {"token": spec(b, 1), "pos": spec()}
+        out = {"tokens": spec(b, s)}
+        if cfg.family == "vlm":
+            tv = cfg.vision_tokens
+            out = {"patches": spec(b, tv, VISION_STUB_DIM, dtype=compute_dtype(cfg.dtype)),
+                   "tokens": spec(b, s - tv)}
+        if sh.kind == "train":
+            out["labels"] = spec(b, s)
+        return out
+
+
+def build_arch(cfg: ArchConfig) -> Arch:
+    if cfg.family in ("dense", "vlm") and not cfg.num_experts:
+        from repro_torch.arch import lm
+
+        return Arch(
+            cfg=cfg,
+            init_params=lambda gen: lm.init_params(gen, cfg),
+            loss_fn=lambda p, b: lm.loss_fn(p, cfg, b),
+            prefill_fn=lambda p, b: lm.prefill(p, cfg, b),
+            decode_fn=lambda p, st, b: lm.decode_step(p, cfg, st, b),
+            init_decode_state=lambda p, bsz, s: lm.init_cache(
+                cfg, bsz, s, p["embed"].device),
+            supports_long=cfg.sliding_window > 0,
+        )
+    if cfg.family in PENDING or cfg.num_experts:
+        what = PENDING["moe" if cfg.num_experts else cfg.family]
+        raise NotImplementedError(
+            f"{cfg.name}: {what} is not ported yet (ROADMAP Queue 1 item 15)")
+    raise KeyError(f"unknown family {cfg.family!r}")

@@ -1,0 +1,255 @@
+"""Decoder-only LM assembly for the dense and VLM families (a port of
+``repro.arch.lm``).
+
+One parameter tree, three entry points:
+  * ``forward``      -- whole-sequence logits (teacher forcing),
+  * ``prefill``      -- last-position logits plus per-layer KV caches
+                        (the last ``cache_capacity`` positions),
+  * ``decode_step``  -- one token against the caches.
+
+The tree keeps JAX's layout: ``layers`` holds each leaf stacked over a
+leading L, and ``params_from_numpy`` carries a JAX tree across as it is.
+The layers run as a Python loop (JAX scans them under ``jax.checkpoint``;
+the port takes no gradient here, so it has nothing to rematerialise) and
+everything runs under ``torch.inference_mode()``.  In each layer's
+prefill the self-attention goes through ``nn.attention.gqa_attention``,
+whose banded branch is the hand-written ``swa_attention`` kernel.
+
+Prefill and decode never update params, so the port holds only the
+compute-dtype copy: ``init_params`` and ``params_from_numpy`` give every
+leaf in ``cfg.dtype`` (bf16 for the full configs), which computes the
+same function as JAX's fp32 masters cast per call by ``cast_params``.
+At Mistral-Large's full width the fp32 masters of 4 layers alone would
+take 22 GB of the card.
+
+The mixture-of-experts layers (``nn/moe.py``) are not ported: a config
+with ``num_experts > 0`` raises.  JAX's sharding hints
+(``constrain_act``, ``constrain_attn``) are the identity on one device
+and come back with multi-GPU.
+
+Known fault, kept from the reference: ``prefill`` returns caches of
+``min(S, window)`` slots (S for full attention) in plain order, and the
+first ``decode_step`` writes slot ``S % capacity``.  Decode after
+prefill is right only for a sliding window with ``S % window == 0``;
+ROADMAP Queue 3 has the fix, and ``tests/test_torch_arch.py`` pins it.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.arch.common import cast_params, compute_dtype, cross_entropy
+from repro_torch.config import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.nn.attention import KVCache, decode_attention, gqa_attention
+from repro_torch.nn.layers import dense, embed, init_swiglu, normal, pad_vocab, rms_norm, rope, swiglu_ffn
+
+PyTree = Any
+
+VISION_STUB_DIM = 1024  # stubbed vision-encoder embedding width
+
+
+def _dense_only(cfg: ArchConfig) -> None:
+    if cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts layers (nn/moe.py) are not ported yet "
+            f"(ROADMAP Queue 1 item 15)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_layer(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    h, k = cfg.num_heads, cfg.num_kv_heads
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=dtype, device=gen.device)
+
+    p = {
+        "ln1_scale": zeros(d),
+        "ln2_scale": zeros(d),
+        "wq": normal(gen, (d, h * hd), d ** -0.5, dtype),
+        "wk": normal(gen, (d, k * hd), d ** -0.5, dtype),
+        "wv": normal(gen, (d, k * hd), d ** -0.5, dtype),
+        "wo": normal(gen, (h * hd, d), (h * hd) ** -0.5, dtype),
+    }
+    if cfg.attn_bias:
+        p.update(bq=zeros(h * hd), bk=zeros(k * hd), bv=zeros(k * hd))
+    p.update(init_swiglu(gen, d, cfg.d_ff, dtype))
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
+    """Random params from ``gen`` on its device, in ``cfg.dtype``, with
+    JAX's distributions (normal at JAX's scales, zero norm gains).  Each
+    leaf is drawn in fp32 and cast, one layer at a time into the stacked
+    tensors, so the fp32 transient is one leaf."""
+    _dense_only(cfg)
+    dtype = compute_dtype(cfg.dtype)
+    vp, d = pad_vocab(cfg.vocab_size), cfg.d_model
+    layers: dict[str, torch.Tensor] = {}
+    for i in range(cfg.num_layers):
+        for name, t in init_layer(gen, cfg, dtype).items():
+            if name not in layers:
+                layers[name] = t.new_empty((cfg.num_layers, *t.shape))
+            layers[name][i] = t
+    p = {
+        "embed": normal(gen, (vp, d), 0.02, dtype),
+        "layers": layers,
+        "final_scale": torch.zeros((d,), dtype=dtype, device=gen.device),
+        "lm_head": normal(gen, (d, vp), d ** -0.5, dtype),
+    }
+    if cfg.family == "vlm":
+        p["vision_proj"] = {"w_in": normal(gen, (VISION_STUB_DIM, d), VISION_STUB_DIM ** -0.5, dtype)}
+    return p
+
+
+def params_from_numpy(tree: PyTree, cfg: ArchConfig, device=None) -> PyTree:
+    """A JAX param tree (nested dicts of numpy arrays, ``layers``
+    L-stacked, as ``jax.tree.map(np.asarray, params)`` gives it) as the
+    port's: the same keys and shapes, each leaf a tensor in ``cfg.dtype``
+    on ``device`` (CUDA unless the CPU is asked for)."""
+    dev, dtype = resolve_device(device), compute_dtype(cfg.dtype)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, cfg, dev) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree, dtype=np.float32), device=dev).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# layer body (shared by forward / prefill / decode)
+# ---------------------------------------------------------------------------
+
+
+def _qkv(x, lp, cfg: ArchConfig, positions):
+    b, s, _ = x.shape
+    h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = dense(x, lp["wq"], lp.get("bq")).reshape(b, s, h, hd)
+    kk = dense(x, lp["wk"], lp.get("bk")).reshape(b, s, k, hd)
+    v = dense(x, lp["wv"], lp.get("bv")).reshape(b, s, k, hd)
+    return rope(q, positions, cfg.rope_theta), rope(kk, positions, cfg.rope_theta), v
+
+
+def layer_forward(x, lp, cfg: ArchConfig, positions):
+    """Whole-sequence layer; returns (x, (k, v), aux).  With
+    ``cfg.parallel_block`` attention and MLP both read norm(x) and add to
+    one residual (PaLM style), as in JAX."""
+    _dense_only(cfg)
+    h = rms_norm(x, lp["ln1_scale"], cfg.norm_eps)
+    q, k, v = _qkv(h, lp, cfg, positions)
+    attn = gqa_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    attn_out = dense(attn.reshape(x.shape[0], x.shape[1], -1), lp["wo"])
+    if cfg.parallel_block:
+        return x + attn_out + swiglu_ffn(h, lp), (k, v), {}
+    x = x + attn_out
+    return x + swiglu_ffn(rms_norm(x, lp["ln2_scale"], cfg.norm_eps), lp), (k, v), {}
+
+
+def layer_decode(x, lp, cache: KVCache, cfg: ArchConfig, pos):
+    """One-token layer.  x (B, 1, d); pos the absolute position (0-d)."""
+    _dense_only(cfg)
+    h = rms_norm(x, lp["ln1_scale"], cfg.norm_eps)
+    q, k, v = _qkv(h, lp, cfg, pos.reshape(1))
+    cache = cache.append(k, v)
+    attn = decode_attention(q, cache, window=cfg.sliding_window)
+    x = x + dense(attn.reshape(x.shape[0], 1, -1), lp["wo"])
+    return x + swiglu_ffn(rms_norm(x, lp["ln2_scale"], cfg.norm_eps), lp), cache
+
+
+# ---------------------------------------------------------------------------
+# model-level entry points
+# ---------------------------------------------------------------------------
+
+
+def _layers(params):
+    stacked = params["layers"]
+    for i in range(next(iter(stacked.values())).shape[0]):
+        yield {name: t[i] for name, t in stacked.items()}
+
+
+def _embed_inputs(params, cfg: ArchConfig, batch, dtype):
+    """Token (and VLM patch) embedding -> (B, S, d)."""
+    x = embed(batch["tokens"], params["embed"], dtype)
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(dtype)  # (B, Tv, VISION_STUB_DIM)
+        x = torch.cat([dense(patches, params["vision_proj"]["w_in"]), x], dim=1)
+    return x
+
+
+@torch.inference_mode()
+def forward(params, cfg: ArchConfig, batch):
+    """Teacher-forcing logits (B, S_total, Vp) and the (2,) aux losses
+    (zeros: no MoE)."""
+    dtype = compute_dtype(cfg.dtype)
+    params = cast_params(params, dtype)
+    x = _embed_inputs(params, cfg, batch, dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in _layers(params):
+        x, _, _ = layer_forward(x, lp, cfg, positions)
+    x = rms_norm(x, params["final_scale"], cfg.norm_eps)
+    return dense(x, params["lm_head"]), torch.zeros((2,), device=x.device)
+
+
+def loss_fn(params, cfg: ArchConfig, batch):
+    """Mean next-token CE against ``batch["labels"]`` (value only)."""
+    logits, _ = forward(params, cfg, batch)
+    return cross_entropy(logits, batch["labels"])
+
+
+def cache_capacity(cfg: ArchConfig, seq_len: int) -> int:
+    return min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None) -> KVCache:
+    """Stacked (L-leading) empty caches for decode."""
+    cap, dev = cache_capacity(cfg, seq_len), resolve_device(device)
+    shape = (cfg.num_layers, batch, cap, cfg.num_kv_heads, cfg.head_dim)
+    dtype = compute_dtype(cfg.dtype)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev),
+                   pos=torch.zeros((cfg.num_layers,), dtype=torch.int32, device=dev))
+
+
+@torch.inference_mode()
+def prefill(params, cfg: ArchConfig, batch):
+    """Prefill: (last-position logits (B, 1, Vp), stacked KV caches with
+    leaves (L, B, cap, K, hd) and pos (L,) = S)."""
+    dtype = compute_dtype(cfg.dtype)
+    params = cast_params(params, dtype)
+    x = _embed_inputs(params, cfg, batch, dtype)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    cap = cache_capacity(cfg, s)
+    ks, vs = [], []
+    for lp in _layers(params):
+        x, (k, v), _ = layer_forward(x, lp, cfg, positions)
+        ks.append(k[:, s - cap:])  # the last `cap` positions, in plain order
+        vs.append(v[:, s - cap:])
+    x = rms_norm(x[:, -1:], params["final_scale"], cfg.norm_eps)
+    caches = KVCache(k=torch.stack(ks), v=torch.stack(vs),
+                     pos=torch.full((len(ks),), s, dtype=torch.int32, device=x.device))
+    return dense(x, params["lm_head"]), caches
+
+
+@torch.inference_mode()
+def decode_step(params, cfg: ArchConfig, caches: KVCache, batch):
+    """One decode step.  batch = {"token": (B, 1) int, "pos": the absolute
+    position, an int or a 0-d tensor}; ``caches`` leaves have a leading L.
+    Returns (logits (B, 1, Vp), new caches); the given caches are not
+    changed."""
+    dtype = compute_dtype(cfg.dtype)
+    params = cast_params(params, dtype)
+    x = embed(batch["token"], params["embed"], dtype)
+    pos = torch.as_tensor(batch["pos"], device=x.device)
+    new = []
+    for i, lp in enumerate(_layers(params)):
+        x, cache = layer_decode(x, lp, KVCache(caches.k[i], caches.v[i], caches.pos[i]), cfg, pos)
+        new.append(cache)
+    x = rms_norm(x, params["final_scale"], cfg.norm_eps)
+    caches = KVCache(k=torch.stack([c.k for c in new]), v=torch.stack([c.v for c in new]),
+                     pos=torch.stack([c.pos for c in new]))
+    return dense(x, params["lm_head"]), caches

@@ -1,12 +1,181 @@
-"""Experiment configs and ``a.b=c`` overrides (a copy of the federated
-part of ``repro.config.base``; the LM architecture registry is not
-ported).  Same fields, same defaults, same coercion from the dataclass
-annotation."""
+"""Typed configs, the architecture registry and ``a.b=c`` overrides (a
+copy of ``repro.config.base``; ``SweepConfig`` waits for the sweep
+engine).  Same fields, same defaults, same coercion from the dataclass
+annotation.
+
+Every assigned architecture registers an :class:`ArchConfig` under its
+id (``--arch <id>``) in ``repro_torch.configs``, so ``list_archs()``
+equals the JAX package's; the paper's own glucose LSTM registers under
+``glucose-lstm``.
+"""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """One selectable architecture.
+
+    ``family`` drives assembly:
+      dense | moe | ssm | hybrid | encdec | vlm | lstm
+    """
+
+    name: str
+    family: str
+    citation: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    expert_capacity_factor: float = 1.25
+    # attention flavour
+    sliding_window: int = 0          # 0 = full attention
+    attn_bias: bool = False          # qwen-style QKV bias
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_expand: int = 2
+    ssm_chunk: int = 64
+    # hybrid (recurrentgemma): pattern of block kinds, e.g. ("rglru","rglru","attn")
+    block_pattern: tuple = ()
+    lru_width: int = 0
+    local_attn_window: int = 2048
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0             # frames after the (stubbed) conv frontend
+    # vlm
+    vision_tokens: int = 0           # patch-embedding prefix length (stub frontend)
+    # parallel attention+MLP residual branches (PaLM-style) — §Perf
+    # beyond-paper variant: halves the per-layer activation all-reduces
+    parallel_block: bool = False
+    # numerics
+    dtype: str = "bfloat16"
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+
+    @property
+    def q_per_kv(self) -> int:
+        return max(1, self.num_heads // max(1, self.num_kv_heads))
+
+    def reduced(self) -> "ArchConfig":
+        """A small same-family variant for CPU smoke tests."""
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            num_layers=2,
+            d_model=min(self.d_model, 256),
+            num_heads=min(self.num_heads, 4),
+            num_kv_heads=min(self.num_kv_heads, 2),
+            head_dim=64,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            num_experts=min(self.num_experts, 4) if self.num_experts else 0,
+            experts_per_token=min(self.experts_per_token, 2)
+            if self.experts_per_token
+            else 0,
+            ssm_state=min(self.ssm_state, 32) if self.ssm_state else 0,
+            ssm_heads=min(self.ssm_heads, 4) if self.ssm_heads else 0,
+            ssm_chunk=16 if self.ssm_state else 64,
+            lru_width=min(self.lru_width, 256) if self.lru_width else 0,
+            local_attn_window=64,
+            sliding_window=64 if self.sliding_window else 0,
+            encoder_layers=2 if self.encoder_layers else 0,
+            encoder_seq=16 if self.encoder_seq else 0,
+            vision_tokens=8 if self.vision_tokens else 0,
+            block_pattern=self.block_pattern,
+            dtype="float32",
+        )
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for roofline 6ND)."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "lstm":
+            return emb  # unused for lstm family
+        per_layer = 0
+        # attention (dense/moe/vlm/encdec decoder)
+        attn = (
+            d * self.num_heads * self.head_dim
+            + 2 * d * self.num_kv_heads * self.head_dim
+            + self.num_heads * self.head_dim * d
+        )
+        if self.family in ("dense", "moe", "vlm"):
+            per_layer += attn
+            if self.num_experts:
+                per_layer += self.num_experts * 3 * d * self.d_ff + d * self.num_experts
+            else:
+                per_layer += 3 * d * self.d_ff
+            per_layer += 2 * d  # norms
+            return emb + L * per_layer
+        if self.family == "ssm":
+            d_inner = self.ssm_expand * d
+            per_layer = (
+                d * (2 * d_inner + 2 * self.ssm_state * self.ssm_heads)  # in_proj-ish
+                + d_inner * d
+                + 3 * self.ssm_heads
+                + 2 * d
+            )
+            return emb + L * per_layer
+        if self.family == "hybrid":
+            w = self.lru_width or d
+            rglru = d * 2 * w + w * d + 3 * w + 2 * d
+            attn_l = attn + 2 * d
+            mlp = 3 * d * self.d_ff
+            n_attn = sum(1 for b in self.block_pattern for _ in [b] if b == "attn")
+            pat = self.block_pattern or ("rglru", "rglru", "attn")
+            n_att = sum(1 for b in pat if b == "attn")
+            frac_att = n_att / len(pat)
+            return emb + int(L * (frac_att * attn_l + (1 - frac_att) * rglru + mlp))
+        if self.family == "encdec":
+            enc = self.encoder_layers * (attn + 2 * d * self.d_ff + 2 * d)
+            dec = L * (2 * attn + 2 * d * self.d_ff + 3 * d)
+            return emb + enc + dec
+        return emb + L * per_layer
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE discounts inactive experts)."""
+        if not self.num_experts:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        total = self.param_count()
+        all_experts = L * self.num_experts * 3 * d * self.d_ff
+        active = L * self.experts_per_token * 3 * d * self.d_ff
+        return total - all_experts + active
+
+
+_ARCH_REGISTRY: dict[str, Callable[[], ArchConfig]] = {}
+
+
+def register_arch(name: str):
+    def deco(fn: Callable[[], ArchConfig]):
+        _ARCH_REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def get_arch_config(name: str) -> ArchConfig:
+    import repro_torch.configs  # noqa: F401  (populates the registry)
+
+    if name not in _ARCH_REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_REGISTRY)}")
+    return _ARCH_REGISTRY[name]()
+
+
+def list_archs() -> list[str]:
+    import repro_torch.configs  # noqa: F401
+
+    return sorted(_ARCH_REGISTRY)
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """The port's kernels: hand-written CUDA for Hopper under ``csrc/``,
 built by ``_build.py`` and launched through ctypes wrappers
-(``lstm_cell.py``, ``gossip_mix.py``), with plain PyTorch twins in
-``ref.py`` and the CUDA-or-CPU dispatch in ``ops.py``.
+(``lstm_cell.py``, ``gossip_mix.py``, ``swa_attention.py``), with plain
+PyTorch twins in ``ref.py`` and the CUDA-or-CPU dispatch in ``ops.py``.
 
   lstm_forward          L LSTM steps + linear head, per-group weights
                         (ports ``repro.kernels.lstm_cell.lstm_cell_pallas``)
@@ -9,8 +9,11 @@ built by ``_build.py`` and launched through ctypes wrappers
   gossip_mix_sparse     neighbor-table mix     (``gossip_mix_sparse_pallas``)
   gossip_mix_dp         dense local-DP mix     (``gossip_mix_dp_pallas``)
   gossip_mix_sparse_dp  sparse local-DP mix    (``gossip_mix_sparse_dp_pallas``)
+  swa_attention         causal sliding-window attention over the band,
+                        KV heads read in place (``swa_attention_pallas``)
 
 Callers use ``ops``; the package re-exports only ``lstm_forward``, so
-that ``repro_torch.kernels.gossip_mix`` stays the wrapper module.
+that ``repro_torch.kernels.gossip_mix`` and ``.swa_attention`` stay the
+wrapper modules.
 """
 from repro_torch.kernels.ops import lstm_forward

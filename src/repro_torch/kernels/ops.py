@@ -4,8 +4,9 @@ counterpart of ``repro.kernels.ops``).
 A tensor on a CUDA device goes to the kernel, which launches or raises;
 a tensor on the CPU goes to the plain twin.  There is no fallback from
 one to the other, and no padding: the kernels mask any shape, unlike
-``repro.kernels.ops``, which pads N to 8 rows and D to 512 columns and
-falls back to the reference LSTM cell when ``H % 128 != 0``.
+``repro.kernels.ops``, which pads N to 8 rows and D to 512 columns,
+falls back to the reference LSTM cell when ``H % 128 != 0`` and refuses
+an attention length S % 128 != 0.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from repro_torch.kernels import gossip_mix as gossip_kernels
 from repro_torch.kernels import lstm_cell
 from repro_torch.kernels import ref
+from repro_torch.kernels import swa_attention as swa_kernel
 
 
 def _route(name: str, t: torch.Tensor, kernel, plain):
@@ -55,3 +57,11 @@ def gossip_mix_sparse_dp(idx, wgt, w, z, active) -> torch.Tensor:
     fn = _route("gossip_mix_sparse_dp", w, gossip_kernels.gossip_mix_sparse_dp,
                 ref.gossip_mix_sparse_dp_plain)
     return fn(idx, wgt, w, z, active)
+
+
+def swa_attention(q, k, v, *, window: int) -> torch.Tensor:
+    """Causal sliding-window attention: q (B, S, H, hd), k and v
+    (B, S, K, hd) with H % K == 0 (KV heads not repeated) -> (B, S, H, hd);
+    see ``kernels/swa_attention.py``."""
+    fn = _route("swa_attention", q, swa_kernel.swa_attention, ref.swa_attention_plain)
+    return fn(q, k, v, window=window)

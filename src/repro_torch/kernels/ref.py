@@ -83,3 +83,23 @@ def gossip_mix_sparse_dp_plain(idx, wgt, w, z, active):
     wgt[n, 0] z[n]`` where active, else ``w[n]`` (slot 0 is self, so
     ``wgt[:, 0]`` is the densified diagonal)."""
     return _select(active, _table_sum(idx, wgt, w + z) - wgt[:, :1] * z, w)
+
+
+def swa_attention_plain(q, k, v, *, window: int):
+    """Causal sliding-window attention, the function the
+    ``swa_attention`` kernel computes: query i attends to the keys j with
+    i - window < j <= i.  q (B, S, H, hd); k, v (B, S, K, hd) with
+    H % K == 0, repeated to H heads here and then computed as
+    ``repro.kernels.ref.swa_attention_ref``: fp32 scores scaled by
+    hd**-0.5, masked with -1e30, softmax and the product with v in fp32,
+    the result in q's dtype.  It materialises (B, H, S, S) scores."""
+    s, h, hd = q.shape[1], q.shape[2], q.shape[3]
+    rep = h // k.shape[2]
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (hd ** -0.5)
+    pos = torch.arange(s, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    scores = torch.where(mask, scores, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)

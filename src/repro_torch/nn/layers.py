@@ -1,0 +1,71 @@
+"""Basic transformer layers as plain functions over tensors (a copy of
+``repro.nn.layers``).
+
+Conventions, as in the JAX package: activations (B, S, D), attention
+heads (B, S, H, hd), ``dense(x, w)`` with ``w`` (d_in, d_out), and every
+vocabulary-sized dimension padded to a multiple of 128 (``pad_vocab``).
+``layer_norm`` and ``gelu_ffn`` wait for the enc-dec family; the
+``init_*`` helpers draw from a ``torch.Generator`` (the same
+distributions as JAX's, not the same numbers).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def pad_vocab(v: int, multiple: int = 128) -> int:
+    return -(-v // multiple) * multiple
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in fp32 with the (1 + scale) gain, back in x's dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return table[tokens.long()].to(dtype)
+
+
+def rope(x: torch.Tensor, positions, theta: float = 1e4) -> torch.Tensor:
+    """Rotary embedding, halves rotated.  x (B, S, H, hd); positions
+    (B, S) or (S,), a tensor or a sequence of ints."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    positions = torch.as_tensor(positions, device=x.device)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].float() * freq  # (B, S, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn in fp32 on the generator's device, then
+    cast to ``dtype``."""
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+
+
+def init_swiglu(gen: torch.Generator, d: int, ff: int, dtype=torch.float32) -> dict:
+    return {
+        "w_gate": normal(gen, (d, ff), d ** -0.5, dtype),
+        "w_up": normal(gen, (d, ff), d ** -0.5, dtype),
+        "w_down": normal(gen, (ff, d), ff ** -0.5, dtype),
+    }
+
+
+def swiglu_ffn(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Gated MLP (gate, up, down), llama/mistral style."""
+    return dense(F.silu(dense(x, p["w_gate"])) * dense(x, p["w_up"]), p["w_down"])

@@ -1,0 +1,122 @@
+"""The port's attention held against the JAX package on the CPU: the
+``swa_attention`` twin against JAX's oracle and its Pallas kernel (in
+interpret mode, as ``tests/test_kernels.py`` runs it), the three branches
+of ``gqa_attention`` with a spy on the branch taken, one bf16 case, and
+decode attention over the KV cache.  Inputs come from numpy seeds."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ops import swa_attention as jax_swa_pallas
+from repro.kernels.ref import swa_attention_ref as jax_swa_ref
+from repro.nn import attention as jattn
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import swa_attention as swa_kernel
+from repro_torch.nn import attention as tattn
+
+ATOL = 1e-5  # fp32: the same function, sums in another order (measured <= 1.2e-6)
+
+
+def _qkv(b, s, h, kh, hd, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(dtype)
+            for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd))]
+
+
+def _jax(*arrays, dtype=jnp.float32):
+    return [jnp.asarray(a, dtype) for a in arrays]
+
+
+def _torch(*arrays, dtype=torch.float32):
+    return [torch.tensor(a).to(dtype) for a in arrays]
+
+
+def _repeat(a, rep):
+    return np.repeat(a, rep, axis=2)
+
+
+@pytest.mark.parametrize("s", [128, 256, 1024])
+@pytest.mark.parametrize("window", [64, 128, 300, 1024])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_swa_plain_matches_jax_kernel_and_oracle(s, window, hd):
+    q, k, v = _qkv(2, s, 2, 2, hd, seed=s + window + hd)
+    got = ref.swa_attention_plain(*_torch(q, k, v), window=window).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_swa_ref(*_jax(q, k, v), window=window)),
+                               rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, np.asarray(jax_swa_pallas(*_jax(q, k, v), window=window)),
+                               rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("h,kh", [(4, 2), (12, 1)])
+def test_swa_plain_reads_kv_heads_in_place(h, kh):
+    """Query head i uses KV head i // (H/K): the twin on (B, S, K, hd)
+    equals JAX's oracle on the KV repeated to H heads."""
+    q, k, v = _qkv(1, 256, h, kh, 64, seed=h)
+    got = ref.swa_attention_plain(*_torch(q, k, v), window=100).numpy()
+    want = jax_swa_ref(*_jax(q, _repeat(k, h // kh), _repeat(v, h // kh)), window=100)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=ATOL)
+
+
+def test_ops_routes_cpu_to_the_twin_and_counts_no_launch():
+    q, k, v = _torch(*_qkv(1, 128, 2, 1, 64, seed=0))
+    before = swa_kernel.LAUNCHES
+    assert torch.equal(ops.swa_attention(q, k, v, window=64),
+                       ref.swa_attention_plain(q, k, v, window=64))
+    assert swa_kernel.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        ops.swa_attention(q.to("meta"), k.to("meta"), v.to("meta"), window=64)
+
+
+@pytest.mark.parametrize("s,window,branch", [
+    (256, 0, "plain"), (256, 64, "plain"), (2048, 1024, "plain"),
+    (3072, 0, "flash"), (3072, 2048, "flash"), (3072, 1024, "banded")])
+def test_gqa_attention_branches_match_jax(s, window, branch):
+    q, k, v = _qkv(1, s, 4, 2, 64, seed=s + window)
+    before = dict(tattn.BRANCHES)
+    got = tattn.gqa_attention(*_torch(q, k, v), causal=True, window=window)
+    taken = [name for name in before if tattn.BRANCHES[name] != before[name]]
+    assert taken == [branch]
+    want = jattn.gqa_attention(*_jax(q, k, v), causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
+def test_banded_reference_matches_jax():
+    q, k, v = _qkv(1, 512, 2, 1, 64, seed=11)
+    got = tattn.banded_flash_attention(*_torch(q, k, v), window=128, block=128)
+    want = jattn.banded_flash_attention(*_jax(q, k, v), window=128, block=128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
+def test_bf16_banded_branch_against_jax():
+    """bf16 at the banded branch (S=3072, w=1024).  JAX's banded path
+    rounds the scores and the probabilities to bf16 (plain_attention);
+    the port's branch (the kernel, here its twin) keeps them in fp32 and
+    rounds only its output.  bf16 keeps 8 significant bits (relative
+    rounding 2**-9 = 2e-3): a score of |s| <= ~5 moves by <= 1e-2, a
+    probability by ~1%, and the output (|o| <= ~2, itself rounded twice)
+    by a few bf16 steps of 2**-8 near 1 -- 1.6e-2 measured; JAX's own
+    bf16 tolerance for this kernel, 5e-2 (tests/test_kernels.py), holds
+    it."""
+    q, k, v = _qkv(1, 3072, 4, 2, 64, seed=5)
+    got = tattn.gqa_attention(*_torch(q, k, v, dtype=torch.bfloat16), window=1024)
+    want = jattn.gqa_attention(*_jax(q, k, v, dtype=jnp.bfloat16), window=1024)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=0, atol=5e-2)
+
+
+@pytest.mark.parametrize("cap,steps,window", [(16, 5, 0), (8, 13, 8)])
+def test_kvcache_and_decode_attention_match_jax(cap, steps, window):
+    rng = np.random.default_rng(cap + steps)
+    tcache = tattn.KVCache.init(2, cap, 2, 64, torch.float32)
+    jcache = jattn.KVCache.init(2, cap, 2, 64, jnp.float32)
+    for _ in range(steps):  # past the capacity: the ring wraps
+        q, k, v = (rng.normal(size=(2, 1, n, 64)).astype(np.float32) for n in (4, 2, 2))
+        tcache = tcache.append(*_torch(k, v))
+        jcache = jcache.append(*_jax(k, v))
+        got = tattn.decode_attention(_torch(q)[0], tcache, window=window)
+        want = jattn.decode_attention(_jax(q)[0], jcache, window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(tcache.k.numpy(), np.asarray(jcache.k))
+    assert int(tcache.pos) == int(jcache.pos) == steps

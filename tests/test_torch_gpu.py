@@ -1,8 +1,9 @@
-"""The port's CUDA kernels on the card: ``lstm_forward`` and the four
-gossip kernels held against their plain twins, a row's result bitwise
-independent of the launch it shares, the wrappers' refusals, the
-servable's bitwise contract through ``lstm_forward``, and a few
-training rounds through the gossip kernels.
+"""The port's CUDA kernels on the card: ``lstm_forward``, the four
+gossip kernels and ``swa_attention`` held against their plain twins, a
+row's result bitwise independent of the launch it shares, the wrappers'
+refusals, the servable's bitwise contract through ``lstm_forward``, a
+few training rounds through the gossip kernels, and the banded branch
+of ``gqa_attention`` and a small LM prefill through ``swa_attention``.
 
 These tests need a CUDA device and skip elsewhere (decided inside the
 ``cuda`` fixture).  They import neither ``jax`` nor ``repro``, so they
@@ -19,6 +20,7 @@ from repro_torch.core import GluADFL
 from repro_torch.core.topology import mixing_matrix, neighbor_table, random_adjacency
 from repro_torch.kernels import gossip_mix as gossip_kernels
 from repro_torch.kernels import lstm_cell, ref
+from repro_torch.kernels import swa_attention as swa_kernel
 from repro_torch.kernels.ref import lstm_forward_plain
 from repro_torch.optim import adam
 from repro_torch.launch.serve import selfcheck
@@ -32,6 +34,10 @@ ATOL = 1e-5  # fp32 summation order over 12 recurrent steps
 # ~1, kernel (FMA) against twin (multiply, then add)
 GOSSIP_ATOL = 1e-6
 L = 12
+# swa_attention against its twin, JAX's own tolerances for the Pallas
+# kernel (tests/test_kernels.py): fp32 sums over <= 4096 keys in another
+# order; bf16 inputs, both sides fp32 inside, the output rounded to bf16
+SWA_ATOL = {torch.float32: 3e-5, torch.bfloat16: 5e-2}
 
 
 @pytest.fixture
@@ -186,3 +192,87 @@ def test_training_rounds_go_through_the_gossip_kernels(cuda, n, repr_, sigma):
     assert gossip_kernels.LAUNCHES[name] == before + 5
     assert all(np.isfinite(h["loss"]) for h in hist)
     assert bool(torch.isfinite(state.params).all())
+
+
+def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.normal(size=shape), dtype=dtype, device=device)
+                 for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kh,hd,window", [
+    (2, 128, 2, 2, 64, 64), (1, 256, 12, 1, 128, 100), (2, 1024, 4, 2, 64, 300),
+    (1, 1000, 3, 1, 128, 1024), (1, 320, 2, 1, 64, 4096), (1, 192, 2, 2, 128, 1)])
+def test_swa_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, window):
+    q, k, v = _swa_inputs(b, s, h, kh, hd, dtype, seed=s + window, device=cuda)
+    before = swa_kernel.LAUNCHES
+    got = swa_kernel.swa_attention(q, k, v, window=window)
+    again = swa_kernel.swa_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert swa_kernel.LAUNCHES == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    want = ref.swa_attention_plain(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=SWA_ATOL[dtype])
+
+
+def test_swa_wrapper_checks(cuda):
+    q, k, v = _swa_inputs(1, 128, 4, 2, 64, torch.float32, seed=0, device=cuda)
+    before = swa_kernel.LAUNCHES
+    with pytest.raises(RuntimeError, match="require"):
+        swa_kernel.swa_attention(q.clone().requires_grad_(True), k, v, window=64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        swa_kernel.swa_attention(q, k.bfloat16(), v, window=64)
+    with pytest.raises(ValueError, match="H % K"):
+        swa_kernel.swa_attention(q[:, :, :3].contiguous(), k, v, window=64)
+    with pytest.raises(ValueError, match="hd must be"):
+        swa_kernel.swa_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                                 v[..., :32].contiguous(), window=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        swa_kernel.swa_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, window=64)
+    with pytest.raises(ValueError, match="window"):
+        swa_kernel.swa_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        swa_kernel.swa_attention(q, k.cpu(), v, window=64)
+    assert swa_kernel.LAUNCHES == before
+    with torch.no_grad():
+        swa_kernel.swa_attention(q.clone().requires_grad_(True), k, v, window=64)
+    assert swa_kernel.LAUNCHES == before + 1
+
+
+def test_gqa_attention_banded_branch_runs_the_kernel(cuda):
+    from repro_torch.nn import attention
+
+    q, k, v = _swa_inputs(1, 3072, 4, 2, 64, torch.float32, seed=3, device=cuda)
+    before, branches = swa_kernel.LAUNCHES, dict(attention.BRANCHES)
+    got = attention.gqa_attention(q, k, v, causal=True, window=1024)
+    assert swa_kernel.LAUNCHES == before + 1
+    assert attention.BRANCHES["banded"] == branches["banded"] + 1
+    want = attention.banded_flash_attention(q, k, v, window=1024)
+    torch.testing.assert_close(got, want, rtol=0, atol=SWA_ATOL[torch.float32])
+
+
+def test_lm_prefill_and_decode_through_the_kernel(cuda):
+    import dataclasses
+
+    from repro_torch.arch import build_arch
+    from repro_torch.config import get_arch_config
+
+    cfg = dataclasses.replace(get_arch_config("mistral-large-123b").reduced(),
+                              sliding_window=1024)
+    arch = build_arch(cfg)
+    params = arch.init_params(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (1, 3072),
+                           generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    before = swa_kernel.LAUNCHES
+    logits, caches = arch.prefill_fn(params, {"tokens": tokens})
+    assert swa_kernel.LAUNCHES == before + cfg.num_layers
+    cpu_params = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    want, want_caches = arch.prefill_fn(cpu_params, {"tokens": tokens.cpu()})
+    torch.testing.assert_close(logits.cpu(), want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(caches.k.cpu(), want_caches.k, rtol=0, atol=1e-5)
+    step, _ = arch.decode_fn(params, caches, {"token": tokens[:, :1], "pos": 3072})
+    want_step, _ = arch.decode_fn(cpu_params, want_caches, {"token": tokens[:, :1].cpu(), "pos": 3072})
+    torch.testing.assert_close(step.cpu(), want_step, rtol=0, atol=1e-4)

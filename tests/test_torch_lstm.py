@@ -211,7 +211,7 @@ def _fake_nvcc(tmp_path, fail=False):
 def test_build_compiles_each_source_once_into_a_hashed_library(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(_build, "_nvcc", lambda: _fake_nvcc(tmp_path))
-    assert _build.build() == ["gossip_mix", "lstm_forward"]
+    assert _build.build() == ["gossip_mix", "lstm_forward", "swa_attention"]
     lib = _build.library_path("lstm_forward")
     assert lib.parent == tmp_path / "kernels" and lib.name.startswith("lstm_forward-")
     assert lib.read_text() == "lib" and not list(lib.parent.glob("*.tmp"))
