@@ -13,8 +13,9 @@
 // layer).  fp32 or bf16 in, the same type out; scores, softmax and the
 // accumulator are fp32, as in the Pallas kernel: the scale on the scores,
 // NEG_INF = -1e30 for masked scores, l clamped at 1e-30 before the divide.
-// hd is 64 or 128; any S (rows past the ragged edge load as zeros and are
-// not stored: causality keeps every stored row off them); window >= 1.
+// hd is 64 or 128; S a multiple of the 64-row tile (the wrapper refuses
+// any other S, as repro.kernels.ops refuses S % 128 != 0: the only caller,
+// gqa_attention's banded branch, takes S % 1024 == 0); window >= 1.
 //
 // Design.  One block per (64-row q tile, b * H + h); blocks run in no
 // order, so the Pallas kernel's sequential third grid axis, which carried
@@ -88,17 +89,14 @@ struct Vec4<__nv_bfloat16> {
 };
 
 // Rows [row0, row0 + kTile) of one head, `step` elements apart in
-// global memory, into shared memory as fp32 with row stride `stride`;
-// rows at or past S are zeros.
+// global memory, into shared memory as fp32 with row stride `stride`.
 template <typename T, int HD>
 __device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
-                                          long long step, int row0, int S) {
+                                          long long step, int row0) {
   constexpr int kVecs = HD / 4;
   for (int i = threadIdx.x; i < kTile * kVecs; i += kThreads) {
     const int r = i / kVecs, c = (i % kVecs) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) val = Vec4<T>::load(src + (row0 + r) * step + c);
-    *reinterpret_cast<float4*>(dst + r * stride + c) = val;
+    *reinterpret_cast<float4*>(dst + r * stride + c) = Vec4<T>::load(src + (row0 + r) * step + c);
   }
 }
 
@@ -135,7 +133,7 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (static_cast<long long>(b) * S * K + g) * HD;
   const T* vb = v + (static_cast<long long>(b) * S * K + g) * HD;
 
-  load_tile<T, HD>(qs, HD, qb, q_step, q0, S);
+  load_tile<T, HD>(qs, HD, qb, q_step, q0);
 
   float acc[4][kCols][4];
   float m[4], l[4];
@@ -149,12 +147,11 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
   }
 
-  const int q_last = min(q0 + kTile, S) - 1;
   const int k_start = (max(q0 - window + 1, 0) / kTile) * kTile;
-  for (int k0 = k_start; k0 <= q_last; k0 += kTile) {
+  for (int k0 = k_start; k0 <= q0; k0 += kTile) {
     __syncthreads();  // Q is staged; the last tile's P and V are read
-    load_tile<T, HD>(ks, HD + kKStride, kb, kv_step, k0, S);
-    load_tile<T, HD>(vs, HD, vb, kv_step, k0, S);
+    load_tile<T, HD>(ks, HD + kKStride, kb, kv_step, k0);
+    load_tile<T, HD>(vs, HD, vb, kv_step, k0);
     __syncthreads();
 
     // scores of rows ty + 16 i against keys tx + 16 j
@@ -263,7 +260,6 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -282,7 +278,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((S + kTile - 1) / kTile), static_cast<unsigned>(B * H));
+  const dim3 grid(static_cast<unsigned>(S / kTile), static_cast<unsigned>(B * H));
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), S, H, K, window, scale);
@@ -294,7 +290,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for an hd
 // other than 64 or 128).  The wrapper (kernels/swa_attention.py) checks
 // the rest: contiguous (B, S, H, hd) / (B, S, K, hd) tensors of one
-// dtype, H % K == 0, S >= 1, window >= 1, B * H <= 65535.
+// dtype, H % K == 0, S a positive multiple of 64, window >= 1,
+// B * H <= 65535.
 extern "C" int swa_attention_launch(const void* q, const void* k, const void* v, void* o,
                                     int B, int S, int H, int K, int hd, int window,
                                     float scale, int bf16, void* stream) {

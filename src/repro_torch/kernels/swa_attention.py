@@ -6,8 +6,9 @@ sliding-window attention with an online softmax over the diagonal band.
 Unlike the Pallas kernel, which takes the KV heads repeated to H, the
 kernel reads k and v as ``(B, S, K, hd)`` with ``H % K == 0`` and
 serves query head h from KV head ``h // (H // K)``; K = H is the Pallas
-case.  Any S is taken (the ragged edge is masked; ``repro.kernels.ops``
-refuses S % 128 != 0).  Its plain twin is
+case.  S must be a multiple of the kernel's 64-row tile, as
+``repro.kernels.ops`` refuses S % 128 != 0 (the banded branch of
+``gqa_attention``, the only caller, takes S % 1024 == 0).  Its plain twin is
 ``repro_torch.kernels.ref.swa_attention_plain``; the CUDA-or-CPU
 dispatch is ``repro_torch.kernels.ops.swa_attention``.
 
@@ -26,6 +27,7 @@ from repro_torch.kernels._checks import check_operands, refuse_autograd
 LAUNCHES = 0
 
 HEAD_DIMS = (64, 128)
+TILE = 64  # query rows and keys per tile of the kernel
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEADS = 65535  # B * H blocks along gridDim.y
 
@@ -62,6 +64,8 @@ def _check(q, k, v, window) -> tuple[int, int, int, int, int]:
     if min(b, s, h) < 1 or b * h > MAX_HEADS:
         raise ValueError(f"swa_attention: need B, S, H >= 1 and B * H <= {MAX_HEADS}, "
                          f"got B={b} S={s} H={h}")
+    if s % TILE:
+        raise ValueError(f"swa_attention: S must be a multiple of {TILE}, got {s}")
     if window < 1:
         raise ValueError(f"swa_attention: window must be >= 1, got {window}")
     return b, s, h, kh, hd
@@ -69,9 +73,9 @@ def _check(q, k, v, window) -> tuple[int, int, int, int, int]:
 
 def swa_attention(q, k, v, *, window: int) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream: q (B, S, H, hd),
-    k and v (B, S, K, hd), one dtype (float32 or bfloat16), contiguous
-    and on one CUDA device -> o (B, S, H, hd) in q's dtype.  Query i
-    attends to the keys j with i - window < j <= i.  Raises on anything
+    k and v (B, S, K, hd), one dtype (float32 or bfloat16), contiguous,
+    on one CUDA device, S % 64 == 0 -> o (B, S, H, hd) in q's dtype.
+    Query i attends to the keys j with i - window < j <= i.  Raises on anything
     else, on a failed launch, and when grad mode is on and an input
     requires grad (the kernel has no backward, as the Pallas kernel has
     no ``custom_vjp``)."""

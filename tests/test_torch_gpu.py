@@ -203,7 +203,7 @@ def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,kh,hd,window", [
     (2, 128, 2, 2, 64, 64), (1, 256, 12, 1, 128, 100), (2, 1024, 4, 2, 64, 300),
-    (1, 1000, 3, 1, 128, 1024), (1, 320, 2, 1, 64, 4096), (1, 192, 2, 2, 128, 1)])
+    (1, 960, 3, 1, 128, 1024), (1, 320, 2, 1, 64, 4096), (1, 192, 2, 2, 128, 1)])
 def test_swa_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, window):
     q, k, v = _swa_inputs(b, s, h, kh, hd, dtype, seed=s + window, device=cuda)
     before = swa_kernel.LAUNCHES
@@ -233,6 +233,9 @@ def test_swa_wrapper_checks(cuda):
         swa_kernel.swa_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, window=64)
     with pytest.raises(ValueError, match="window"):
         swa_kernel.swa_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        swa_kernel.swa_attention(q[:, :100].contiguous(), k[:, :100].contiguous(),
+                                 v[:, :100].contiguous(), window=64)
     with pytest.raises(ValueError, match="CUDA"):
         swa_kernel.swa_attention(q, k.cpu(), v, window=64)
     assert swa_kernel.LAUNCHES == before
