@@ -10,46 +10,75 @@
 // q, o (B, S, H, hd); k, v (B, S, K, hd) with H % K == 0: the KV heads
 // are read in place, never repeated to H (the Pallas signature takes them
 // repeated; at the LM prefill's shape that would be two 805 MB copies a
-// layer).  fp32 or bf16 in, the same type out; scores, softmax and the
-// accumulator are fp32, as in the Pallas kernel: the scale on the scores,
-// NEG_INF = -1e30 for masked scores, l clamped at 1e-30 before the divide.
-// hd is 64 or 128; S a multiple of the 64-row tile (the wrapper refuses
-// any other S, as repro.kernels.ops refuses S % 128 != 0: the only caller,
-// gqa_attention's banded branch, takes S % 1024 == 0); window >= 1.
-//
-// Design.  One block per (64-row q tile, b * H + h); blocks run in no
-// order, so the Pallas kernel's sequential third grid axis, which carried
-// acc, m and l in VMEM scratch, becomes a loop inside the block with m, l
-// and acc in registers.  The loop visits only the 64-key tiles that hold
-// a key of the band of some row of the tile, from the tile of
-// max(q0 - window + 1, 0) to the diagonal, instead of revisiting tile 0
-// and masking duplicates; the element mask runs only on the tiles at the
-// band's two edges.  Each K and V tile is staged in shared memory as fp32
-// (K rows padded by 4 floats so the float4 reads of a quarter warp hit
-// distinct banks); the probabilities P reuse K's space once the scores
-// are in registers.  The 256 threads form 16 x 16: thread (ty, tx) owns
-// rows ty + 16 i and keys tx + 16 j (i, j < 4) of the scores, and the
-// same rows times columns 4 tx + 64 g .. +3 of the output, so the row
-// statistics stay in the thread and a row's max and sum are xor-shuffle
-// reductions over its 16 lanes.  Every sum runs in a fixed order with
-// FMAs and there are no atomics, so two launches agree bitwise.
+// layer).  fp32 or bf16 in, the same type out; scores, softmax statistics
+// and the accumulator are fp32, as in the Pallas kernel: the scale on the
+// scores, NEG_INF = -1e30 for masked scores, l clamped at 1e-30 before
+// the divide.  hd is 64 or 128; S a multiple of 64 (the wrapper refuses
+// any other S, as repro.kernels.ops refuses S % 128 != 0: the only
+// caller, gqa_attention's banded branch, takes S % 1024 == 0); window >= 1.
 //
 // What bounds it on an H100.  The work is 4 hd operations for every
 // (query, key) pair in the band: at the Mistral-Large prefill (B=1,
 // S=32,768, H=96, K=8, hd=128, window 4096) 1.2e10 pairs, 6.2e12
 // operations, 6.25 ms at the 989 TFLOP/s of the bf16 tensor cores; the
 // bytes (q, o 805 MB each, k, v 67 MB each) take 0.52 ms at 3.35 TB/s.
-// So it is bound by operations.  This first kernel computes them with
-// scalar fp32 FMAs, whose peak (67 TFLOP/s) alone puts it at >= 92 ms:
-// it is right and simple, not fast.  The redesign (wgmma on bf16 tiles
-// staged by TMA, warp-specialised, as FlashAttention-3 does) is later
-// work.
+// So it is bound by operations, and only the tensor cores (wgmma) reach
+// that rate: scalar fp32 FMAs peak at 67 TFLOP/s, >= 92 ms.
+//
+// bf16: swa_attention_kernel_wgmma, FlashAttention-3's shape.  A block
+// holds one 128-row q tile of one query head; 384 threads in three
+// warpgroups.  The producer warpgroup gives most of its registers back
+// (setmaxnreg) and one of its threads issues every TMA load: Q once, then
+// the band's 128-key K and V tiles through a ring of 3 (hd 128) or 4
+// (hd 64) stages in shared memory, each with a full barrier for K, one
+// for V and an empty barrier.  Tensor maps are 4-D, {hd, heads, S, B},
+// in 64-element (128-byte) boxes, 128-byte swizzled: the layout wgmma's
+// shared-memory descriptors read directly; rows past S (S % 128 == 64)
+// read as zeros and are never stored, and never come from the next
+// batch.  Each consumer warpgroup owns 64 query rows (wgmma's M): S =
+// Q K^T is a wgmma from shared memory into fp32 registers; the element
+// mask runs only on tiles that cross an edge of the band; the softmax
+// runs in fp32 in registers (a row lives on the 4 lanes of a quad, so
+// its max takes two xor-shuffles); l sums the fp32 p; P is rounded to
+// bf16 in place -- the accumulator's layout is the A operand's -- and O =
+// O alpha + P V is a second wgmma with A from registers and V read
+// transposed from shared memory.  Two overlaps keep the tensor cores fed
+// while the softmax runs on the other units: within a warpgroup, tile
+// i's Q K^T and tile i - 1's P V are issued together and tile i's softmax
+// runs while P V does; between the two warpgroups, named barriers make
+// them take turns to issue (pingpong), so one's softmax runs while the
+// other's products do.  O is divided by max(l, 1e-30) and rounded to bf16
+// once, staged in the warpgroup's own rows of Q's space and stored by TMA.
+// Blocks run in the order (batch, KV head, q tile, query head): the query
+// heads that share a KV head, and neighbouring q tiles, read the same K/V
+// tiles from L2 close together.  Sums run in a fixed order and there are
+// no atomics, so two launches agree bitwise.
+//
+// Rounding P to bf16 (wgmma multiplies bf16, as FlashAttention-3 does)
+// costs up to 2^-9 of each p: the output can move by 2^-9 sum_j p_j |v_j|
+// / l on top of its own rounding, 2^-9 |o|.  ref.swa_bf16_bound states
+// that limit, and the checks hold the kernel to it.
+//
+// fp32: swa_attention_kernel, scalar.  TF32 tensor cores would round q
+// and k to 10-bit mantissas and break the 3e-5 bound that the fp32 checks
+// hold, so fp32 keeps scalar FMAs: one block per (64-row q tile, b * H +
+// h) loops over the band's 64-key tiles with m, l and acc in registers;
+// K and V are staged in shared memory as fp32 (K rows padded by 4 floats
+// so the float4 reads of a quarter warp hit distinct banks); P reuses K's
+// space once the scores are in registers; the 256 threads form 16 x 16,
+// thread (ty, tx) owning rows ty + 16 i and keys tx + 16 j (i, j < 4) of
+// the scores and the same rows of the output, so a row's max and sum are
+// xor-shuffles over its 16 lanes.  It is right and simple, not fast.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+// ---- fp32: the scalar kernel -------------------------------------------
 
 constexpr int kTile = 64;                  // query rows and keys per tile
 constexpr int kThreads = 256;              // 16 x 16
@@ -67,24 +96,6 @@ struct Vec4<float> {
   }
   static __device__ __forceinline__ void store(float* p, float4 v) {
     *reinterpret_cast<float4*>(p) = v;
-  }
-};
-
-template <>
-struct Vec4<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float4 v) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<const uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = raw;
   }
 };
 
@@ -285,21 +296,360 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16: tensor cores, TMA, warp specialisation ----------------------
+
+constexpr int kRows = 128;                    // query rows a block; keys a K/V tile
+constexpr int kHalf = 64;                     // query rows a consumer warpgroup (wgmma's M)
+constexpr int kRowBytes = 128;                // a swizzled row: 64 bf16 of hd
+constexpr int kBoxBytes = kRows * kRowBytes;  // 128 rows of one 64-column box
+constexpr int kWgThreads = 128;
+constexpr int kWgmmaThreads = 3 * kWgThreads;  // producer + two consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr int kTurn = 3;  // named barriers kTurn, kTurn + 1: the consumers' turns
+// registers: 384 threads start with 168 each (65,536 / 384, in steps of
+// 8); the producer gives 128 x 128 back and the consumers take 256 x 64
+constexpr int kLaunchRegs = 168, kProducerRegs = 40, kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct WgmmaLayout {
+  static constexpr int kBoxes = HD / 64;                 // 64-column boxes of a row
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;  // a Q, K or V tile
+  static constexpr int kStages = HD == 128 ? 3 : 4;      // the K/V ring
+  static constexpr int kBarriers = 1 + 3 * kStages;      // Q; K full, V full, empty a stage
+  // 1024 bytes of slack to align the swizzle atoms
+  static constexpr size_t kSmem = 1024 + kTileBytes * (1 + 2 * kStages) + 8 * kBarriers;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// S (64 x 128 keys, fp32) = Q K^T: Q's 64 rows at q_addr, the K tile at
+// k_addr, both HD wide in 64-column boxes of kBoxBytes
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&sc)[kRows / 2], uint32_t q_addr,
+                                         uint32_t k_addr) {
+  using namespace hopper;
+  reg_fence(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_m64n128k16_ss(sc, sw128_desc(q_addr + off, 16, 1024), sw128_desc(k_addr + off, 16, 1024),
+                        kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O (64 x HD, fp32) += P V: P from registers, the V tile at v_addr read
+// transposed (MN-major), 16 keys a step
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&o)[N], uint32_t (&p)[kRows / 16][4],
+                                         uint32_t v_addr) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < kRows / 16; ++kk) reg_fence(p[kk]);
+  reg_fence(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kRows / 16; ++kk) {
+    const uint64_t desc_v = sw128_desc(v_addr + kk * 16 * kRowBytes, kBoxBytes, 1024);
+    if constexpr (N == 64)
+      wgmma_m64n128k16_rs(o, p[kk], desc_v);
+    else
+      wgmma_m64n64k16_rs(o, p[kk], desc_v);
+  }
+  wgmma_commit();
+}
+
+// where a thread's accumulator elements lie: rows `row` and row + 8 of
+// the warpgroup's 64 (the first is r_lo), columns 8 c + col + {0, 1}
+struct Rows {
+  int r_lo, row, col, window;
+  float scale_log2;
+};
+
+// The online softmax of the tile at key k0, in place on sc: m, alpha and
+// l updated, sc = p = exp2(S scale_log2 - m) in fp32.
+__device__ __forceinline__ void online_softmax(float (&sc)[kRows / 2], float (&m)[2],
+                                               float (&l)[2], float (&alpha)[2],
+                                               const Rows& at, int k0) {
+  // The element mask only where the tile crosses an edge of the band for
+  // a row of this warpgroup.  A masked score is -inf: a row with no key in
+  // the tile keeps m (>= kNegInf, finite) and gets p = 0, where the Pallas
+  // kernel's kNegInf gives p = 1 until a key of the band arrives with
+  // alpha = 0 -- the same result either way.
+  const bool inside = k0 + kRows - 1 <= at.r_lo && k0 > at.r_lo + kHalf - 1 - at.window;
+  if (!inside) {
+    const float masked = __int_as_float(0xff800000);
+#pragma unroll
+    for (int c = 0; c < kRows / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qp = at.row + 8 * (e / 2), kp = k0 + 8 * c + at.col + e % 2;
+        if (!(kp <= qp && kp > qp - at.window)) sc[4 * c + e] = masked;
+      }
+  }
+  float neg_m[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {  // the row max, in the log2 domain (scale_log2 > 0)
+    float mx = sc[2 * j];
+#pragma unroll
+    for (int c = 0; c < kRows / 8; ++c)
+      mx = fmaxf(mx, fmaxf(sc[4 * c + 2 * j], sc[4 * c + 2 * j + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(m[j], mx * at.scale_log2);
+    alpha[j] = hopper::exp2_approx(m[j] - mx);
+    m[j] = mx;
+    neg_m[j] = -mx;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < kRows / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = hopper::exp2_approx(fmaf(sc[4 * c + e], at.scale_log2, neg_m[e / 2]));
+      sum[e / 2] += x;
+      sc[4 * c + e] = x;
+    }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + sum[j];
+}
+
+// O *= alpha, and P rounded to bf16: fragment f of keys 16 kk .. 16 kk +
+// 15 is row f % 2, columns 8 (f / 2) + col + {0, 1}, which are registers
+// 8 kk + 2 f + {0, 1} of the accumulator
+template <int N>
+__device__ __forceinline__ void rescale_and_round(float (&o)[N], uint32_t (&p)[kRows / 16][4],
+                                                  const float (&sc)[kRows / 2],
+                                                  const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= alpha[(i / 2) % 2];
+#pragma unroll
+  for (int kk = 0; kk < kRows / 16; ++kk)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) p[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+swa_attention_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap o_map, int S, int H, int K,
+                           int window, float scale_log2) {
+  using namespace hopper;
+  using L = WgmmaLayout<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* kv = qs + L::kTileBytes;  // stage s: K at kv + 2 s tiles, V the tile after
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv + 2 * L::kStages * L::kTileBytes);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + L::kStages;
+  uint64_t* empty = v_full + L::kStages;
+
+  // blocks in the order (b, KV head g, q tile, query head of g's group)
+  const int group = H / K;
+  const int n_qt = (S + kRows - 1) / kRows;
+  int idx = blockIdx.x;
+  const int h_in_group = idx % group;
+  idx /= group;
+  const int qt = idx % n_qt;
+  idx /= n_qt;
+  const int g = idx % K, b = idx / K;
+  const int h = g * group + h_in_group;
+  const int q0 = qt * kRows;
+  const int t_first = max(q0 - window + 1, 0) / kRows;
+  const int n_tiles = qt - t_first + 1;  // the band's K/V tiles, through the diagonal
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the warpgroup, through a shuffle so that the compiler sees it is the
+  // same on every lane: setmaxnreg holds only in a warp-uniform branch
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWgThreads, 0);
+  if (wg == 0) {  // producer
+    regs_release<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const int halves = q0 + kHalf < S ? 2 : 1;  // the 64-row halves of Q with a row < S
+      mbar_expect_tx(q_full, halves * L::kBoxes * kHalf * kRowBytes);
+      for (int half = 0; half < halves; ++half)
+        for (int x = 0; x < L::kBoxes; ++x)
+          tma_load_4d(qs + x * kBoxBytes + half * kHalf * kRowBytes, &q_map, q_full, 64 * x, h,
+                      q0 + half * kHalf, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % L::kStages;
+        mbar_wait(&empty[s], ((i / L::kStages) & 1) ^ 1);  // the first round passes at once
+        const int k0 = (t_first + i) * kRows;
+        uint8_t* ks = kv + 2 * s * L::kTileBytes;
+        mbar_expect_tx(&k_full[s], L::kTileBytes);
+        for (int x = 0; x < L::kBoxes; ++x)
+          tma_load_4d(ks + x * kBoxBytes, &k_map, &k_full[s], 64 * x, g, k0, b);
+        mbar_expect_tx(&v_full[s], L::kTileBytes);
+        for (int x = 0; x < L::kBoxes; ++x)
+          tma_load_4d(ks + L::kTileBytes + x * kBoxBytes, &v_map, &v_full[s], 64 * x, g, k0, b);
+      }
+    }
+  } else {  // two consumers, 64 query rows each
+    regs_acquire<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int r_lo = q0 + cw * kHalf;  // the warpgroup's first row
+    if (r_lo >= S) {
+      // rows past S (S % 128 == 64): release every stage, compute nothing
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % L::kStages;
+        const uint32_t parity = (i / L::kStages) & 1;
+        mbar_wait(&k_full[s], parity);
+        mbar_wait(&v_full[s], parity);
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      return;
+    }
+    // this thread's part of a 64 x N accumulator: rows `row` and row + 8,
+    // columns 8 c + col and 8 c + col + 1, at registers 4 c + {0, 1} and
+    // 4 c + {2, 3}
+    const int row = r_lo + 16 * warp + lane / 4;
+    const int col = 2 * (lane % 4);
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this lane's part of the sum
+    const uint32_t q_addr = smem_u32(qs) + cw * kHalf * kRowBytes;
+    float sc[kRows / 2];        // S of a tile, then its p in fp32
+    uint32_t p[kRows / 16][4];  // P in bf16: the A fragments of P V
+    float alpha[2];
+    auto k_tile = [&](int i) { return smem_u32(kv + 2 * (i % L::kStages) * L::kTileBytes); };
+    auto parity = [](int i) { return static_cast<uint32_t>((i / L::kStages) & 1); };
+    const Rows rows{r_lo, row, col, window, scale_log2};
+    // Pingpong: the two consumers take turns to issue their products,
+    // named barrier kTurn + w opening warpgroup w's turn, so that one's
+    // softmax runs while the other's products hold the tensor cores.  Off
+    // in a block with a warpgroup past S.
+    const bool pingpong = q0 + kHalf < S;
+    auto my_turn = [&]() {
+      if (pingpong) named_barrier(kTurn + cw, 2 * kWgThreads);
+    };
+    auto their_turn = [&]() {
+      if (pingpong) named_barrier_arrive(kTurn + 1 - cw, 2 * kWgThreads);
+    };
+    if (cw == 1) their_turn();  // consumer 0 goes first
+
+    mbar_wait(q_full, 0);
+    mbar_wait(&k_full[0], 0);
+    my_turn();
+    issue_qk<HD>(sc, q_addr, k_tile(0));
+    their_turn();
+    wgmma_wait<0>();
+    reg_fence(sc);
+    online_softmax(sc, m, l, alpha, rows, t_first * kRows);
+    rescale_and_round(o, p, sc, alpha);
+    // tile i's Q K^T and tile i - 1's P V go to the tensor cores together;
+    // tile i's softmax runs while P V does
+    for (int i = 1; i < n_tiles; ++i) {
+      mbar_wait(&k_full[i % L::kStages], parity(i));
+      mbar_wait(&v_full[(i - 1) % L::kStages], parity(i - 1));
+      my_turn();
+      issue_qk<HD>(sc, q_addr, k_tile(i));
+      issue_pv(o, p, k_tile(i - 1) + L::kTileBytes);
+      their_turn();
+      wgmma_wait<1>();
+      reg_fence(sc);
+      online_softmax(sc, m, l, alpha, rows, (t_first + i) * kRows);
+      wgmma_wait<0>();
+      reg_fence(o);
+      if (lane == 0) mbar_arrive(&empty[(i - 1) % L::kStages]);
+      rescale_and_round(o, p, sc, alpha);
+    }
+    mbar_wait(&v_full[(n_tiles - 1) % L::kStages], parity(n_tiles - 1));
+    my_turn();
+    issue_pv(o, p, k_tile(n_tiles - 1) + L::kTileBytes);
+    if (cw == 0) their_turn();  // consumer 1's last turn; its own last arrival has no taker
+    wgmma_wait<0>();
+    reg_fence(o);
+
+    // a row's four partial sums of l, in a fixed order
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+      l[j] = fmaxf(l[j], 1e-30f);
+    }
+    // O in bf16 into this warpgroup's own rows of Q's space (its products
+    // are done), swizzled as TMA reads it, then one TMA store a box
+    uint8_t* out = qs + cw * kHalf * kRowBytes;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = 16 * warp + lane / 4 + 8 * j;
+        const int chunk = (c % 8) ^ (r % 8);
+        *reinterpret_cast<uint32_t*>(out + (c / 8) * kBoxBytes + r * kRowBytes + chunk * 16 +
+                                     2 * col) =
+            pack_bf16(o[4 * c + 2 * j] / l[j], o[4 * c + 2 * j + 1] / l[j]);
+      }
+    fence_async_smem();
+    named_barrier(1 + cw, kWgThreads);
+    if (threadIdx.x % kWgThreads == 0) {
+      for (int x = 0; x < L::kBoxes; ++x)
+        tma_store_4d(&o_map, out + x * kBoxBytes, 64 * x, h, r_lo, b);
+      tma_store_wait();
+    }
+  }
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                 int K, int window, float scale, void* stream) {
+  using L = WgmmaLayout<HD>;
+  auto kernel = swa_attention_kernel_wgmma<HD>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // setmaxnreg.inc waits for registers the producer gave back: with fewer
+  // than kLaunchRegs a thread at launch, the consumers would wait forever
+  if (attr.numRegs < kLaunchRegs) return static_cast<int>(cudaErrorInvalidConfiguration);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(L::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[4];  // q, k, v, o
+  int res = hopper::bf16_map_4d(&maps[0], q, HD, H, S, B, kHalf);
+  if (res == 0) res = hopper::bf16_map_4d(&maps[1], k, HD, K, S, B, kRows);
+  if (res == 0) res = hopper::bf16_map_4d(&maps[2], v, HD, K, S, B, kRows);
+  if (res == 0) res = hopper::bf16_map_4d(&maps[3], o, HD, H, S, B, kHalf);
+  if (res != 0) return res;
+  const unsigned blocks = static_cast<unsigned>(B) * H * ((S + kRows - 1) / kRows);
+  kernel<<<blocks, kWgmmaThreads, L::kSmem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], S, H, K, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for an hd
-// other than 64 or 128).  The wrapper (kernels/swa_attention.py) checks
-// the rest: contiguous (B, S, H, hd) / (B, S, K, hd) tensors of one
-// dtype, H % K == 0, S a positive multiple of 64, window >= 1,
-// B * H <= 65535.
+// other than 64 or 128, or a tensor map cuTensorMapEncodeTiled refuses).
+// The wrapper (kernels/swa_attention.py) checks the rest: contiguous
+// (B, S, H, hd) / (B, S, K, hd) tensors of one dtype, 16-byte aligned,
+// H % K == 0, S a positive multiple of 64, window >= 1, B * H <= 65535.
 extern "C" int swa_attention_launch(const void* q, const void* k, const void* v, void* o,
                                     int B, int S, int H, int K, int hd, int window,
                                     float scale, int bf16, void* stream) {
   if (hd == 64)
-    return bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, B, S, H, K, window, scale, stream)
+    return bf16 ? launch_wgmma<64>(q, k, v, o, B, S, H, K, window, scale, stream)
                 : launch<float, 64>(q, k, v, o, B, S, H, K, window, scale, stream);
   if (hd == 128)
-    return bf16 ? launch<__nv_bfloat16, 128>(q, k, v, o, B, S, H, K, window, scale, stream)
+    return bf16 ? launch_wgmma<128>(q, k, v, o, B, S, H, K, window, scale, stream)
                 : launch<float, 128>(q, k, v, o, B, S, H, K, window, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -103,3 +103,20 @@ def swa_attention_plain(q, k, v, *, window: int):
     scores = torch.where(mask, scores, torch.full((), -1e30, device=q.device))
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def swa_bf16_bound(q, k, v, *, window: int, attention=swa_attention_plain):
+    """The elementwise limit within which a bf16 ``swa_attention`` must
+    agree with the fp32 attention on the same inputs:
+    ``2^-8 (|o32| + (P|v|) / l) + 3e-5``.  ``o32`` is the fp32
+    attention; ``(P|v|) / l`` is the same attention applied to |v|.  The
+    kernel rounds each probability to bf16 before the product with v (up
+    to 2^-9 of p_j, so 2^-9 sum_j p_j |v_j| / l on the output) and the
+    output once (2^-9 |o|); the bound allows twice both, on top of the
+    fp32 kernel's 3e-5.  ``attention(q, k, v, window=...)`` is any fp32
+    implementation of the function (the twin by default; at long S the
+    banded path)."""
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    o32 = attention(q32, k32, v32, window=window)
+    pv = attention(q32, k32, v32.abs(), window=window)
+    return (o32.abs() + pv) * 2.0 ** -8 + 3e-5

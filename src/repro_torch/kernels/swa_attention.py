@@ -6,11 +6,13 @@ sliding-window attention with an online softmax over the diagonal band.
 Unlike the Pallas kernel, which takes the KV heads repeated to H, the
 kernel reads k and v as ``(B, S, K, hd)`` with ``H % K == 0`` and
 serves query head h from KV head ``h // (H // K)``; K = H is the Pallas
-case.  S must be a multiple of the kernel's 64-row tile, as
-``repro.kernels.ops`` refuses S % 128 != 0 (the banded branch of
-``gqa_attention``, the only caller, takes S % 1024 == 0).  Its plain twin is
-``repro_torch.kernels.ref.swa_attention_plain``; the CUDA-or-CPU
-dispatch is ``repro_torch.kernels.ops.swa_attention``.
+case.  S must be a multiple of 64 (the fp32 kernel's tile, half the
+bf16 kernel's 128-row tile), as ``repro.kernels.ops`` refuses
+S % 128 != 0 (the banded branch of ``gqa_attention``, the only caller,
+takes S % 1024 == 0).  bf16 runs on the tensor cores with P rounded to
+bf16 (``ref.swa_bf16_bound`` states what that costs); fp32 on scalar
+FMAs.  Its plain twin is ``repro_torch.kernels.ref.swa_attention_plain``;
+the CUDA-or-CPU dispatch is ``repro_torch.kernels.ops.swa_attention``.
 
 :data:`LAUNCHES` counts the kernel's launches in this process, so a run
 can show that its path went through the kernel.
@@ -27,7 +29,7 @@ from repro_torch.kernels._checks import check_operands, refuse_autograd
 LAUNCHES = 0
 
 HEAD_DIMS = (64, 128)
-TILE = 64  # query rows and keys per tile of the kernel
+TILE = 64  # S must be a multiple of this
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEADS = 65535  # B * H blocks along gridDim.y
 
@@ -51,6 +53,9 @@ def _check(q, k, v, window) -> tuple[int, int, int, int, int]:
     if q.dtype not in DTYPES:
         raise TypeError(f"swa_attention: q is {q.dtype}, the kernel takes float32 or bfloat16")
     check_operands("swa_attention", named, dict.fromkeys(named, q.dtype))
+    for name, t in named.items():  # TMA (bf16) and float4 loads (fp32) read 16-byte units
+        if t.data_ptr() % 16:
+            raise ValueError(f"swa_attention: {name} does not start on a 16-byte boundary")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"swa_attention: need q (B, S, H, hd) and k, v (B, S, K, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -73,12 +78,12 @@ def _check(q, k, v, window) -> tuple[int, int, int, int, int]:
 
 def swa_attention(q, k, v, *, window: int) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream: q (B, S, H, hd),
-    k and v (B, S, K, hd), one dtype (float32 or bfloat16), contiguous,
-    on one CUDA device, S % 64 == 0 -> o (B, S, H, hd) in q's dtype.
-    Query i attends to the keys j with i - window < j <= i.  Raises on anything
-    else, on a failed launch, and when grad mode is on and an input
-    requires grad (the kernel has no backward, as the Pallas kernel has
-    no ``custom_vjp``)."""
+    k and v (B, S, K, hd), one dtype (float32 or bfloat16), contiguous
+    and 16-byte aligned, on one CUDA device, S % 64 == 0 -> o (B, S, H,
+    hd) in q's dtype.  Query i attends to the keys j with
+    i - window < j <= i.  Raises on anything else, on a failed launch,
+    and when grad mode is on and an input requires grad (the kernel has
+    no backward, as the Pallas kernel has no ``custom_vjp``)."""
     global LAUNCHES
     b, s, h, kh, hd = _check(q, k, v, window)
     out = torch.empty_like(q)

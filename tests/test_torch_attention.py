@@ -1,8 +1,9 @@
 """The port's attention held against the JAX package on the CPU: the
 ``swa_attention`` twin against JAX's oracle and its Pallas kernel (in
 interpret mode, as ``tests/test_kernels.py`` runs it), the three branches
-of ``gqa_attention`` with a spy on the branch taken, one bf16 case, and
-decode attention over the KV cache.  Inputs come from numpy seeds."""
+of ``gqa_attention`` with a spy on the branch taken, one bf16 case,
+decode attention over the KV cache, and ``swa_bf16_bound`` against an
+emulation of the bf16 kernel's arithmetic.  Inputs come from numpy seeds."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -120,3 +121,76 @@ def test_kvcache_and_decode_attention_match_jax(cap, steps, window):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
     np.testing.assert_array_equal(tcache.k.numpy(), np.asarray(jcache.k))
     assert int(tcache.pos) == int(jcache.pos) == steps
+
+
+def _bf16_kernel_numerics(q, k, v, *, window, tile=128, drop_tile=None):
+    """A plain emulation of the bf16 ``swa_attention`` kernel's arithmetic:
+    128-key tiles through an online softmax in fp32, l summed from the
+    fp32 p, P rounded to bf16 before the product with v (summed in fp32),
+    the output rounded to bf16 once.  Every row visits every tile: a tile
+    wholly masked before a row's band is cleared by alpha = 0, one after
+    it adds p = 0, so the result is the kernel's band-only loop.
+    ``drop_tile`` skips one key tile, as a wrong kernel would."""
+    b, s, h, hd = q.shape
+    rep = h // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(rep, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(rep, 2).transpose(1, 2)
+    pos = torch.arange(s)
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, hd))
+    for t in range(s // tile):
+        if t == drop_tile:
+            continue
+        keys = slice(t * tile, (t + 1) * tile)
+        sc = qf @ kf[:, :, keys].transpose(-1, -2) * hd ** -0.5
+        kp = pos[keys][None, :]
+        sc = torch.where((kp <= pos[:, None]) & (kp > pos[:, None] - window), sc,
+                         torch.tensor(-1e30))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, keys]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16).transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,s,h,kh,hd,window", [
+    (2, 512, 4, 1, 64, 300), (1, 768, 2, 2, 128, 256), (1, 1024, 12, 1, 128, 512)])
+def test_swa_bf16_bound_holds_the_kernel_numerics(b, s, h, kh, hd, window):
+    """The bf16 kernel rounds P to bf16 for its second tensor-core
+    product.  Its emulation stays within ``swa_bf16_bound`` of the fp32
+    attention, breaks the output-rounding-only bound 2^-8 |o32| + 3e-5
+    that the card check used before, and a kernel that skips one key
+    tile of the band breaks the new bound too.  ``pytest -s`` prints the
+    readings."""
+    q, k, v = _torch(*_qkv(b, s, h, kh, hd, seed=s + window), dtype=torch.bfloat16)
+    o32 = ref.swa_attention_plain(q.float(), k.float(), v.float(), window=window)
+    bound = ref.swa_bf16_bound(q, k, v, window=window)
+    old_bound = o32.abs() * 2.0 ** -8 + 3e-5
+    err = (_bf16_kernel_numerics(q, k, v, window=window).float() - o32).abs()
+    mid = (s - 1) // 128 - window // 256  # a key tile in the middle of the last rows' band
+    wrong = (_bf16_kernel_numerics(q, k, v, window=window, drop_tile=mid).float() - o32).abs()
+    print(f"swa bf16 emulation {(b, s, h, kh, hd, window)}: max err / swa_bf16_bound "
+          f"{float((err / bound).max()):.3f}; / old bound {float((err / old_bound).max()):.1f}, "
+          f"{float((err > old_bound).float().mean()):.1%} of outputs over it; one tile dropped: "
+          f"{float((wrong / bound).max()):.1f}x the new bound")
+    assert bool((err <= bound).all()), float((err / bound).max())
+    assert bool((err > old_bound).any())
+    assert bool((wrong > bound).any())
+
+
+def test_swa_bf16_bound_is_the_documented_limit():
+    """``2^-8 (|o32| + (P|v|) / l) + 3e-5`` through the twin, and the same
+    through the banded path that the card check gives it at long S."""
+    q, k, v = _torch(*_qkv(1, 256, 2, 1, 64, seed=9), dtype=torch.bfloat16)
+    o32 = ref.swa_attention_plain(q.float(), k.float(), v.float(), window=100)
+    pv = ref.swa_attention_plain(q.float(), k.float(), v.float().abs(), window=100)
+    bound = ref.swa_bf16_bound(q, k, v, window=100)
+    torch.testing.assert_close(bound, (o32.abs() + pv) / 256 + 3e-5, rtol=0, atol=0)
+    banded = ref.swa_bf16_bound(
+        q, k, v, window=100,
+        attention=lambda *qkv, window: tattn.banded_flash_attention(*qkv, window=window, block=128))
+    torch.testing.assert_close(banded, bound, rtol=0, atol=1e-7)

@@ -36,7 +36,8 @@ GOSSIP_ATOL = 1e-6
 L = 12
 # swa_attention against its twin, JAX's own tolerances for the Pallas
 # kernel (tests/test_kernels.py): fp32 sums over <= 4096 keys in another
-# order; bf16 inputs, both sides fp32 inside, the output rounded to bf16
+# order; bf16 inputs, the output rounded to bf16 (and the kernel's P; its
+# bf16 results are also held elementwise to ref.swa_bf16_bound)
 SWA_ATOL = {torch.float32: 3e-5, torch.bfloat16: 5e-2}
 
 
@@ -203,7 +204,11 @@ def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,kh,hd,window", [
     (2, 128, 2, 2, 64, 64), (1, 256, 12, 1, 128, 100), (2, 1024, 4, 2, 64, 300),
-    (1, 960, 3, 1, 128, 1024), (1, 320, 2, 1, 64, 4096), (1, 192, 2, 2, 128, 1)])
+    (1, 960, 3, 1, 128, 1024), (1, 320, 2, 1, 64, 4096), (1, 192, 2, 2, 128, 1),
+    # S % 128 == 64 at B=2: the last q tile's rows past S, across batches
+    (2, 192, 4, 2, 128, 100), (2, 320, 12, 1, 64, 4096),
+    # Mistral-Large's 12 query heads a KV head
+    (2, 2048, 24, 2, 128, 1024)])
 def test_swa_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, window):
     q, k, v = _swa_inputs(b, s, h, kh, hd, dtype, seed=s + window, device=cuda)
     before = swa_kernel.LAUNCHES
@@ -215,6 +220,11 @@ def test_swa_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, window):
     assert torch.equal(got, again)
     want = ref.swa_attention_plain(q, k, v, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=SWA_ATOL[dtype])
+    if dtype == torch.bfloat16:  # and elementwise within the rounding of P and of o
+        o32 = ref.swa_attention_plain(q.float(), k.float(), v.float(), window=window)
+        err = (got.float() - o32).abs()
+        bound = ref.swa_bf16_bound(q, k, v, window=window)
+        assert bool((err <= bound).all()), float((err / bound).max())
 
 
 def test_swa_wrapper_checks(cuda):
@@ -238,6 +248,9 @@ def test_swa_wrapper_checks(cuda):
                                  v[:, :100].contiguous(), window=64)
     with pytest.raises(ValueError, match="CUDA"):
         swa_kernel.swa_attention(q, k.cpu(), v, window=64)
+    offset = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)  # 4 bytes in
+    with pytest.raises(ValueError, match="16-byte"):
+        swa_kernel.swa_attention(offset.copy_(q), k, v, window=64)
     assert swa_kernel.LAUNCHES == before
     with torch.no_grad():
         swa_kernel.swa_attention(q.clone().requires_grad_(True), k, v, window=64)
