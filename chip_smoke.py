@@ -7,11 +7,17 @@ Phases, each printing one JSON line:
 
   1. card     — ``nvidia-smi`` name and power limit (also printed raw);
   2. build    — compile every CUDA source under ``kernels/csrc`` from the
-                checkout, one ``nvcc`` each, in parallel;
+                checkout, one ``nvcc`` each, in parallel; each library's
+                ``ptxas`` registers and spills, and 0 bytes of spill in
+                every ``lstm_forward`` kernel;
   3. kernel   — each kernel against its plain PyTorch twin on the card,
                 on distinct seeded per-row weights (max |diff| <= 1e-5,
-                TF32 off), and a row's output bitwise independent of the
-                batch it was launched in;
+                TF32 off), at every path ``lstm_cell._plan`` takes
+                (weights in registers, in shared memory by TMA or
+                cp.async, streamed); a row's output bitwise independent
+                of the batch it was launched in (row 5 of a G=64 launch,
+                and rows at row-tile edges of the (1, 2034) eval launch,
+                against their own R=1 launches);
   4. serve    — the main path at full width: the REPLACE-BG fast twin
                 (N=226 patients), an H=128 population from a seeded
                 ``torch.Generator``, buckets 1,4,16,64, 4096 requests
@@ -21,12 +27,16 @@ Phases, each printing one JSON line:
   5. narrow   — the committed H=8 checkpoint through the CLI entry point
                 (``repro_torch.launch.serve``, width inferred), 256
                 requests, ``--selfcheck``;
-  6. timing   — at G=64, H=128, L=12 (one serving batch): the kernel,
-                its plain twin and cuDNN's LSTM + Linear on the shared
-                population weights (the yardstick; the port never calls
-                it), CUDA events, median of >= 50 runs after warm-up;
-                and the least time the card could take (bytes over
-                3.35 TB/s, operations over 67 TFLOP/s fp32);
+  6. timing   — at G=64, R=1, H=128, L=12 (one serving batch): the
+                kernel, its plain twin and cuDNN's LSTM + Linear on the
+                shared population weights (the yardstick; the port never
+                calls it), CUDA events, median of >= 50 runs after
+                warm-up; and the least time the card could take (bytes
+                over 3.35 TB/s, operations over 67 TFLOP/s fp32); the
+                kernel also at the training path's G=1, R=2034 (the
+                eval) and R=329 (a patient's test split), each shape
+                with its ``_plan``, warm and L2-flushed times, bound and
+                bound share;
   7. profile  — ``torch.profiler`` over a replay of 1024 requests: the
                 card's busy time and share of the wall time, and the
                 largest device items;
@@ -129,7 +139,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "experiments" / "checkpoints" / "gluadfl_ohiot1dm_ring.npz"
-TOL = 1e-5  # fp32 summation order over 12 recurrent steps, H <= 256
+TOL = 1e-5  # fp32 summation order over 12 recurrent steps, H <= 313
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
 # tensor cores
@@ -141,10 +151,20 @@ BF16_OPS_PER_S = 989e12  # dense, tensor cores
 # multivariate, multi-row, single-step case, and the training path's
 # population forward (G=1, H=128): the streaming eval's val windows at
 # REPLACE-BG (226 x 9) and OhioT1DM (12 x 170), and the longest
-# per-patient test split of the REPLACE-BG fast twin
+# per-patient test split of the REPLACE-BG fast twin; then each path of
+# ``lstm_cell._plan`` at its edges: a ragged last row tile (R = 8 + 1)
+# with weights in registers, the largest H a cluster of 8 holds
+# (cp.async, H % 4 != 0), the first H that streams, and a cp.async
+# slice with L=1, I=3
 CASES = [(1, 1, 12, 1, 8), (37, 1, 12, 1, 32), (64, 1, 12, 1, 128),
          (64, 1, 12, 1, 256), (5, 3, 1, 3, 16),
-         (1, 2034, 12, 1, 128), (1, 2040, 12, 1, 128), (1, 329, 12, 1, 128)]
+         (1, 2034, 12, 1, 128), (1, 2040, 12, 1, 128), (1, 329, 12, 1, 128),
+         (37, 9, 12, 1, 128), (3, 9, 12, 1, 312), (2, 3, 12, 1, 313), (4, 9, 1, 3, 30)]
+# rows of the (1, 2034) eval launch held bitwise against their own R=1
+# launches: both edges of the first, a middle and the last (ragged) tile
+TILE_ROWS = (0, 7, 8, 9, 1015, 1016, 2031, 2032, 2033)
+# the kernel's timed shapes: a serving batch, the eval, a test split
+LSTM_TIMED = ((64, 1, 12, 1, 128), (1, 2034, 12, 1, 128), (1, 329, 12, 1, 128))
 
 # gossip: fp32 sums of <= B+1 = 8 row-stochastic weights times values
 # ~1, the kernel with FMAs against the twin's multiply-then-add
@@ -449,6 +469,9 @@ def main() -> int:
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln]
              for name in libraries}
+    spills = [ln for ln in ptxas["lstm_forward"] if "spill" in ln]
+    require(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
+            f"an lstm_forward kernel spills: {spills}")
     emit("build", seconds=seconds, compiled=compiled, ptxas=ptxas)
 
     # 3. kernel vs plain -------------------------------------------------
@@ -469,8 +492,15 @@ def main() -> int:
             row5 = lstm_cell.lstm_forward(*(t[5:6] for t in inputs))
             bitwise = bool(torch.equal(row5[0], y[5]))
             require(bitwise, f"row 5 at G=64 differs from its G=1 launch: {case}")
-        emit("kernel", case=dict(zip("GRLIH", case)), max_abs_err=err,
-             row5_bitwise_vs_g1=bitwise)
+        tiles = None
+        if case == (1, 2034, 12, 1, 128):
+            for r in TILE_ROWS:
+                one = lstm_cell.lstm_forward(inputs[0][:, r:r + 1].contiguous(), *inputs[1:])
+                require(torch.equal(one[0, 0], y[0, r]),
+                        f"row {r} of the {case} launch differs from its R=1 launch")
+            tiles = list(TILE_ROWS)
+        emit("kernel", case=dict(zip("GRLIH", case)), plan=lstm_cell._plan(*case)._asdict(),
+             max_abs_err=err, row5_bitwise_vs_g1=bitwise, rows_bitwise_vs_r1=tiles)
 
     # 4. full-width serve (the main path) --------------------------------
     fed = load_federated_dataset("replace-bg", fast=True)
@@ -550,21 +580,29 @@ def main() -> int:
 
         kernel_out = lstm_cell.lstm_forward(*inputs)[:, 0]
         library_err = float((library() - kernel_out).abs().max())
-        flush = torch.zeros(64 * 2**20 // 4, device="cuda")  # 64 MB > the 50 MB L2
-        ms = time_ms(lambda: lstm_cell.lstm_forward(*inputs), 200)
-        ms_flushed = time_ms(lambda: lstm_cell.lstm_forward(*inputs), 200, flush)
         plain_ms = time_ms(lambda: lstm_forward_plain(*inputs), 50)
         library_ms = time_ms(library, 200)
-    nbytes, ops = lstm_forward_cost(*inputs)
-    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = ops / FP32_OPS_PER_S * 1e3
-    bound_ms, bound_by = bound(nbytes, ops)
-    lstm_row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=library_ms)
-    emit("timing", shape=dict(G=64, R=1, L=12, I=1, H=128), ms=ms, ms_l2_flushed=ms_flushed,
-         plain_ms=plain_ms, library_ms=library_ms, library="torch.nn.LSTM (cuDNN) + nn.Linear",
-         library_max_abs_err=library_err, bytes=nbytes, ops=ops,
-         bound_bytes_ms=bound_bytes_ms, bound_ops_ms=bound_ops_ms)
+    flush = torch.zeros(64 * 2**20 // 4, device="cuda")  # 64 MB > the 50 MB L2
+    shapes = {}
+    for shape in LSTM_TIMED:
+        args = inputs if shape == LSTM_TIMED[0] else random_inputs(gen, *shape)
+        nbytes, ops = lstm_forward_cost(*args)
+        bound_ms, bound_by = bound(nbytes, ops)
+        ms = time_ms(lambda: lstm_cell.lstm_forward(*args), 200)
+        shapes[shape] = dict(
+            ms=ms, ms_l2_flushed=time_ms(lambda: lstm_cell.lstm_forward(*args), 200, flush),
+            bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+            bytes=nbytes, ops=ops, plan=lstm_cell._plan(*shape)._asdict())
+        emit("timing", shape=dict(zip("GRLIH", shape)), **shapes[shape],
+             **(dict(plain_ms=plain_ms, library_ms=library_ms,
+                     library="torch.nn.LSTM (cuDNN) + nn.Linear",
+                     library_max_abs_err=library_err) if shape == LSTM_TIMED[0] else {}))
+    serving, evaluation = shapes[LSTM_TIMED[0]], shapes[LSTM_TIMED[1]]
+    lstm_row = dict(ms=serving["ms"], plain_ms=plain_ms, bound_ms=serving["bound_ms"],
+                    bound_by=serving["bound_by"], library_ms=library_ms,
+                    bound_share=serving["bound_share"], eval_ms=evaluation["ms"],
+                    eval_bound_ms=evaluation["bound_ms"],
+                    eval_bound_share=evaluation["bound_share"])
 
     # 7. where a served batch's time goes --------------------------------
     window = reqs[:1024]
@@ -583,7 +621,7 @@ def main() -> int:
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         if e.self_cpu_time_total == 0 and us > 0:
             device[e.key] = (e.count, us)
-    kernel = [v for k, v in device.items() if "lstm_forward_kernel" in k]
+    kernel = [v for k, v in device.items() if "lstm_forward_cluster_kernel" in k]
     require(kernel, "the profiler saw no lstm_forward kernel in the serving loop")
     busy_ms = sum(us for _, us in device.values()) / 1e3
     wall_ms = statistics.median(walls) * 1e3

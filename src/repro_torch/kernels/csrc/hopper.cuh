@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels, as
-// thin wrappers over PTX: mbarriers, TMA tensor copies, the shared-memory
+// thin wrappers over PTX: mbarriers, cp.async, distributed shared memory
+// (mapa, st.async), TMA tensor copies, the shared-memory
 // matrix descriptors and warpgroup matrix multiplies (wgmma) on bf16
 // tiles in 128-byte swizzled rows, warp specialisation's register
 // hand-over, and a host-side tensor-map encoder reached through the
@@ -64,6 +65,39 @@ __device__ __forceinline__ void named_barrier(uint32_t id, uint32_t threads) {
 // arrives at a named barrier without waiting for it
 __device__ __forceinline__ void named_barrier_arrive(uint32_t id, uint32_t threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 4 bytes of global memory into shared memory, asynchronously (no
+// alignment beyond the element's own)
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued so far has
+// landed (the barrier counts the thread in its expected arrivals)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// ---- thread-block clusters ---------------------------------------------
+
+// the shared::cluster address of `p` (this CTA's shared memory) in the
+// CTA of the cluster with rank `rank`
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// stores `v` at `addr` (shared::cluster) and completes 4 bytes of the
+// transaction that the mbarrier at `bar` (same CTA as addr) waits for
+__device__ __forceinline__ void st_async_f32(uint32_t addr, float v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(addr),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
 }
 
 // orders this thread's generic shared-memory writes before later TMA reads
@@ -279,6 +313,28 @@ inline int bf16_map_4d(CUtensorMap* map, const void* base, int d0, int d1, int d
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                               dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 4-D map of a contiguous fp32 tensor (d3, d2, d1, d0), innermost d0,
+// in boxes of b0 x b1 x b2 x 1 written to shared memory in that order,
+// unswizzled; reads outside the tensor fill zeros.  d0 * 4 bytes and the
+// box's b0 * 4 bytes must be multiples of 16.  Returns a cudaError_t.
+inline int f32_map_4d(CUtensorMap* map, const void* base, int d0, int d1, int d2, int d3, int b0,
+                      int b1, int b2) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2), static_cast<cuuint64_t>(d3)};
+  const cuuint64_t row = 4ull * d0;  // bytes
+  const cuuint64_t strides[3] = {row, row * d1, row * d1 * d2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(b0), static_cast<cuuint32_t>(b1),
+                             static_cast<cuuint32_t>(b2), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
+                              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

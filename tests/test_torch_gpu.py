@@ -61,8 +61,22 @@ def _forward_inputs(g, r, steps, isz, hsz, seed, device):
     return tuple(torch.tensor(a, dtype=torch.float32, device=device) for a in arrays)
 
 
-@pytest.mark.parametrize("g,r,steps,isz,hsz", [(1, 1, 12, 1, 8), (37, 1, 12, 1, 32),
-                                               (64, 1, 12, 1, 128), (5, 3, 1, 3, 16)])
+# the kernel's paths (lstm_cell._plan, pure): the largest H a cluster of
+# 8 holds, and the first H that streams
+_C8_MAX = max(h for h in range(1, lstm_cell.MAX_HIDDEN + 1)
+              if lstm_cell._plan(1, 1, L, 1, h).cluster == 8)
+_STREAMED = _C8_MAX + 1
+
+
+@pytest.mark.parametrize("g,r,steps,isz,hsz", [
+    (1, 1, 12, 1, 8), (37, 1, 12, 1, 32), (64, 1, 12, 1, 128), (5, 3, 1, 3, 16),
+    # each cluster size's regime (C = 1; 2 in registers; 2, 4, 8 by TMA; 8 by
+    # cp.async; streamed), ragged G
+    # and a ragged last row tile (R = TILE + 1)
+    (37, 9, 12, 1, 8), (37, 9, 12, 1, 128), (3, 9, 12, 1, 144), (3, 9, 12, 1, 192),
+    (3, 9, 12, 1, 256), (2, 9, 12, 1, _C8_MAX), (2, 3, 12, 1, _STREAMED),
+    # L = 1 and I = 3 on the TMA and the cp.async loads and in registers
+    (4, 9, 1, 3, 32), (4, 9, 1, 3, 30), (3, 2, 1, 3, 128)])
 def test_kernel_matches_plain(cuda, g, r, steps, isz, hsz):
     args = _forward_inputs(g, r, steps, isz, hsz, seed=g, device=cuda)
     before = lstm_cell.LAUNCHES
@@ -78,6 +92,34 @@ def test_kernel_row_is_bitwise_independent_of_batch(cuda):
     for i in (0, 5, 15):
         one = lstm_cell.lstm_forward(*(a[i : i + 1] for a in args))
         assert torch.equal(one[0], full[i])
+
+
+@pytest.mark.parametrize("hsz", [128, 64, 30])
+def test_kernel_row_tile_is_bitwise_independent_of_batch(cuda, hsz):
+    """Rows of R > 1 launches (tiles of TILE rows, the last one ragged)
+    bitwise their own R=1 launches, in registers, TMA and cp.async."""
+    g, r = 3, 2 * lstm_cell.TILE + 3
+    args = _forward_inputs(g, r, L, 1, hsz, seed=hsz, device=cuda)
+    full = lstm_cell.lstm_forward(*args)
+    for gi in (0, 2):
+        for ri in (0, lstm_cell.TILE - 1, lstm_cell.TILE, r - 1):
+            one = lstm_cell.lstm_forward(args[0][gi : gi + 1, ri : ri + 1].contiguous(),
+                                         *(a[gi : gi + 1] for a in args[1:]))
+            assert torch.equal(one[0, 0], full[gi, ri]), (gi, ri)
+
+
+def test_kernel_refuses_a_cluster_that_cannot_be_scheduled(cuda, monkeypatch):
+    """A plan the card cannot schedule (a cluster of 16, beyond the
+    portable 8) raises before anything is launched, and no other path
+    takes over."""
+    args = _forward_inputs(2, 1, L, 1, 8, seed=9, device=cuda)
+    plan = lstm_cell._plan(2, 1, L, 1, 8)
+    monkeypatch.setattr(lstm_cell, "_plan", lambda *shape: plan._replace(cluster=16))
+    before = lstm_cell.LAUNCHES
+    with pytest.raises(RuntimeError, match="lstm_forward"):
+        lstm_cell.lstm_forward(*args)
+    torch.cuda.synchronize()
+    assert lstm_cell.LAUNCHES == before
 
 
 def test_kernel_wrapper_checks_shape_dtype_contiguity(cuda):

@@ -224,3 +224,66 @@ def test_build_failure_raises_with_the_log(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed for lstm_forward"):
         _build.build(["lstm_forward"])
     assert not _build.library_path("lstm_forward").exists()
+
+
+# ------------------------------------------------------------ the plan
+
+
+def test_plan_path_depends_on_hidden_and_input_alone():
+    """The cluster size and where the weights live (registers, shared
+    memory or streamed) follow H and I; G and R only change the tile."""
+    for hsz in (1, 8, 30, 64, 112, 113, 128, 160, 161, 256, 312, 313, 1000, lstm_cell.MAX_HIDDEN):
+        for isz in (1, 3):
+            paths = {lstm_cell._plan(g, r, steps, isz, hsz)[::2][:2]
+                     for g in (1, 37, 64) for r in (1, 2, 9, 2034) for steps in (1, 12)}
+            assert len(paths) == 1, (hsz, isz, paths)
+
+
+def test_plan_tile_is_the_least_power_of_two_holding_r():
+    tiles = {r: lstm_cell._plan(64, r, L, 1, 128).tile for r in (1, 2, 3, 4, 5, 8, 9, 329, 2034)}
+    assert tiles == {1: 1, 2: 2, 3: 4, 4: 4, 5: 8, 8: 8, 9: 8, 329: 8, 2034: 8}
+    assert lstm_cell._plan(1, 2034, L, 1, 400).tile == 1  # the streaming kernel: a block a row
+
+
+def test_plan_cluster_is_the_smallest_that_fits():
+    """Every H up to MAX_HIDDEN gets a launchable plan.  Shared-memory
+    slices: C is the least of 1, 2, 4, 8 whose CTA fits a full tile's
+    state in the opt-in limit, with one thread a gate column (at most
+    512, the kernel's launch bound); H = 128 keeps a cluster of 2 with
+    the weights in registers (256 threads); above C = 8's limit H
+    streams."""
+    limit, tile = lstm_cell.SMEM_LIMIT, lstm_cell.TILE
+    seen = set()
+    for hsz in range(1, lstm_cell.MAX_HIDDEN + 1):
+        for isz in (1, 3):
+            plan = lstm_cell._plan(1, 1, L, isz, hsz)
+            fits = [c for c in lstm_cell.CLUSTERS
+                    if lstm_cell._smem_bytes(hsz, isz, c, tile, "shared") <= limit]
+            threads = -(-4 * -(-hsz // max(plan.cluster, 1)) // 32) * 32
+            if plan.weights == "registers":
+                assert (hsz, plan.cluster, threads) == (lstm_cell.REG_HIDDEN, 2, 256)
+            elif plan.weights == "shared":
+                assert plan.cluster == fits[0] and threads <= 512
+                assert plan.smem == lstm_cell._smem_bytes(hsz, isz, plan.cluster, 1, "shared")
+                assert lstm_cell._smem_bytes(hsz, isz, plan.cluster, tile, "shared") <= limit
+            else:
+                assert (plan.cluster, plan.weights, fits) == (0, "streamed", [])
+                assert plan.smem == 6 * hsz * 4 <= 48 * 1024
+            seen.add((plan.cluster, plan.weights))
+    assert seen == {(1, "shared"), (2, "shared"), (4, "shared"), (8, "shared"),
+                    (2, "registers"), (0, "streamed")}
+
+
+def test_plan_regimes_at_the_documented_widths():
+    """The widths the kernel's note and PERF.md name (I = 1)."""
+    def path(hsz):
+        plan = lstm_cell._plan(64, 1, L, 1, hsz)
+        return plan.cluster, plan.weights
+
+    assert path(8) == path(112) == (1, "shared")
+    assert path(113) == path(127) == path(160) == (2, "shared")
+    assert path(128) == (2, "registers")
+    assert path(161) == path(224) == (4, "shared")
+    assert path(225) == path(256) == path(312) == (8, "shared")
+    assert path(313) == path(lstm_cell.MAX_HIDDEN) == (0, "streamed")
+
