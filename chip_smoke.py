@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
   2. build    — compile every CUDA source under ``kernels/csrc`` from the
                 checkout, one ``nvcc`` each, in parallel; each library's
                 ``ptxas`` registers and spills, and 0 bytes of spill in
-                every ``lstm_forward`` kernel;
+                every ``lstm_forward`` kernel and both staged gossip
+                kernels;
   3. kernel   — each kernel against its plain PyTorch twin on the card,
                 on distinct seeded per-row weights (max |diff| <= 1e-5,
                 TF32 off), at every path ``lstm_cell._plan`` takes
@@ -33,7 +34,7 @@ Phases, each printing one JSON line:
                 calls it), CUDA events, median of >= 50 runs after
                 warm-up; and the least time the card could take (bytes
                 over 3.35 TB/s, operations over 67 TFLOP/s fp32); the
-                kernel also at the training path's G=1, R=2034 (the
+                same three at the training path's G=1, R=2034 (the
                 eval) and R=329 (a patient's test split), each shape
                 with its ``_plan``, warm and L2-flushed times, bound and
                 bound share;
@@ -45,7 +46,9 @@ Phases, each printing one JSON line:
                 ratios 0, 0.3 and 1, on real mixing matrices and (N, 8)
                 neighbor tables (max |diff| <= 1e-6); inactive rows
                 bitwise copies, also with a NaN planted in an active row;
-                two launches bitwise equal;
+                two launches bitwise equal; ``gossip_mix`` and
+                ``gossip_mix_sparse_dp`` (staged) bitwise equal to the
+                row-wise kernel at every case;
   9. train    — the training path at full width through the CLI entry
                 point (``repro_torch.launch.train.run``): REPLACE-BG
                 (N=226) with the sparse kernel, then OhioT1DM (N=12)
@@ -74,7 +77,11 @@ Phases, each printing one JSON line:
                 ``torch.where(act, M @ W, W)``; sparse: ``torch.sparse.mm``
                 of the table as a CSR matrix; DP: the same on W + Z
                 with the self-restore), and the least time the card
-                could take;
+                could take; the two staged kernels timed in turns with
+                their row-wise parent (parent, kernel, kernel, parent),
+                warm and L2-flushed, and both by ``torch.profiler``'s
+                device time; beside sparse DP, ``torch.add(W, Z)``, the
+                same bytes read and written as one contiguous stream;
  13. tprofile — ``torch.profiler`` over an 8-round chunk of the sparse
                 training path: the card's busy time split by the
                 trainer's spans (draws, mixing operator, gossip, local
@@ -86,7 +93,14 @@ Phases, each printing one JSON line:
                 4096} x hd in {64, 128} x H/K in {1, 12} x B in {1, 2},
                 fp32 (max |diff| <= 3e-5) and bf16 (<= 5e-2, and
                 elementwise within ``ref.swa_bf16_bound`` of the fp32
-                twin: the rounding of P and of the output), TF32 off; at
+                twin: the rounding of P and of the output), TF32 off;
+                then hd 256 (the scalar kernel) and hd 96 (zero-padded
+                to 128) at S in {1024, 3072} x window in {100, 2048},
+                with 0 bytes of spill in the hd-256 kernels; at
+                RecurrentGemma-9B's local attention (B=1, S=8,192, H=16,
+                K=1, hd=256, window 2048) against the fp32
+                ``banded_flash_attention``: fp32 within 3e-5, bf16
+                elementwise within ``swa_bf16_bound``; at
                 the LM prefill's shape (B=1, S=32,768, H=96, K=8, hd=128,
                 window 4096) against the plain ``banded_flash_attention``
                 in fp32 on the same inputs: the kernel's fp32 build
@@ -182,6 +196,11 @@ EVAL_EVERY = 16
 SWA_TOL = {torch.float32: 3e-5, torch.bfloat16: 5e-2}
 SWA_SEQS = (128, 256, 1024, 3072)
 SWA_WINDOWS = (64, 100, 300, 1024, 4096)
+# the head dims beyond the wgmma kernel's: 256 on the scalar kernel, 96
+# zero-padded to 128
+SWA_WIDE = {"seqs": (1024, 3072), "windows": (100, 2048), "hds": (256, 96)}
+HYBRID_ARCH = "recurrentgemma-9b"  # local attention at hd 256, one KV head
+HYBRID_SEQ = 8192
 LM_ARCH = "mistral-large-123b"
 LM_LAYERS = 4           # of 88
 LM_DECODE_STEPS = 16
@@ -243,6 +262,23 @@ def time_ms(fn, runs: int, flush: torch.Tensor | None = None, warmup: int = 5) -
     return statistics.median(start.elapsed_time(end) for start, end in pairs)
 
 
+def device_us(fn, runs: int = 50) -> float:
+    """Device time of one call of ``fn`` in microseconds, from
+    ``torch.profiler``: its kernels' device time over ``runs`` calls
+    after one warm-up, divided by ``runs`` -- without the few
+    microseconds of launch and event overhead that ``time_ms`` counts
+    for a kernel that short."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                for e in prof.key_averages())
+    return total / runs
+
+
 def lstm_forward_cost(x, wx, wh, b, w_out, b_out) -> tuple[float, float]:
     """Bytes (each input read once, the output written once) and
     operations of one ``lstm_forward`` call: the gate and head FMAs as 2
@@ -286,6 +322,15 @@ def gossip_calls(w, z, act, mix, idx, wgt):
         ("gossip_mix_sparse_dp", gk.gossip_mix_sparse_dp, ref.gossip_mix_sparse_dp_plain,
          (idx, wgt, w, z, act)),
     ]
+
+
+def rowwise_calls(w, z, act, mix, idx, wgt):
+    """name -> (the row-wise parent wrapper, args) of the two kernels
+    with a staged design."""
+    from repro_torch.kernels import gossip_mix as gk
+
+    return {"gossip_mix": (gk.gossip_mix_rowwise, (mix, w, act)),
+            "gossip_mix_sparse_dp": (gk.gossip_mix_sparse_dp_rowwise, (idx, wgt, w, z, act))}
 
 
 def gossip_library(name, w, z, act, mix, idx, wgt):
@@ -376,10 +421,11 @@ def band_sdpa(q, k, v, window: int, block: int = 1024):
     return run
 
 
-def wgmma_ptxas(log: str) -> dict[str, list[str]]:
+def ptxas_report(log: str, *needles: str) -> dict[str, list[str]]:
     """``ptxas -v`` lines (registers, shared memory, spills) of each entry
-    function of a build log whose name holds ``wgmma``, and under
-    "warnings" any line that says the compiler serialized ``wgmma``."""
+    function of a build log whose (mangled) name holds every one of
+    ``needles``, and under "warnings" any line that says the compiler
+    serialized ``wgmma``."""
     found: dict[str, list[str]] = {}
     name = None
     for line in log.splitlines():
@@ -387,9 +433,40 @@ def wgmma_ptxas(log: str) -> dict[str, list[str]]:
             name = line.split("'")[1] if "'" in line else line.strip()
         elif "wgmma.mma_async" in line or "Performance Loss" in line:
             found.setdefault("warnings", []).append(line.strip())
-        elif name and "wgmma" in name and ("registers" in line or "spill" in line):
+        elif name and all(n in name for n in needles) and ("registers" in line or "spill" in line):
             found.setdefault(name, []).append(line.strip())
     return found
+
+
+def spill_free(report: dict[str, list[str]]) -> bool:
+    """Every kernel of a :func:`ptxas_report` reports 0 bytes of spill."""
+    spills = [ln for name, lines in report.items() if name != "warnings"
+              for ln in lines if "spill" in ln]
+    return bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills)
+
+
+def cudnn_lstm(wx, wh, b, w_out, b_out):
+    """cuDNN's ``torch.nn.LSTM`` + ``nn.Linear`` holding one weight set
+    (wx (I, 4H), wh (H, 4H), b (4H,), w_out (H, 1), b_out (1,)): the
+    yardstick for ``lstm_forward`` at G=1 or on shared weights, which
+    the port never calls.  Returns x (R, L, I) -> y (R,)."""
+    isz, hsz = wx.shape[0], wh.shape[0]
+    with torch.no_grad():
+        lstm = torch.nn.LSTM(isz, hsz, batch_first=True).cuda()
+        head = torch.nn.Linear(hsz, 1).cuda()
+        lstm.weight_ih_l0.copy_(wx.T)
+        lstm.weight_hh_l0.copy_(wh.T)
+        lstm.bias_ih_l0.copy_(b)
+        lstm.bias_hh_l0.zero_()
+        head.weight.copy_(w_out.T)
+        head.bias.copy_(b_out)
+
+    def run(xs):
+        with torch.no_grad():
+            out, _ = lstm(xs)
+            return head(out[:, -1])[:, 0]
+
+    return run
 
 
 def reset_launches() -> None:
@@ -472,6 +549,9 @@ def main() -> int:
     spills = [ln for ln in ptxas["lstm_forward"] if "spill" in ln]
     require(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
             f"an lstm_forward kernel spills: {spills}")
+    staged_ptxas = ptxas_report(_build.build_log("gossip_mix"), "gossip_mix_staged_kernel")
+    require(sum(k != "warnings" for k in staged_ptxas) == 2 and spill_free(staged_ptxas),
+            f"a staged gossip kernel spills or is missing: {staged_ptxas}")
     emit("build", seconds=seconds, compiled=compiled, ptxas=ptxas)
 
     # 3. kernel vs plain -------------------------------------------------
@@ -563,46 +643,35 @@ def main() -> int:
     x = torch.tensor(np.stack([r.window for r in batch]), device="cuda")[:, None, :, None].contiguous()
     inputs = (x, params["wx"], params["wh"], params["b"], params["w_out"], params["b_out"])
     pop = sv.population
-    with torch.no_grad():
-        cudnn = torch.nn.LSTM(1, 128, batch_first=True).cuda()
-        head = torch.nn.Linear(128, 1).cuda()
-        cudnn.weight_ih_l0.copy_(pop["wx"].T)
-        cudnn.weight_hh_l0.copy_(pop["wh"].T)
-        cudnn.bias_ih_l0.copy_(pop["b"])
-        cudnn.bias_hh_l0.zero_()
-        head.weight.copy_(pop["w_out"].T)
-        head.bias.copy_(pop["b_out"])
-        xs = x[:, 0].contiguous()
-
-        def library():
-            out, _ = cudnn(xs)
-            return head(out[:, -1])[:, 0]
-
-        kernel_out = lstm_cell.lstm_forward(*inputs)[:, 0]
-        library_err = float((library() - kernel_out).abs().max())
-        plain_ms = time_ms(lambda: lstm_forward_plain(*inputs), 50)
-        library_ms = time_ms(library, 200)
     flush = torch.zeros(64 * 2**20 // 4, device="cuda")  # 64 MB > the 50 MB L2
     shapes = {}
     for shape in LSTM_TIMED:
-        args = inputs if shape == LSTM_TIMED[0] else random_inputs(gen, *shape)
+        if shape == LSTM_TIMED[0]:  # the batch's rows all hold the population
+            args, weights, xs = inputs, [pop[k] for k in ("wx", "wh", "b", "w_out", "b_out")], x[:, 0]
+        else:
+            args = random_inputs(gen, *shape)
+            weights, xs = [t[0] for t in args[1:]], args[0][0]
+        library = cudnn_lstm(*weights)
+        library_err = float((library(xs) - lstm_cell.lstm_forward(*args).reshape(-1)).abs().max())
         nbytes, ops = lstm_forward_cost(*args)
         bound_ms, bound_by = bound(nbytes, ops)
         ms = time_ms(lambda: lstm_cell.lstm_forward(*args), 200)
         shapes[shape] = dict(
             ms=ms, ms_l2_flushed=time_ms(lambda: lstm_cell.lstm_forward(*args), 200, flush),
             bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+            plain_ms=time_ms(lambda: lstm_forward_plain(*args), 50 if shape == LSTM_TIMED[0] else 20),
+            library_ms=time_ms(lambda: library(xs), 200),
+            library="torch.nn.LSTM (cuDNN) + nn.Linear", library_max_abs_err=library_err,
             bytes=nbytes, ops=ops, plan=lstm_cell._plan(*shape)._asdict())
-        emit("timing", shape=dict(zip("GRLIH", shape)), **shapes[shape],
-             **(dict(plain_ms=plain_ms, library_ms=library_ms,
-                     library="torch.nn.LSTM (cuDNN) + nn.Linear",
-                     library_max_abs_err=library_err) if shape == LSTM_TIMED[0] else {}))
-    serving, evaluation = shapes[LSTM_TIMED[0]], shapes[LSTM_TIMED[1]]
-    lstm_row = dict(ms=serving["ms"], plain_ms=plain_ms, bound_ms=serving["bound_ms"],
-                    bound_by=serving["bound_by"], library_ms=library_ms,
+        emit("timing", shape=dict(zip("GRLIH", shape)), **shapes[shape])
+    serving, evaluation, split = (shapes[shape] for shape in LSTM_TIMED)
+    lstm_row = dict(ms=serving["ms"], plain_ms=serving["plain_ms"], bound_ms=serving["bound_ms"],
+                    bound_by=serving["bound_by"], library_ms=serving["library_ms"],
                     bound_share=serving["bound_share"], eval_ms=evaluation["ms"],
                     eval_bound_ms=evaluation["bound_ms"],
-                    eval_bound_share=evaluation["bound_share"])
+                    eval_bound_share=evaluation["bound_share"],
+                    eval_library_ms=evaluation["library_ms"], test_split_ms=split["ms"],
+                    test_split_bound_ms=split["bound_ms"], test_split_library_ms=split["library_ms"])
 
     # 7. where a served batch's time goes --------------------------------
     window = reqs[:1024]
@@ -639,14 +708,18 @@ def main() -> int:
     from repro_torch.optim import get_optimizer
     from repro_torch.serve import load_population
 
+    from repro_torch.kernels import gossip_mix as gk
+
     gen = torch.Generator(device="cuda").manual_seed(4321)
     gossip_err: dict[str, float] = {}
     n_cases = 0
+    designs: dict[str, list[str]] = {}  # each staged kernel's plan at each case
     for n in GOSSIP_NODES:
         for d in GOSSIP_COLS:
             for active_share in GOSSIP_RATIOS:
                 w, z, act, mix, idx, wgt = gossip_inputs(gen, n, d, 1.0 - active_share)
                 inactive = act == 0
+                parents = rowwise_calls(w, z, act, mix, idx, wgt)
                 for name, kernel, plain, args in gossip_calls(w, z, act, mix, idx, wgt):
                     out, again, want = kernel(*args), kernel(*args), plain(*args)
                     torch.cuda.synchronize()
@@ -656,6 +729,13 @@ def main() -> int:
                     require(err <= GOSSIP_TOL, f"{where} vs plain: {err}")
                     require(torch.equal(out, again), f"{where}: two launches differ")
                     require(torch.equal(out[inactive], w[inactive]), f"{where}: inactive rows")
+                    if name in parents:
+                        rowwise, parent_args = parents[name]
+                        parent = rowwise(*parent_args)
+                        require(torch.equal(out.view(torch.int32), parent.view(torch.int32)),
+                                f"{where}: not bitwise the row-wise kernel")
+                        plan = gk._plan(name, n, idx.shape[1] if "sparse" in name else 0, d)
+                        designs.setdefault(name, []).append(f"{plan.design}/{plan.tile}")
                     gossip_err[name] = max(gossip_err.get(name, 0.0), err)
                 n_cases += 1
     w, z, act, mix, idx, wgt = gossip_inputs(gen, 37, 513, 0.3)
@@ -666,7 +746,8 @@ def main() -> int:
         out = kernel(*args)
         require(torch.equal(out[inactive], w[inactive]), f"{name}: NaN reached an inactive row")
     emit("gossip", cases=n_cases, kernels=4, max_abs_err=gossip_err, tol=GOSSIP_TOL,
-         inactive_bitwise=True, nan_inactive_bitwise=True, repeat_bitwise=True)
+         inactive_bitwise=True, nan_inactive_bitwise=True, repeat_bitwise=True,
+         staged_bitwise_rowwise=True, staged_plans=designs)
 
     # 9. training at full width, sparse then dense (the main path) -------
     out_dir = ROOT / "build" / "chip_smoke"
@@ -812,10 +893,29 @@ def main() -> int:
                    plain_ms=time_ms(lambda: plain(*args), 20),
                    library_ms=time_ms(library, 100))
         row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        extra = dict(ms_l2_flushed=time_ms(lambda: kernel(*args), 100, flush))
+        parents = rowwise_calls(w, z, act, mix, idx, wgt)
+        if name in parents:  # in turns with the row-wise parent: parent, kernel, kernel, parent
+            rowwise, parent_args = parents[name]
+            turns, flushed = [], []
+            for fn in (lambda: rowwise(*parent_args), lambda: kernel(*args),
+                       lambda: kernel(*args), lambda: rowwise(*parent_args)):
+                turns.append(time_ms(fn, 200))
+                flushed.append(time_ms(fn, 100, flush))
+            row["parent_ms"] = statistics.median([turns[0], turns[3]])
+            row["parent_ms_l2_flushed"] = statistics.median([flushed[0], flushed[3]])
+            extra.update(device_us=device_us(lambda: kernel(*args)),
+                         parent_device_us=device_us(lambda: rowwise(*parent_args)))
+            slots = idx.shape[1] if "sparse" in name else 0
+            extra.update(turns_ms=turns, turns_ms_l2_flushed=flushed,
+                         plan=gk._plan(name, w.shape[0], slots, w.shape[1])._asdict())
+        if name == "gossip_mix_sparse_dp":  # the same bytes as one contiguous stream
+            extra["contiguous_stream_ms"] = time_ms(lambda: torch.add(w, z), 100)
         gossip_rows[name] = row
         emit("gtiming", kernel=name, nodes=w.shape[0], cols=w.shape[1], slots=idx.shape[1],
-             active=int(act.sum()), ms_l2_flushed=time_ms(lambda: kernel(*args), 100, flush),
-             library_max_abs_err=library_err, bytes=nbytes, ops=ops, **row)
+             active=int(act.sum()), library_max_abs_err=library_err, bytes=nbytes, ops=ops,
+             **extra, **row)
 
     # 13. where a training round's time goes (sparse, N=226, H=128) ------
     run, _ = trained["replace-bg"]
@@ -864,39 +964,80 @@ def main() -> int:
     from repro_torch.kernels import swa_attention as swa_kernel
     from repro_torch.nn import attention as attn
 
-    swa_ptxas = wgmma_ptxas(_build.build_log("swa_attention"))
+    swa_log = _build.build_log("swa_attention")
+    swa_ptxas = ptxas_report(swa_log, "wgmma")
     require(swa_ptxas, "no ptxas report of the bf16 swa_attention kernel")
-    for name, lines in swa_ptxas.items():
+    wide_ptxas = ptxas_report(swa_log, "swa_attention_kernel", "Li256E")
+    require(sum(k != "warnings" for k in wide_ptxas) == 2 and spill_free(wide_ptxas),
+            f"an hd-256 swa_attention kernel spills or is missing: {wide_ptxas}")
+    for name, lines in {**swa_ptxas, **wide_ptxas}.items():
         print(f"ptxas {name}: " + " | ".join(lines), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(77)
     swa_err = {str(dtype): 0.0 for dtype in SWA_TOL}
     bf16_over_bound = 0.0  # the sweep's largest |bf16 - fp32 twin| / swa_bf16_bound
     n_swa = 0
+
+    def swa_case(b, s, h, kh, hd, window, dtype):
+        """One case against the twin: within SWA_TOL, two launches bitwise
+        equal, bf16 elementwise within swa_bf16_bound."""
+        nonlocal bf16_over_bound, n_swa
+        q, k, v = swa_inputs(gen, b, s, h, kh, hd, dtype)
+        out = swa_kernel.swa_attention(q, k, v, window=window)
+        again = swa_kernel.swa_attention(q, k, v, window=window)
+        want = ref.swa_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        where = f"swa_attention B={b} S={s} H={h} K={kh} hd={hd} w={window} {dtype}"
+        require(out.shape == q.shape and out.dtype == dtype, f"shape of {where}")
+        require(err <= SWA_TOL[dtype], f"{where} vs plain: {err}")
+        require(torch.equal(out, again), f"{where}: two launches differ")
+        if dtype == torch.bfloat16:
+            o32 = ref.swa_attention_plain(q.float(), k.float(), v.float(), window=window)
+            ratio = float(((out.float() - o32).abs()
+                           / ref.swa_bf16_bound(q, k, v, window=window)).max())
+            require(ratio <= 1.0, f"{where} vs swa_bf16_bound: {ratio}")
+            bf16_over_bound = max(bf16_over_bound, ratio)
+        swa_err[str(dtype)] = max(swa_err[str(dtype)], err)
+        n_swa += 1
+
     for s in SWA_SEQS:
         for window in SWA_WINDOWS:
             for hd in (64, 128):
                 for h, kh in ((4, 4), (12, 1)):
                     for b in (1, 2):
-                        for dtype, tol in SWA_TOL.items():
-                            q, k, v = swa_inputs(gen, b, s, h, kh, hd, dtype)
-                            out = swa_kernel.swa_attention(q, k, v, window=window)
-                            again = swa_kernel.swa_attention(q, k, v, window=window)
-                            want = ref.swa_attention_plain(q, k, v, window=window)
-                            torch.cuda.synchronize()
-                            err = float((out.float() - want.float()).abs().max())
-                            where = f"swa_attention B={b} S={s} H={h} K={kh} hd={hd} w={window} {dtype}"
-                            require(out.shape == q.shape and out.dtype == dtype, f"shape of {where}")
-                            require(err <= tol, f"{where} vs plain: {err}")
-                            require(torch.equal(out, again), f"{where}: two launches differ")
-                            if dtype == torch.bfloat16:
-                                o32 = ref.swa_attention_plain(q.float(), k.float(), v.float(),
-                                                              window=window)
-                                ratio = float(((out.float() - o32).abs()
-                                               / ref.swa_bf16_bound(q, k, v, window=window)).max())
-                                require(ratio <= 1.0, f"{where} vs swa_bf16_bound: {ratio}")
-                                bf16_over_bound = max(bf16_over_bound, ratio)
-                            swa_err[str(dtype)] = max(swa_err[str(dtype)], err)
-                            n_swa += 1
+                        for dtype in SWA_TOL:
+                            swa_case(b, s, h, kh, hd, window, dtype)
+    n_narrow = n_swa
+    for s in SWA_WIDE["seqs"]:
+        for window in SWA_WIDE["windows"]:
+            for hd in SWA_WIDE["hds"]:
+                for h, kh in ((4, 4), (12, 1)):
+                    for dtype in SWA_TOL:
+                        swa_case(1, s, h, kh, hd, window, dtype)
+    # RecurrentGemma-9B's local attention at full width against the fp32
+    # banded path: the fp32 kernel within the fp32 bound, bf16
+    # elementwise within swa_bf16_bound (given the banded path)
+    rg_cfg = get_arch_config(HYBRID_ARCH)
+    rg_shape = dict(B=1, S=HYBRID_SEQ, H=rg_cfg.num_heads, K=rg_cfg.num_kv_heads,
+                    hd=rg_cfg.head_dim, window=rg_cfg.local_attn_window)
+    q, k, v = swa_inputs(gen, 1, HYBRID_SEQ, rg_cfg.num_heads, rg_cfg.num_kv_heads,
+                         rg_cfg.head_dim, torch.float32)
+    banded = attn.banded_flash_attention(q, k, v, window=rg_cfg.local_attn_window)
+    rg_out = swa_kernel.swa_attention(q, k, v, window=rg_cfg.local_attn_window)
+    rg_err = {"fp32_max_abs_err": float((rg_out - banded).abs().max())}
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    rg_out = swa_kernel.swa_attention(qb, kb, vb, window=rg_cfg.local_attn_window)
+    banded = attn.banded_flash_attention(qb.float(), kb.float(), vb.float(),
+                                         window=rg_cfg.local_attn_window)
+    limit = ref.swa_bf16_bound(qb, kb, vb, window=rg_cfg.local_attn_window,
+                               attention=attn.banded_flash_attention)
+    rg_err["bf16_max_abs_err"] = float((rg_out.float() - banded).abs().max())
+    rg_err["bf16_max_err_over_bound"] = float(((rg_out.float() - banded).abs() / limit).max())
+    del q, k, v, qb, kb, vb, rg_out, banded, limit
+    require(rg_err["fp32_max_abs_err"] <= SWA_TOL[torch.float32],
+            f"swa_attention (fp32) at {HYBRID_ARCH}'s shape vs the banded path: {rg_err}")
+    require(rg_err["bf16_max_err_over_bound"] <= 1.0,
+            f"swa_attention (bf16) at {HYBRID_ARCH}'s shape vs the banded path: {rg_err}")
     lm_cfg = get_arch_config(LM_ARCH)
     heads, kv_heads, head_dim, window = (lm_cfg.num_heads, lm_cfg.num_kv_heads, lm_cfg.head_dim,
                                          lm_cfg.sliding_window)
@@ -932,11 +1073,13 @@ def main() -> int:
     del banded, out, again
     require(path_err["bf16_vs_bf16_banded_max_abs_err"] <= SWA_TOL[torch.bfloat16],
             f"swa_attention at the prefill's shape vs the bf16 banded path: {path_err}")
-    emit("swa", ptxas=swa_ptxas, cases=n_swa, max_abs_err=swa_err,
+    emit("swa", ptxas=swa_ptxas, ptxas_hd256=wide_ptxas, cases=n_swa,
+         cases_hd_256_and_96=n_swa - n_narrow, max_abs_err=swa_err,
          tol={str(d): t for d, t in SWA_TOL.items()}, sweep_bf16_max_err_over_bound=bf16_over_bound,
          repeat_bitwise=True, path_shape=dict(B=1, S=seq, H=heads, K=kv_heads, hd=head_dim,
                                                window=window),
-         path_vs_fp32_banded=path_err,
+         path_vs_fp32_banded=path_err, hybrid_arch=HYBRID_ARCH, hybrid_shape=rg_shape,
+         hybrid_vs_fp32_banded=rg_err,
          bf16_bound="swa_bf16_bound: 2^-8 (|o32| + (P|v|)/l) + 3e-5")
 
     # 15. the LM prefill and decode at full width (the main path) ----------

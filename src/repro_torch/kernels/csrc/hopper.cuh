@@ -74,6 +74,18 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
                : "memory");
 }
 
+// closes this thread's group of the cp.async issued since the last one
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until all but the `Pending` newest of this thread's groups have
+// landed (a __syncthreads after it shows every thread's copies to all)
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
 // one arrival on `bar` once every cp.async this thread issued so far has
 // landed (the barrier counts the thread in its expected arrivals)
 __device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {

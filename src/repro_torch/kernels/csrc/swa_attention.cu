@@ -13,7 +13,8 @@
 // layer).  fp32 or bf16 in, the same type out; scores, softmax statistics
 // and the accumulator are fp32, as in the Pallas kernel: the scale on the
 // scores, NEG_INF = -1e30 for masked scores, l clamped at 1e-30 before
-// the divide.  hd is 64 or 128; S a multiple of 64 (the wrapper refuses
+// the divide.  hd is 64, 128 or 256 (the wrapper zero-pads any other
+// hd <= 256 to the next of these); S a multiple of 64 (the wrapper refuses
 // any other S, as repro.kernels.ops refuses S % 128 != 0: the only
 // caller, gqa_attention's banded branch, takes S % 1024 == 0); window >= 1.
 //
@@ -69,6 +70,14 @@
 // thread (ty, tx) owning rows ty + 16 i and keys tx + 16 j (i, j < 4) of
 // the scores and the same rows of the output, so a row's max and sum are
 // xor-shuffles over its 16 lanes.  It is right and simple, not fast.
+//
+// hd 256, both types: the scalar kernel.  bf16 is loaded 4 values at a
+// time and widened to fp32, computed as fp32 is, and the output rounded
+// to bf16 once (so it meets the fp32 bound before that rounding).  Its
+// shared memory, 4 (2 x 64 x 256 + 64 x 260) = 197,632 bytes, holds one
+// block an SM.  RecurrentGemma-9B's local attention (H=16, K=1, window
+// 2048) is the config that reaches it; a wgmma kernel at hd 256 (its O
+// accumulator twice hd 128's) is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +108,26 @@ struct Vec4<float> {
   }
 };
 
+// bf16 at hd 256 (the wgmma kernel takes hd 64 and 128): four values in
+// one 8-byte load, widened to fp32; stored rounded to nearest
+template <>
+struct Vec4<__nv_bfloat16> {
+  static __device__ __forceinline__ float4 load(const __nv_bfloat16* p) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float4 v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 raw;
+    raw.x = *reinterpret_cast<const uint32_t*>(&lo);
+    raw.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = raw;
+  }
+};
+
 // Rows [row0, row0 + kTile) of one head, `step` elements apart in
 // global memory, into shared memory as fp32 with row stride `stride`.
 template <typename T, int HD>
@@ -122,8 +151,11 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * kTile * HD + k_region<HD>());
 }
 
+// Two blocks an SM at hd 64 and 128.  At hd 256 one block's shared
+// memory (197,632 bytes) leaves room for no second, so the bound asks for
+// one and lets a thread keep its 64 accumulators in up to 255 registers.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, (HD == 256 ? 1 : 2))
 swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, int S, int H,
                      int K, int window, float scale) {
@@ -638,7 +670,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
 }  // namespace
 
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for an hd
-// other than 64 or 128, or a tensor map cuTensorMapEncodeTiled refuses).
+// other than 64, 128 or 256, or a tensor map cuTensorMapEncodeTiled
+// refuses).  The wrapper zero-pads any other hd <= 256 to the next of
+// these.
 // The wrapper (kernels/swa_attention.py) checks the rest: contiguous
 // (B, S, H, hd) / (B, S, K, hd) tensors of one dtype, 16-byte aligned,
 // H % K == 0, S a positive multiple of 64, window >= 1, B * H <= 65535.
@@ -651,5 +685,8 @@ extern "C" int swa_attention_launch(const void* q, const void* k, const void* v,
   if (hd == 128)
     return bf16 ? launch_wgmma<128>(q, k, v, o, B, S, H, K, window, scale, stream)
                 : launch<float, 128>(q, k, v, o, B, S, H, K, window, scale, stream);
+  if (hd == 256)
+    return bf16 ? launch<__nv_bfloat16, 256>(q, k, v, o, B, S, H, K, window, scale, stream)
+                : launch<float, 256>(q, k, v, o, B, S, H, K, window, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

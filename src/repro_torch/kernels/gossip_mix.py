@@ -13,12 +13,25 @@ itself, since every row reads other rows.  Their plain twins are in
 ``repro_torch.kernels.ref``; the CUDA-or-CPU dispatch is
 ``repro_torch.kernels.ops``.
 
+Two kernel designs share ``csrc/gossip_mix.cu`` and agree bitwise: the
+row-wise kernel (a block a row and 1024 columns, reading the rows it
+mixes from global memory) and the column-tile-stationary kernel (a tile
+of T columns of every row staged in shared memory once, a persistent
+grid walking the tiles).  :func:`_plan` picks one from the shapes: ``gossip_mix``
+and ``gossip_mix_sparse_dp`` stage while their tile fits in shared
+memory; ``gossip_mix_sparse`` and ``gossip_mix_dp`` stay row-wise.
+:func:`gossip_mix_rowwise` and :func:`gossip_mix_sparse_dp_rowwise`
+launch the row-wise kernel at any shape, so that checks can hold the
+staged kernel against it; nothing on the training path calls them.
+
 :data:`LAUNCHES` counts each kernel's launches in this process, so a
-run can show that its path went through the kernels.
+run can show that its path went through the kernels
+(:data:`ROWWISE_LAUNCHES` counts the two comparison wrappers').
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -26,29 +39,75 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_operands, refuse_autograd
 
 LAUNCHES = {"gossip_mix": 0, "gossip_mix_sparse": 0, "gossip_mix_dp": 0, "gossip_mix_sparse_dp": 0}
+ROWWISE_LAUNCHES = {"gossip_mix": 0, "gossip_mix_sparse_dp": 0}
 
-TILE_COLS = 1024   # columns per block (kTile in csrc/gossip_mix.cu)
-MAX_TILES = 65535  # gridDim.y
-MAX_SLOTS = 6144   # a sparse row's (idx, wgt) within 48 KB of shared memory
+STAGED = ("gossip_mix", "gossip_mix_sparse_dp")  # the kernels with a staged design
+ROW_TILE = 1024              # the row-wise kernel's columns a block (kTile)
+MAX_ROW_TILES = 65535        # its tiles along gridDim.y
+MAX_SLOTS = 6144             # its sparse row's (idx, wgt) within 48 KB of shared memory
+SMEM_LIMIT = 232_448         # dynamic shared memory a block may opt into on sm_90
+# The staged kernel's tile width and block size, the fastest measured on
+# an H100 at the main path's shapes (PERF.md): N=12 dense mixes a 256-column
+# tile (1 KB of each row) with a thread per 4 x 4 outputs; N=226 sparse
+# DP a 32-column tile, 72 KB with its table, so that three blocks of 512
+# threads share an SM and one loads while the others compute.
+STAGED_TILE = {"gossip_mix": 256, "gossip_mix_sparse_dp": 32}
+STAGED_THREADS = {"gossip_mix": 256, "gossip_mix_sparse_dp": 512}
+
+
+class Plan(NamedTuple):
+    design: str   # "staged" or "rowwise"
+    tile: int     # columns a block mixes at a time
+    threads: int  # threads a block
+    smem: int     # dynamic shared memory of a block, bytes
+
+
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def _smem_bytes(n: int, s: int, tile: int, sparse: bool, dp: bool) -> int:
+    """Shared memory of a staged block (``StagedLayout`` in the CUDA
+    source): the operator -- the table's idx and wgt rows padded to a
+    multiple of 4 slots, or M^T with rows of round4(N) -- the active
+    mask, and the tile, W's (and for DP Z's) N x T columns."""
+    op = 2 * n * _round4(s) if sparse else n * _round4(n)
+    return 4 * (op + _round4(n) + n * tile * (2 if dp else 1))
+
+
+def _plan(kernel: str, n: int, s: int, d: int) -> Plan:
+    """The design for ``kernel`` at N rows, S table slots (0 when dense)
+    and D columns: the staged kernel at its tile while the tile and the
+    operator fit in a block's shared memory, else (and for the kernels
+    without a staged design) the row-wise kernel.  D does not enter:
+    the staged grid walks the tiles."""
+    if kernel in STAGED:
+        tile = STAGED_TILE[kernel]
+        smem = _smem_bytes(n, s, tile, "sparse" in kernel, kernel.endswith("_dp"))
+        if smem <= SMEM_LIMIT:
+            return Plan("staged", tile, STAGED_THREADS[kernel], smem)
+    return Plan("rowwise", ROW_TILE, 256, 8 * s)
+
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    "gossip_mix": ("gossip_mix_dense_launch", [_P, _P, _P, _P, _I, _L, _P]),
-    "gossip_mix_sparse": ("gossip_mix_sparse_launch", [_P, _P, _P, _P, _P, _I, _I, _L, _P]),
-    "gossip_mix_dp": ("gossip_mix_dp_launch", [_P, _P, _P, _P, _P, _I, _L, _P]),
-    "gossip_mix_sparse_dp": ("gossip_mix_sparse_dp_launch", [_P, _P, _P, _P, _P, _P, _I, _I, _L, _P]),
+_SIGNATURES = {  # C symbol -> argument types, the stream last
+    "gossip_mix_dense_launch": [_P, _P, _P, _P, _I, _L, _I, _I, _P],
+    "gossip_mix_rowwise_launch": [_P, _P, _P, _P, _I, _L, _P],
+    "gossip_mix_sparse_launch": [_P, _P, _P, _P, _P, _I, _I, _L, _P],
+    "gossip_mix_dp_launch": [_P, _P, _P, _P, _P, _I, _L, _P],
+    "gossip_mix_sparse_dp_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P],
+    "gossip_mix_sparse_dp_rowwise_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _P],
 }
 _FNS: dict = {}
 
 
-def _fn(kernel: str):
-    if kernel not in _FNS:
-        symbol, argtypes = _SIGNATURES[kernel]
+def _fn(symbol: str):
+    if symbol not in _FNS:
         fn = getattr(_build.load("gossip_mix"), symbol)
-        fn.argtypes = argtypes
+        fn.argtypes = _SIGNATURES[symbol]
         fn.restype = ctypes.c_int
-        _FNS[kernel] = fn
-    return _FNS[kernel]
+        _FNS[symbol] = fn
+    return _FNS[symbol]
 
 
 def _check(kernel: str, named: dict[str, torch.Tensor], sparse: bool) -> tuple[int, int, int]:
@@ -60,14 +119,14 @@ def _check(kernel: str, named: dict[str, torch.Tensor], sparse: bool) -> tuple[i
     if w.dim() != 2:
         raise ValueError(f"{kernel}: w must be (N, D), got {tuple(w.shape)}")
     n, d = w.shape
-    if n < 1 or d < 1 or -(-d // TILE_COLS) > MAX_TILES:
-        raise ValueError(f"{kernel}: need N >= 1 and 1 <= D <= {TILE_COLS * MAX_TILES}, got N={n} D={d}")
+    if n < 1 or d < 1:
+        raise ValueError(f"{kernel}: need N >= 1 and D >= 1, got N={n} D={d}")
     s = 0
     expect = {"active": (n,), "z": (n, d)}
     if sparse:
         s = named["idx"].shape[-1]
-        if not 1 <= s <= MAX_SLOTS:
-            raise ValueError(f"{kernel}: the table needs 1 to {MAX_SLOTS} slots per row, got {s}")
+        if s < 1:
+            raise ValueError(f"{kernel}: the table needs at least 1 slot per row, got {s}")
         expect.update(idx=(n, s), wgt=(n, s))
     else:
         expect["mix"] = (n, n)
@@ -77,14 +136,25 @@ def _check(kernel: str, named: dict[str, torch.Tensor], sparse: bool) -> tuple[i
     return n, d, s
 
 
-def _launch(kernel: str, out: torch.Tensor, *args) -> torch.Tensor:
+def _check_rowwise(kernel: str, n: int, s: int, d: int) -> None:
+    """What the row-wise kernel takes beyond :func:`_check` (the staged
+    kernel's limit, shared memory, is its plan's)."""
+    if -(-d // ROW_TILE) > MAX_ROW_TILES:
+        raise ValueError(f"{kernel}: need D <= {ROW_TILE * MAX_ROW_TILES} on the row-wise "
+                         f"kernel, got N={n} D={d}")
+    if s > MAX_SLOTS:
+        raise ValueError(f"{kernel}: the row-wise kernel takes 1 to {MAX_SLOTS} slots per "
+                         f"row, got {s}")
+
+
+def _launch(kernel: str, counts: dict, symbol: str, out: torch.Tensor, *args) -> torch.Tensor:
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        err = _fn(kernel)(*ptrs, stream)
+        err = _fn(symbol)(*ptrs, stream)
     if err != 0:
-        raise RuntimeError(f"{kernel}: kernel launch failed with cudaError {err}")
-    LAUNCHES[kernel] += 1
+        raise RuntimeError(f"{kernel}: kernel launch failed with cudaError {err} ({symbol})")
+    counts[kernel] += 1
     return out
 
 
@@ -92,8 +162,13 @@ def gossip_mix(mix, w, active) -> torch.Tensor:
     """Dense gossip: ``out[n] = sum_m mix[n, m] w[m]`` where active,
     else ``w[n]``.  mix (N, N), w (N, D), active (N,), float32 on CUDA."""
     n, d, _ = _check("gossip_mix", {"mix": mix, "w": w, "active": active}, sparse=False)
+    plan = _plan("gossip_mix", n, 0, d)
     out = torch.empty_like(w)
-    return _launch("gossip_mix", out, mix, w, active, out, n, d)
+    if plan.design == "staged":
+        return _launch("gossip_mix", LAUNCHES, "gossip_mix_dense_launch", out,
+                       mix, w, active, out, n, d, plan.tile, plan.threads)
+    _check_rowwise("gossip_mix", n, 0, d)
+    return _launch("gossip_mix", LAUNCHES, "gossip_mix_rowwise_launch", out, mix, w, active, out, n, d)
 
 
 def gossip_mix_sparse(idx, wgt, w, active) -> torch.Tensor:
@@ -101,16 +176,19 @@ def gossip_mix_sparse(idx, wgt, w, active) -> torch.Tensor:
     active, else ``w[n]``.  idx int32 / wgt float32 (N, S), w (N, D)."""
     named = {"idx": idx, "wgt": wgt, "w": w, "active": active}
     n, d, s = _check("gossip_mix_sparse", named, sparse=True)
+    _check_rowwise("gossip_mix_sparse", n, s, d)
     out = torch.empty_like(w)
-    return _launch("gossip_mix_sparse", out, idx, wgt, w, active, out, n, s, d)
+    return _launch("gossip_mix_sparse", LAUNCHES, "gossip_mix_sparse_launch", out,
+                   idx, wgt, w, active, out, n, s, d)
 
 
 def gossip_mix_dp(mix, w, z, active) -> torch.Tensor:
     """Dense local-DP gossip: ``mix @ (w + z) - diag(mix) z`` where
     active, else ``w``.  z (N, D) is the scaled noise."""
     n, d, _ = _check("gossip_mix_dp", {"mix": mix, "w": w, "z": z, "active": active}, sparse=False)
+    _check_rowwise("gossip_mix_dp", n, 0, d)
     out = torch.empty_like(w)
-    return _launch("gossip_mix_dp", out, mix, w, z, active, out, n, d)
+    return _launch("gossip_mix_dp", LAUNCHES, "gossip_mix_dp_launch", out, mix, w, z, active, out, n, d)
 
 
 def gossip_mix_sparse_dp(idx, wgt, w, z, active) -> torch.Tensor:
@@ -118,5 +196,32 @@ def gossip_mix_sparse_dp(idx, wgt, w, z, active) -> torch.Tensor:
     wgt[n, 0] z[n]`` where active, else ``w[n]``."""
     named = {"idx": idx, "wgt": wgt, "w": w, "z": z, "active": active}
     n, d, s = _check("gossip_mix_sparse_dp", named, sparse=True)
+    plan = _plan("gossip_mix_sparse_dp", n, s, d)
     out = torch.empty_like(w)
-    return _launch("gossip_mix_sparse_dp", out, idx, wgt, w, z, active, out, n, s, d)
+    if plan.design == "staged":
+        return _launch("gossip_mix_sparse_dp", LAUNCHES, "gossip_mix_sparse_dp_launch", out,
+                       idx, wgt, w, z, active, out, n, s, d, plan.tile, plan.threads)
+    _check_rowwise("gossip_mix_sparse_dp", n, s, d)
+    return _launch("gossip_mix_sparse_dp", LAUNCHES, "gossip_mix_sparse_dp_rowwise_launch", out,
+                   idx, wgt, w, z, active, out, n, s, d)
+
+
+def gossip_mix_rowwise(mix, w, active) -> torch.Tensor:
+    """:func:`gossip_mix` on the row-wise kernel whatever the shape (a
+    comparison for checks; counted in :data:`ROWWISE_LAUNCHES`)."""
+    n, d, _ = _check("gossip_mix", {"mix": mix, "w": w, "active": active}, sparse=False)
+    _check_rowwise("gossip_mix", n, 0, d)
+    out = torch.empty_like(w)
+    return _launch("gossip_mix", ROWWISE_LAUNCHES, "gossip_mix_rowwise_launch", out,
+                   mix, w, active, out, n, d)
+
+
+def gossip_mix_sparse_dp_rowwise(idx, wgt, w, z, active) -> torch.Tensor:
+    """:func:`gossip_mix_sparse_dp` on the row-wise kernel whatever the
+    shape (a comparison for checks; counted in :data:`ROWWISE_LAUNCHES`)."""
+    named = {"idx": idx, "wgt": wgt, "w": w, "z": z, "active": active}
+    n, d, s = _check("gossip_mix_sparse_dp", named, sparse=True)
+    _check_rowwise("gossip_mix_sparse_dp", n, s, d)
+    out = torch.empty_like(w)
+    return _launch("gossip_mix_sparse_dp", ROWWISE_LAUNCHES, "gossip_mix_sparse_dp_rowwise_launch",
+                   out, idx, wgt, w, z, active, out, n, s, d)

@@ -3,11 +3,13 @@ counterpart of ``repro.kernels.ops``).
 
 A tensor on a CUDA device goes to the kernel, which launches or raises;
 a tensor on the CPU goes to the plain twin.  There is no fallback from
-one to the other, and no padding: the LSTM and gossip kernels mask any
-shape, and ``swa_attention``'s kernel refuses S % 64 != 0 (its twin takes
-any S), unlike ``repro.kernels.ops``, which pads N to 8 rows and D to 512
-columns, falls back to the reference LSTM cell when ``H % 128 != 0`` and
-refuses an attention length S % 128 != 0.
+one to the other, and no padding of rows or columns: the LSTM and
+gossip kernels mask any shape, and ``swa_attention``'s kernel refuses
+S % 64 != 0 (its twin takes any S) and zero-pads only the head dim (to
+64, 128 or 256; hd > 256 is refused), unlike ``repro.kernels.ops``,
+which pads N to 8 rows and D to 512 columns, falls back to the reference
+LSTM cell when ``H % 128 != 0`` and refuses an attention length
+S % 128 != 0.
 """
 from __future__ import annotations
 

@@ -85,19 +85,21 @@ def gossip_mix_sparse_dp_plain(idx, wgt, w, z, active):
     return _select(active, _table_sum(idx, wgt, w + z) - wgt[:, :1] * z, w)
 
 
-def swa_attention_plain(q, k, v, *, window: int):
+def swa_attention_plain(q, k, v, *, window: int, scale: float | None = None):
     """Causal sliding-window attention, the function the
     ``swa_attention`` kernel computes: query i attends to the keys j with
     i - window < j <= i.  q (B, S, H, hd); k, v (B, S, K, hd) with
     H % K == 0, repeated to H heads here and then computed as
     ``repro.kernels.ref.swa_attention_ref``: fp32 scores scaled by
-    hd**-0.5, masked with -1e30, softmax and the product with v in fp32,
-    the result in q's dtype.  It materialises (B, H, S, S) scores."""
+    ``scale`` (hd**-0.5 unless given), masked with -1e30, softmax and the
+    product with v in fp32, the result in q's dtype.  It materialises
+    (B, H, S, S) scores."""
     s, h, hd = q.shape[1], q.shape[2], q.shape[3]
     rep = h // k.shape[2]
     kf = k.float().repeat_interleave(rep, dim=2)
     vf = v.float().repeat_interleave(rep, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (hd ** -0.5)
+    scale = hd ** -0.5 if scale is None else scale
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
     pos = torch.arange(s, device=q.device)
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
     scores = torch.where(mask, scores, torch.full((), -1e30, device=q.device))

@@ -9,9 +9,13 @@ serves query head h from KV head ``h // (H // K)``; K = H is the Pallas
 case.  S must be a multiple of 64 (the fp32 kernel's tile, half the
 bf16 kernel's 128-row tile), as ``repro.kernels.ops`` refuses
 S % 128 != 0 (the banded branch of ``gqa_attention``, the only caller,
-takes S % 1024 == 0).  bf16 runs on the tensor cores with P rounded to
-bf16 (``ref.swa_bf16_bound`` states what that costs); fp32 on scalar
-FMAs.  Its plain twin is ``repro_torch.kernels.ref.swa_attention_plain``;
+takes S % 1024 == 0).  The kernel is built for hd 64, 128 and 256; any
+other hd <= 256 is zero-padded to the next of these
+(:func:`with_padded_head_dim`), which is exact, and hd > 256 is refused.
+bf16 at hd 64 and 128 runs on the tensor cores with P rounded to bf16
+(``ref.swa_bf16_bound`` states what that costs); fp32, and bf16 at hd
+256, on scalar fp32 FMAs.  Its plain twin is
+``repro_torch.kernels.ref.swa_attention_plain``;
 the CUDA-or-CPU dispatch is ``repro_torch.kernels.ops.swa_attention``.
 
 :data:`LAUNCHES` counts the kernel's launches in this process, so a run
@@ -28,7 +32,7 @@ from repro_torch.kernels._checks import check_operands, refuse_autograd
 
 LAUNCHES = 0
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)  # the kernel's builds; other hd <= 256 are padded
 TILE = 64  # S must be a multiple of this
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEADS = 65535  # B * H blocks along gridDim.y
@@ -64,8 +68,8 @@ def _check(q, k, v, window) -> tuple[int, int, int, int, int]:
     if k.shape[:2] != (b, s) or k.shape[3] != hd or kh < 1 or h % kh:
         raise ValueError(f"swa_attention: k, v must be (B, S, K, hd) with H % K == 0, got "
                          f"q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"swa_attention: hd must be one of {HEAD_DIMS}, got {hd}")
+    if not 1 <= hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"swa_attention: hd must be <= {HEAD_DIMS[-1]}, got {hd}")
     if min(b, s, h) < 1 or b * h > MAX_HEADS:
         raise ValueError(f"swa_attention: need B, S, H >= 1 and B * H <= {MAX_HEADS}, "
                          f"got B={b} S={s} H={h}")
@@ -76,23 +80,43 @@ def _check(q, k, v, window) -> tuple[int, int, int, int, int]:
     return b, s, h, kh, hd
 
 
-def swa_attention(q, k, v, *, window: int) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream: q (B, S, H, hd),
-    k and v (B, S, K, hd), one dtype (float32 or bfloat16), contiguous
-    and 16-byte aligned, on one CUDA device, S % 64 == 0 -> o (B, S, H,
-    hd) in q's dtype.  Query i attends to the keys j with
-    i - window < j <= i.  Raises on anything else, on a failed launch,
-    and when grad mode is on and an input requires grad (the kernel has
-    no backward, as the Pallas kernel has no ``custom_vjp``)."""
+def with_padded_head_dim(attention, q, k, v, *, window: int) -> torch.Tensor:
+    """``attention(q, k, v, window=, scale=)`` at the least of
+    :data:`HEAD_DIMS` that holds hd: q, k and v zero-padded on their last
+    dim, the scale ``hd ** -0.5`` of the original hd, the output sliced
+    back to hd.  Exact: the zero columns add exact zeros to q k^T, and
+    v's zero columns give output columns that are sliced away.  At an hd
+    of :data:`HEAD_DIMS` nothing is copied."""
+    hd = q.shape[-1]
+    width = next(p for p in HEAD_DIMS if p >= hd)
+    if width == hd:
+        return attention(q, k, v, window=window, scale=hd ** -0.5)
+    pad = [torch.nn.functional.pad(t, (0, width - hd)) for t in (q, k, v)]
+    return attention(*pad, window=window, scale=hd ** -0.5)[..., :hd].contiguous()
+
+
+def _launch(q, k, v, *, window: int, scale: float) -> torch.Tensor:
     global LAUNCHES
-    b, s, h, kh, hd = _check(q, k, v, window)
+    b, s, h, hd = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, s, h, kh, hd, window, hd ** -0.5, int(q.dtype == torch.bfloat16),
+                    b, s, h, k.shape[2], hd, window, scale, int(q.dtype == torch.bfloat16),
                     stream)
     if err != 0:
         raise RuntimeError(f"swa_attention: kernel launch failed with cudaError {err}")
     LAUNCHES += 1
     return out
+
+
+def swa_attention(q, k, v, *, window: int) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream: q (B, S, H, hd),
+    k and v (B, S, K, hd), hd <= 256, one dtype (float32 or bfloat16),
+    contiguous and 16-byte aligned, on one CUDA device, S % 64 == 0 ->
+    o (B, S, H, hd) in q's dtype.  Query i attends to the keys j with
+    i - window < j <= i.  Raises on anything else, on a failed launch,
+    and when grad mode is on and an input requires grad (the kernel has
+    no backward, as the Pallas kernel has no ``custom_vjp``)."""
+    _check(q, k, v, window)
+    return with_padded_head_dim(_launch, q, k, v, window=window)

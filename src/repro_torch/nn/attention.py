@@ -124,7 +124,8 @@ def gqa_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return plain_attention(q, k, v, causal=causal, window=window)
     band_span = (-(-window // block) + 1) * block if window > 0 else 0
     if window > 0 and sq == skv and sq % block == 0 and block <= window and band_span < sq:
-        # JAX's banded path is causal whatever ``causal`` says; so is the kernel
+        # JAX's banded path is causal whatever ``causal`` says; so is the
+        # kernel, which takes every hd <= 256 (RecurrentGemma's 256 among them)
         BRANCHES["banded"] += 1
         return ops.swa_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=window)
     BRANCHES["flash"] += 1

@@ -11,10 +11,12 @@
   * the **forecast method**: requests are padded to the smallest fitting
     bucket (windows with zeros, param rows with the last real row) and
     run as ONE launch of the ``lstm_forward`` kernel with one weight row
-    per request.  The kernel computes each row in one block, in a fixed
-    order that does not depend on the batch, so a forecast is bitwise the
-    same whoever shares its batch and padding is inert: pinned by
-    ``tests/test_torch_serve.py`` and the launcher's ``--selfcheck``.
+    per request.  A cluster of the kernel runs a tile of up to 8 rows of
+    one group, and computes each row in a fixed order that depends on
+    neither the batch nor the row's place in its tile, so a forecast is
+    bitwise the same whoever shares its batch and padding is inert:
+    pinned by ``tests/test_torch_serve.py`` and the launcher's
+    ``--selfcheck``.
 
 Cold-start personalization (``repro.core.personalize``) is not ported
 yet; it will fine-tune through the same plain-PyTorch autograd path the

@@ -1,7 +1,8 @@
 """The port's attention held against the JAX package on the CPU: the
 ``swa_attention`` twin against JAX's oracle and its Pallas kernel (in
-interpret mode, as ``tests/test_kernels.py`` runs it), the three branches
-of ``gqa_attention`` with a spy on the branch taken, one bf16 case,
+interpret mode, as ``tests/test_kernels.py`` runs it) at hd 64, 128, 256
+and 96, the kernel wrapper's head-dim padding, the three branches of
+``gqa_attention`` with a spy on the branch taken, one bf16 case,
 decode attention over the KV cache, and ``swa_bf16_bound`` against an
 emulation of the bf16 kernel's arithmetic.  Inputs come from numpy seeds."""
 import jax.numpy as jnp
@@ -39,7 +40,7 @@ def _repeat(a, rep):
 
 @pytest.mark.parametrize("s", [128, 256, 1024])
 @pytest.mark.parametrize("window", [64, 128, 300, 1024])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256, 96])
 def test_swa_plain_matches_jax_kernel_and_oracle(s, window, hd):
     q, k, v = _qkv(2, s, 2, 2, hd, seed=s + window + hd)
     got = ref.swa_attention_plain(*_torch(q, k, v), window=window).numpy()
@@ -69,17 +70,42 @@ def test_ops_routes_cpu_to_the_twin_and_counts_no_launch():
         ops.swa_attention(q.to("meta"), k.to("meta"), v.to("meta"), window=64)
 
 
-@pytest.mark.parametrize("s,window,branch", [
-    (256, 0, "plain"), (256, 64, "plain"), (2048, 1024, "plain"),
-    (3072, 0, "flash"), (3072, 2048, "flash"), (3072, 1024, "banded")])
-def test_gqa_attention_branches_match_jax(s, window, branch):
-    q, k, v = _qkv(1, s, 4, 2, 64, seed=s + window)
+def _branch_case(s, window, branch, heads=(4, 2, 64), tag=""):
+    return pytest.param(s, window, branch, heads, id=f"{s}-{window}-{branch}{tag}")
+
+
+@pytest.mark.parametrize("s,window,branch,heads", [
+    _branch_case(256, 0, "plain"), _branch_case(256, 64, "plain"),
+    _branch_case(2048, 1024, "plain"), _branch_case(3072, 0, "flash"),
+    _branch_case(3072, 2048, "flash"), _branch_case(3072, 1024, "banded"),
+    # RecurrentGemma-9B's local attention: one KV head of hd 256, window 2048
+    _branch_case(4096, 2048, "banded", heads=(2, 1, 256), tag="-hd256")])
+def test_gqa_attention_branches_match_jax(s, window, branch, heads):
+    h, kh, hd = heads
+    q, k, v = _qkv(1, s, h, kh, hd, seed=s + window)
     before = dict(tattn.BRANCHES)
     got = tattn.gqa_attention(*_torch(q, k, v), causal=True, window=window)
     taken = [name for name in before if tattn.BRANCHES[name] != before[name]]
     assert taken == [branch]
     want = jattn.gqa_attention(*_jax(q, k, v), causal=True, window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("hd", [1, 48, 96, 160, 200, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_head_dim_matches_the_unpadded_twin(hd, dtype):
+    """The kernel wrapper's hd padding, run through the twin: q, k, v
+    zero-padded to 64, 128 or 256, the original hd's scale, the output
+    sliced back, against the twin at the unpadded hd within 1e-6 (bf16:
+    the same fp32 values up to their summation order, then rounded to
+    bf16 once, so at most one bf16 step, 2^-7 relative, apart)."""
+    q, k, v = _torch(*_qkv(2, 256, 4, 2, hd, seed=hd), dtype=dtype)
+    got = swa_kernel.with_padded_head_dim(ref.swa_attention_plain, q, k, v, window=100)
+    want = ref.swa_attention_plain(q, k, v, window=100)
+    assert got.shape == want.shape and got.dtype == dtype
+    bf16 = dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=2.0 ** -7 if bf16 else 0, atol=1e-6)
 
 
 def test_banded_reference_matches_jax():

@@ -239,3 +239,46 @@ def test_wrapper_refuses_grad_then_cpu_tensors():
     with pytest.raises(ValueError, match="meta"):
         ops.gossip_mix(_t(mix).to("meta"), _t(w).to("meta"), _t(act).to("meta"))
     assert gossip_kernels.LAUNCHES == before
+
+
+# ------------------------------------------------------- the kernel's plan
+
+
+@pytest.mark.parametrize("kernel,n,s,design,tile", [
+    ("gossip_mix", 12, 0, "staged", 256),             # OhioT1DM
+    ("gossip_mix_sparse_dp", 226, 8, "staged", 32),   # REPLACE-BG
+    ("gossip_mix_sparse", 226, 8, "rowwise", 1024),   # no staged design
+    ("gossip_mix_dp", 12, 0, "rowwise", 1024)])
+def test_gossip_plan_at_the_main_path_shapes(kernel, n, s, design, tile):
+    plan = gossip_kernels._plan(kernel, n, s, 66_689)
+    assert (plan.design, plan.tile) == (design, tile)
+    if kernel == "gossip_mix_sparse_dp":  # three blocks share an H100 SM (228 KB, 1 KB a block)
+        assert 3 * (plan.smem + 1024) <= 228 * 1024 and 3 * plan.threads <= 2048
+
+
+@pytest.mark.parametrize("kernel,s", [("gossip_mix", 0), ("gossip_mix_sparse_dp", 8)])
+def test_gossip_plan_stages_while_the_tile_fits(kernel, s):
+    """Staged up to the largest N whose tile and operator fit in a block's
+    shared memory, row-wise from the next N on, whatever D is."""
+    sparse, dp = "sparse" in kernel, kernel.endswith("_dp")
+    tile = gossip_kernels.STAGED_TILE[kernel]
+    for d in (1, 513, 66_689):
+        plans = [gossip_kernels._plan(kernel, n, s, d) for n in range(1, 1200)]
+        staged = [n for n, plan in enumerate(plans, 1) if plan.design == "staged"]
+        limit = staged[-1]
+        assert staged == list(range(1, limit + 1))
+        assert gossip_kernels._smem_bytes(limit, s, tile, sparse, dp) <= gossip_kernels.SMEM_LIMIT
+        assert gossip_kernels._smem_bytes(limit + 1, s, tile, sparse, dp) > gossip_kernels.SMEM_LIMIT
+        assert all(plan.smem == gossip_kernels._smem_bytes(n, s, tile, sparse, dp)
+                   for n, plan in enumerate(plans[:limit], 1))
+        assert {(p.tile, p.threads) for p in plans[:limit]} == {
+            (tile, gossip_kernels.STAGED_THREADS[kernel])}
+
+
+def test_gossip_smem_layout_words():
+    """The staged layout of ``csrc/gossip_mix.cu``: the operator padded to
+    multiples of 4 words, the mask, the W (and Z) tile."""
+    assert gossip_kernels._smem_bytes(12, 0, 256, False, False) == 4 * (12 * 12 + 12 + 12 * 256)
+    assert gossip_kernels._smem_bytes(5, 0, 32, False, False) == 4 * (5 * 8 + 8 + 5 * 32)
+    assert gossip_kernels._smem_bytes(226, 8, 32, True, True) == 4 * (2 * 226 * 8 + 228 + 2 * 226 * 32)
+    assert gossip_kernels._smem_bytes(3, 5, 64, True, True) == 4 * (2 * 3 * 8 + 4 + 2 * 3 * 64)

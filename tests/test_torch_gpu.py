@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: ``lstm_forward``, the four
 gossip kernels and ``swa_attention`` held against their plain twins, a
-row's result bitwise independent of the launch it shares, the wrappers'
+row's result bitwise independent of the launch it shares, the staged
+gossip kernels bitwise the row-wise kernel they replace, the wrappers'
 refusals, the servable's bitwise contract through ``lstm_forward``, a
 few training rounds through the gossip kernels, and the banded branch
 of ``gqa_attention`` and a small LM prefill through ``swa_attention``.
@@ -186,6 +187,67 @@ def test_gossip_kernels_match_plain(cuda, n, d, ratio):
         assert torch.equal(got[inactive], w[inactive]), name
 
 
+def _rowwise_pairs(w, z, act, mix, idx, wgt):
+    """(name, staged-or-planned wrapper, row-wise wrapper, args) for the
+    two kernels with a staged design."""
+    return [
+        ("gossip_mix", gossip_kernels.gossip_mix, gossip_kernels.gossip_mix_rowwise,
+         (mix, w, act)),
+        ("gossip_mix_sparse_dp", gossip_kernels.gossip_mix_sparse_dp,
+         gossip_kernels.gossip_mix_sparse_dp_rowwise, (idx, wgt, w, z, act)),
+    ]
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (12, 513), (37, 66689), (226, 4099)])
+@pytest.mark.parametrize("ratio", [0.0, 0.3, 1.0])
+def test_staged_gossip_kernels_equal_the_rowwise_kernel_bitwise(cuda, n, d, ratio):
+    """gossip_mix and gossip_mix_sparse_dp through their planned kernel
+    (staged at every case but the dense N=226, whose M^T overflows shared
+    memory) give the bits of the row-wise kernel (the same FMAs in
+    the same order), whose launches are counted apart."""
+    w, z, act, mix, idx, wgt = _gossip_case(n, d, ratio, seed=n + d, device=cuda)
+    for name, kernel, rowwise, args in _rowwise_pairs(w, z, act, mix, idx, wgt):
+        before = dict(gossip_kernels.LAUNCHES), dict(gossip_kernels.ROWWISE_LAUNCHES)
+        got, want = kernel(*args), rowwise(*args)
+        torch.cuda.synchronize()
+        assert gossip_kernels.LAUNCHES[name] == before[0][name] + 1
+        assert gossip_kernels.ROWWISE_LAUNCHES[name] == before[1][name] + 1
+        assert torch.equal(_bits(got), _bits(want)), name
+
+
+# the largest N each staged kernel takes (gossip_mix_sparse_dp with the
+# trainer's 8-slot table), from the pure plan
+_STAGED_LIMIT = {
+    name: max(n for n in range(1, 1200) if gossip_kernels._plan(name, n, s, 300).design == "staged")
+    for name, s in (("gossip_mix", 0), ("gossip_mix_sparse_dp", 8))}
+
+
+@pytest.mark.parametrize("name", ["gossip_mix", "gossip_mix_sparse_dp"])
+@pytest.mark.parametrize("side", [0, 1])
+def test_gossip_kernels_on_each_side_of_the_staged_limit(cuda, name, side):
+    """At the largest N the staged kernel takes, and one more (the
+    row-wise kernel): within GOSSIP_ATOL of the twin, bitwise the
+    row-wise kernel, inactive rows copied."""
+    n = _STAGED_LIMIT[name] + side
+    w, z, act, mix, idx, wgt = _gossip_case(n, 300, 0.3, seed=n, device=cuda)
+    _, kernel, rowwise, args = next(p for p in _rowwise_pairs(w, z, act, mix, idx, wgt)
+                                    if p[0] == name)
+    plain = {"gossip_mix": ref.gossip_mix_plain,
+             "gossip_mix_sparse_dp": ref.gossip_mix_sparse_dp_plain}[name]
+    s = idx.shape[1] if "sparse" in name else 0
+    assert gossip_kernels._plan(name, n, s, 300).design == ("rowwise" if side else "staged")
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain(*args), rtol=0, atol=GOSSIP_ATOL)
+    assert torch.equal(_bits(got), _bits(rowwise(*args)))
+    inactive = act == 0
+    assert torch.equal(got[inactive], w[inactive])
+
+
 def test_gossip_kernels_keep_inactive_rows_bitwise_under_nan(cuda):
     w, z, act, mix, idx, wgt = _gossip_case(12, 513, 0.0, seed=3, device=cuda)
     act[4] = 0.0
@@ -250,7 +312,11 @@ def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
     # S % 128 == 64 at B=2: the last q tile's rows past S, across batches
     (2, 192, 4, 2, 128, 100), (2, 320, 12, 1, 64, 4096),
     # Mistral-Large's 12 query heads a KV head
-    (2, 2048, 24, 2, 128, 1024)])
+    (2, 2048, 24, 2, 128, 1024),
+    # hd 256 on the scalar kernel (RecurrentGemma's one KV head, window
+    # 2048), S % 128 == 64 at B=2; hd 96 zero-padded to 128
+    (1, 1024, 2, 1, 256, 2048), (2, 192, 4, 2, 256, 100), (1, 320, 3, 1, 96, 100),
+    (2, 1024, 4, 2, 96, 300)])
 def test_swa_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, window):
     q, k, v = _swa_inputs(b, s, h, kh, hd, dtype, seed=s + window, device=cuda)
     before = swa_kernel.LAUNCHES
@@ -278,9 +344,9 @@ def test_swa_wrapper_checks(cuda):
         swa_kernel.swa_attention(q, k.bfloat16(), v, window=64)
     with pytest.raises(ValueError, match="H % K"):
         swa_kernel.swa_attention(q[:, :, :3].contiguous(), k, v, window=64)
-    with pytest.raises(ValueError, match="hd must be"):
-        swa_kernel.swa_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                                 v[..., :32].contiguous(), window=64)
+    wide = [torch.zeros(t.shape[:3] + (288,), device=cuda) for t in (q, k, v)]
+    with pytest.raises(ValueError, match="hd must be <= 256"):
+        swa_kernel.swa_attention(*wide, window=64)
     with pytest.raises(ValueError, match="contiguous"):
         swa_kernel.swa_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, window=64)
     with pytest.raises(ValueError, match="window"):
