@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
   2. build    — compile every CUDA source under ``kernels/csrc`` from the
                 checkout, one ``nvcc`` each, in parallel; each library's
                 ``ptxas`` registers and spills, and 0 bytes of spill in
-                every ``lstm_forward`` kernel and both staged gossip
+                every ``lstm_forward`` kernel and the three staged gossip
                 kernels;
   3. kernel   — each kernel against its plain PyTorch twin on the card,
                 on distinct seeded per-row weights (max |diff| <= 1e-5,
@@ -46,9 +46,10 @@ Phases, each printing one JSON line:
                 ratios 0, 0.3 and 1, on real mixing matrices and (N, 8)
                 neighbor tables (max |diff| <= 1e-6); inactive rows
                 bitwise copies, also with a NaN planted in an active row;
-                two launches bitwise equal; ``gossip_mix`` and
-                ``gossip_mix_sparse_dp`` (staged) bitwise equal to the
-                row-wise kernel at every case;
+                two launches bitwise equal; ``gossip_mix``,
+                ``gossip_mix_dp`` and ``gossip_mix_sparse_dp`` (staged)
+                bitwise equal to the row-wise kernel at every case, and
+                also at the largest N each stages and the next;
   9. train    — the training path at full width through the CLI entry
                 point (``repro_torch.launch.train.run``): REPLACE-BG
                 (N=226) with the sparse kernel, then OhioT1DM (N=12)
@@ -77,11 +78,13 @@ Phases, each printing one JSON line:
                 ``torch.where(act, M @ W, W)``; sparse: ``torch.sparse.mm``
                 of the table as a CSR matrix; DP: the same on W + Z
                 with the self-restore), and the least time the card
-                could take; the two staged kernels timed in turns with
+                could take; the three staged kernels timed in turns with
                 their row-wise parent (parent, kernel, kernel, parent),
                 warm and L2-flushed, and both by ``torch.profiler``'s
-                device time; beside sparse DP, ``torch.add(W, Z)``, the
-                same bytes read and written as one contiguous stream;
+                device time (every kernel's device time too); beside
+                sparse DP, ``torch.add(W, Z)``, the same bytes read and
+                written as one contiguous stream; the staged dense DP
+                kernel at each tile of ``DP_TILES``;
  13. tprofile — ``torch.profiler`` over an 8-round chunk of the sparse
                 training path: the card's busy time split by the
                 trainer's spans (draws, mixing operator, gossip, local
@@ -94,13 +97,16 @@ Phases, each printing one JSON line:
                 fp32 (max |diff| <= 3e-5) and bf16 (<= 5e-2, and
                 elementwise within ``ref.swa_bf16_bound`` of the fp32
                 twin: the rounding of P and of the output), TF32 off;
-                then hd 256 (the scalar kernel) and hd 96 (zero-padded
-                to 128) at S in {1024, 3072} x window in {100, 2048},
-                with 0 bytes of spill in the hd-256 kernels; at
+                then hd 256 (the scalar kernel), 512 (it, in two
+                chunks of 256 columns), 96 and 288 (zero-padded to 128
+                and 512) at S in {1024, 3072} x window in {100, 2048},
+                with 0 bytes of spill in the four scalar kernels; at
                 RecurrentGemma-9B's local attention (B=1, S=8,192, H=16,
-                K=1, hd=256, window 2048) against the fp32
-                ``banded_flash_attention``: fp32 within 3e-5, bf16
-                elementwise within ``swa_bf16_bound``; at
+                K=1, window 2048) at its hd 256 and at hd 288 and 512
+                against the fp32 ``banded_flash_attention``: fp32 within
+                3e-5, bf16 elementwise within ``swa_bf16_bound``; at hd
+                256 and 512 in both dtypes its time, the banded path's,
+                ``scaled_dot_product_attention``'s and its bound; at
                 the LM prefill's shape (B=1, S=32,768, H=96, K=8, hd=128,
                 window 4096) against the plain ``banded_flash_attention``
                 in fp32 on the same inputs: the kernel's fp32 build
@@ -187,6 +193,8 @@ COMM_BATCH = 7  # B of Algorithm 1 (FLConfig default): tables of 8 slots
 GOSSIP_NODES = (1, 12, 37, 226)
 GOSSIP_COLS = (1, 513, 66_689)  # 66,689 = the H=128 LSTM's parameter count
 GOSSIP_RATIOS = (0.0, 0.3, 1.0)
+# (tile, threads) of the staged gossip_mix_dp timed at its main-path shape
+DP_TILES = ((64, 256), (128, 256), (256, 256), (256, 512), (512, 512))
 TRAIN_ROUNDS = 64
 EVAL_EVERY = 16
 # swa_attention: JAX's own tolerances for this kernel (tests/test_kernels.py):
@@ -196,11 +204,13 @@ EVAL_EVERY = 16
 SWA_TOL = {torch.float32: 3e-5, torch.bfloat16: 5e-2}
 SWA_SEQS = (128, 256, 1024, 3072)
 SWA_WINDOWS = (64, 100, 300, 1024, 4096)
-# the head dims beyond the wgmma kernel's: 256 on the scalar kernel, 96
-# zero-padded to 128
-SWA_WIDE = {"seqs": (1024, 3072), "windows": (100, 2048), "hds": (256, 96)}
+# the head dims beyond the wgmma kernel's: 256 on the scalar kernel, 512
+# on it in two chunks, 96 zero-padded to 128 and 288 to 512
+SWA_WIDE = {"seqs": (1024, 3072), "windows": (100, 2048), "hds": (256, 512, 96, 288)}
 HYBRID_ARCH = "recurrentgemma-9b"  # local attention at hd 256, one KV head
 HYBRID_SEQ = 8192
+HYBRID_HDS = (256, 288, 512)  # its own hd, one padded to 512, and 512 itself
+HYBRID_TIMED = (256, 512)
 LM_ARCH = "mistral-large-123b"
 LM_LAYERS = 4           # of 88
 LM_DECODE_STEPS = 16
@@ -325,12 +335,47 @@ def gossip_calls(w, z, act, mix, idx, wgt):
 
 
 def rowwise_calls(w, z, act, mix, idx, wgt):
-    """name -> (the row-wise parent wrapper, args) of the two kernels
+    """name -> (the row-wise parent wrapper, args) of the three kernels
     with a staged design."""
     from repro_torch.kernels import gossip_mix as gk
 
     return {"gossip_mix": (gk.gossip_mix_rowwise, (mix, w, act)),
+            "gossip_mix_dp": (gk.gossip_mix_dp_rowwise, (mix, w, z, act)),
             "gossip_mix_sparse_dp": (gk.gossip_mix_sparse_dp_rowwise, (idx, wgt, w, z, act))}
+
+
+def staged_limit(name: str, slots: int) -> int:
+    """The largest N at which ``name`` runs the staged kernel (the pure
+    plan; D does not enter)."""
+    from repro_torch.kernels import gossip_mix as gk
+
+    return max(n for n in range(1, 1200) if gk._plan(name, n, slots, 1).design == "staged")
+
+
+def dp_tile_sweep(w, z, act, mix, want) -> dict[str, dict[str, float]]:
+    """The staged ``gossip_mix_dp`` kernel at each (tile, threads) of
+    DP_TILES, launched through its C entry point (not the wrapper, so
+    uncounted): bitwise ``want`` at each, then its CUDA-event time and
+    profiler device time -- what ``STAGED_TILE`` was chosen from."""
+    from repro_torch.kernels import gossip_mix as gk
+
+    launch = gk._fn("gossip_mix_dp_launch")
+    out = torch.empty_like(w)
+    n, d = w.shape
+    sweep = {}
+    for tile, threads in DP_TILES:
+        def call():
+            stream = torch.cuda.current_stream().cuda_stream
+            err = launch(mix.data_ptr(), w.data_ptr(), z.data_ptr(), act.data_ptr(),
+                         out.data_ptr(), n, d, tile, threads, stream)
+            require(err == 0, f"gossip_mix_dp at T={tile}, {threads} threads: cudaError {err}")
+
+        out.fill_(float("nan"))
+        call()
+        require(torch.equal(out.view(torch.int32), want.view(torch.int32)),
+                f"gossip_mix_dp at T={tile}, {threads} threads: not bitwise the wrapper's")
+        sweep[f"T={tile}/threads={threads}"] = dict(ms=time_ms(call, 200), device_us=device_us(call))
+    return sweep
 
 
 def gossip_library(name, w, z, act, mix, idx, wgt):
@@ -419,6 +464,27 @@ def band_sdpa(q, k, v, window: int, block: int = 1024):
             for rows, keys, mask in calls], dim=2)
 
     return run
+
+
+def swa_timing(q, k, v, window: int, ops_per_s: float) -> dict:
+    """``swa_attention`` at one shape: its CUDA-event time, the plain
+    banded path's, :func:`band_sdpa`'s (and its distance from the
+    kernel), and the least time the card could take at ``ops_per_s``."""
+    from repro_torch.kernels import swa_attention as swa_kernel
+    from repro_torch.nn import attention as attn
+
+    call = lambda: swa_kernel.swa_attention(q, k, v, window=window)  # noqa: E731
+    library = band_sdpa(q, k, v, window)
+    nbytes, ops = swa_cost(q, k, window)
+    row = dict(ms=time_ms(call, 20),
+               plain_ms=time_ms(lambda: attn.banded_flash_attention(q, k, v, window=window), 5,
+                                warmup=1),
+               library_ms=time_ms(library, 10, warmup=2),
+               library_max_abs_err=float((library().transpose(1, 2).float()
+                                          - call().float()).abs().max()))
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, ops_per_s)
+    row.update(bound_share=row["bound_ms"] / row["ms"], tflop_per_s=ops / (row["ms"] * 1e-3) / 1e12)
+    return row
 
 
 def ptxas_report(log: str, *needles: str) -> dict[str, list[str]]:
@@ -550,7 +616,7 @@ def main() -> int:
     require(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
             f"an lstm_forward kernel spills: {spills}")
     staged_ptxas = ptxas_report(_build.build_log("gossip_mix"), "gossip_mix_staged_kernel")
-    require(sum(k != "warnings" for k in staged_ptxas) == 2 and spill_free(staged_ptxas),
+    require(sum(k != "warnings" for k in staged_ptxas) == 3 and spill_free(staged_ptxas),
             f"a staged gossip kernel spills or is missing: {staged_ptxas}")
     emit("build", seconds=seconds, compiled=compiled, ptxas=ptxas)
 
@@ -714,30 +780,48 @@ def main() -> int:
     gossip_err: dict[str, float] = {}
     n_cases = 0
     designs: dict[str, list[str]] = {}  # each staged kernel's plan at each case
+
+    def gossip_case(n, d, active_share, only=None) -> None:
+        """Each kernel (or only the one named) at one case: within
+        GOSSIP_TOL of its twin, two launches and inactive rows bitwise,
+        a staged kernel bitwise its row-wise parent."""
+        nonlocal n_cases
+        w, z, act, mix, idx, wgt = gossip_inputs(gen, n, d, 1.0 - active_share)
+        inactive = act == 0
+        parents = rowwise_calls(w, z, act, mix, idx, wgt)
+        for name, kernel, plain, args in gossip_calls(w, z, act, mix, idx, wgt):
+            if only not in (None, name):
+                continue
+            out, again, want = kernel(*args), kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            where = f"{name} at N={n} D={d} active={active_share}"
+            require(out.shape == w.shape, f"shape of {where}")
+            require(err <= GOSSIP_TOL, f"{where} vs plain: {err}")
+            require(torch.equal(out, again), f"{where}: two launches differ")
+            require(torch.equal(out[inactive], w[inactive]), f"{where}: inactive rows")
+            if name in parents:
+                rowwise, parent_args = parents[name]
+                parent = rowwise(*parent_args)
+                require(torch.equal(out.view(torch.int32), parent.view(torch.int32)),
+                        f"{where}: not bitwise the row-wise kernel")
+                plan = gk._plan(name, n, idx.shape[1] if "sparse" in name else 0, d)
+                designs.setdefault(name, []).append(f"{plan.design}/{plan.tile}")
+            gossip_err[name] = max(gossip_err.get(name, 0.0), err)
+        n_cases += 1
+
     for n in GOSSIP_NODES:
         for d in GOSSIP_COLS:
             for active_share in GOSSIP_RATIOS:
-                w, z, act, mix, idx, wgt = gossip_inputs(gen, n, d, 1.0 - active_share)
-                inactive = act == 0
-                parents = rowwise_calls(w, z, act, mix, idx, wgt)
-                for name, kernel, plain, args in gossip_calls(w, z, act, mix, idx, wgt):
-                    out, again, want = kernel(*args), kernel(*args), plain(*args)
-                    torch.cuda.synchronize()
-                    err = float((out - want).abs().max())
-                    where = f"{name} at N={n} D={d} active={active_share}"
-                    require(out.shape == w.shape, f"shape of {where}")
-                    require(err <= GOSSIP_TOL, f"{where} vs plain: {err}")
-                    require(torch.equal(out, again), f"{where}: two launches differ")
-                    require(torch.equal(out[inactive], w[inactive]), f"{where}: inactive rows")
-                    if name in parents:
-                        rowwise, parent_args = parents[name]
-                        parent = rowwise(*parent_args)
-                        require(torch.equal(out.view(torch.int32), parent.view(torch.int32)),
-                                f"{where}: not bitwise the row-wise kernel")
-                        plan = gk._plan(name, n, idx.shape[1] if "sparse" in name else 0, d)
-                        designs.setdefault(name, []).append(f"{plan.design}/{plan.tile}")
-                    gossip_err[name] = max(gossip_err.get(name, 0.0), err)
-                n_cases += 1
+                gossip_case(n, d, active_share)
+    # each staged kernel at the largest N it stages and the next (row-wise)
+    limits = {}
+    for name in gk.STAGED:
+        slots = COMM_BATCH + 1 if "sparse" in name else 0
+        limits[name] = staged_limit(name, slots)
+        for n, design in ((limits[name], "staged"), (limits[name] + 1, "rowwise")):
+            require(gk._plan(name, n, slots, 513).design == design, f"{name} at N={n}: plan")
+            gossip_case(n, 513, 0.7, only=name)
     w, z, act, mix, idx, wgt = gossip_inputs(gen, 37, 513, 0.3)
     inactive = act == 0
     require(bool(inactive.any()) and bool((~inactive).any()), "NaN case needs both kinds of rows")
@@ -747,7 +831,7 @@ def main() -> int:
         require(torch.equal(out[inactive], w[inactive]), f"{name}: NaN reached an inactive row")
     emit("gossip", cases=n_cases, kernels=4, max_abs_err=gossip_err, tol=GOSSIP_TOL,
          inactive_bitwise=True, nan_inactive_bitwise=True, repeat_bitwise=True,
-         staged_bitwise_rowwise=True, staged_plans=designs)
+         staged_bitwise_rowwise=True, staged_plans=designs, staged_limits=limits)
 
     # 9. training at full width, sparse then dense (the main path) -------
     out_dir = ROOT / "build" / "chip_smoke"
@@ -905,13 +989,15 @@ def main() -> int:
                 flushed.append(time_ms(fn, 100, flush))
             row["parent_ms"] = statistics.median([turns[0], turns[3]])
             row["parent_ms_l2_flushed"] = statistics.median([flushed[0], flushed[3]])
-            extra.update(device_us=device_us(lambda: kernel(*args)),
-                         parent_device_us=device_us(lambda: rowwise(*parent_args)))
+            extra["parent_device_us"] = device_us(lambda: rowwise(*parent_args))
             slots = idx.shape[1] if "sparse" in name else 0
             extra.update(turns_ms=turns, turns_ms_l2_flushed=flushed,
                          plan=gk._plan(name, w.shape[0], slots, w.shape[1])._asdict())
+        extra["device_us"] = device_us(lambda: kernel(*args))
         if name == "gossip_mix_sparse_dp":  # the same bytes as one contiguous stream
             extra["contiguous_stream_ms"] = time_ms(lambda: torch.add(w, z), 100)
+        if name == "gossip_mix_dp":
+            extra["tiles"] = dp_tile_sweep(w, z, act, mix, kernel(*args))
         gossip_rows[name] = row
         emit("gtiming", kernel=name, nodes=w.shape[0], cols=w.shape[1], slots=idx.shape[1],
              active=int(act.sum()), library_max_abs_err=library_err, bytes=nbytes, ops=ops,
@@ -967,10 +1053,12 @@ def main() -> int:
     swa_log = _build.build_log("swa_attention")
     swa_ptxas = ptxas_report(swa_log, "wgmma")
     require(swa_ptxas, "no ptxas report of the bf16 swa_attention kernel")
-    wide_ptxas = ptxas_report(swa_log, "swa_attention_kernel", "Li256E")
-    require(sum(k != "warnings" for k in wide_ptxas) == 2 and spill_free(wide_ptxas),
-            f"an hd-256 swa_attention kernel spills or is missing: {wide_ptxas}")
-    for name, lines in {**swa_ptxas, **wide_ptxas}.items():
+    # the scalar builds: fp32 at hd 64 and 128, fp32 and bf16 at hd 256
+    # (also the chunked head dims above it)
+    scalar_ptxas = ptxas_report(swa_log, "swa_attention_kernelI")
+    require(sum(k != "warnings" for k in scalar_ptxas) == 4 and spill_free(scalar_ptxas),
+            f"a scalar swa_attention kernel spills or is missing: {scalar_ptxas}")
+    for name, lines in {**swa_ptxas, **scalar_ptxas}.items():
         print(f"ptxas {name}: " + " | ".join(lines), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(77)
     swa_err = {str(dtype): 0.0 for dtype in SWA_TOL}
@@ -1014,30 +1102,40 @@ def main() -> int:
                 for h, kh in ((4, 4), (12, 1)):
                     for dtype in SWA_TOL:
                         swa_case(1, s, h, kh, hd, window, dtype)
-    # RecurrentGemma-9B's local attention at full width against the fp32
-    # banded path: the fp32 kernel within the fp32 bound, bf16
-    # elementwise within swa_bf16_bound (given the banded path)
+    # RecurrentGemma-9B's local attention at full width, at its hd 256 and
+    # at two wider ones (288 padded to 512; 512), against the fp32 banded
+    # path: the fp32 kernel within the fp32 bound, bf16 elementwise
+    # within swa_bf16_bound (given the banded path); timed at HYBRID_TIMED
     rg_cfg = get_arch_config(HYBRID_ARCH)
+    rg_window = rg_cfg.local_attn_window
     rg_shape = dict(B=1, S=HYBRID_SEQ, H=rg_cfg.num_heads, K=rg_cfg.num_kv_heads,
-                    hd=rg_cfg.head_dim, window=rg_cfg.local_attn_window)
-    q, k, v = swa_inputs(gen, 1, HYBRID_SEQ, rg_cfg.num_heads, rg_cfg.num_kv_heads,
-                         rg_cfg.head_dim, torch.float32)
-    banded = attn.banded_flash_attention(q, k, v, window=rg_cfg.local_attn_window)
-    rg_out = swa_kernel.swa_attention(q, k, v, window=rg_cfg.local_attn_window)
-    rg_err = {"fp32_max_abs_err": float((rg_out - banded).abs().max())}
-    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    rg_out = swa_kernel.swa_attention(qb, kb, vb, window=rg_cfg.local_attn_window)
-    banded = attn.banded_flash_attention(qb.float(), kb.float(), vb.float(),
-                                         window=rg_cfg.local_attn_window)
-    limit = ref.swa_bf16_bound(qb, kb, vb, window=rg_cfg.local_attn_window,
-                               attention=attn.banded_flash_attention)
-    rg_err["bf16_max_abs_err"] = float((rg_out.float() - banded).abs().max())
-    rg_err["bf16_max_err_over_bound"] = float(((rg_out.float() - banded).abs() / limit).max())
-    del q, k, v, qb, kb, vb, rg_out, banded, limit
-    require(rg_err["fp32_max_abs_err"] <= SWA_TOL[torch.float32],
-            f"swa_attention (fp32) at {HYBRID_ARCH}'s shape vs the banded path: {rg_err}")
-    require(rg_err["bf16_max_err_over_bound"] <= 1.0,
-            f"swa_attention (bf16) at {HYBRID_ARCH}'s shape vs the banded path: {rg_err}")
+                    hd=rg_cfg.head_dim, window=rg_window)
+    hybrid = {}
+    for hd in HYBRID_HDS:
+        q, k, v = swa_inputs(gen, 1, HYBRID_SEQ, rg_cfg.num_heads, rg_cfg.num_kv_heads, hd,
+                             torch.float32)
+        banded = attn.banded_flash_attention(q, k, v, window=rg_window)
+        rg_out = swa_kernel.swa_attention(q, k, v, window=rg_window)
+        rg_err = {"fp32_max_abs_err": float((rg_out - banded).abs().max())}
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        rg_out = swa_kernel.swa_attention(qb, kb, vb, window=rg_window)
+        banded = attn.banded_flash_attention(qb.float(), kb.float(), vb.float(), window=rg_window)
+        limit = ref.swa_bf16_bound(qb, kb, vb, window=rg_window,
+                                   attention=attn.banded_flash_attention)
+        rg_err["bf16_max_abs_err"] = float((rg_out.float() - banded).abs().max())
+        rg_err["bf16_max_err_over_bound"] = float(((rg_out.float() - banded).abs() / limit).max())
+        del rg_out, banded, limit
+        require(rg_err["fp32_max_abs_err"] <= SWA_TOL[torch.float32],
+                f"swa_attention (fp32) at {HYBRID_ARCH}'s shape, hd {hd}, vs the banded path: "
+                f"{rg_err}")
+        require(rg_err["bf16_max_err_over_bound"] <= 1.0,
+                f"swa_attention (bf16) at {HYBRID_ARCH}'s shape, hd {hd}, vs the banded path: "
+                f"{rg_err}")
+        if hd in HYBRID_TIMED:
+            rg_err["fp32"] = swa_timing(q, k, v, rg_window, FP32_OPS_PER_S)
+            rg_err["bf16"] = swa_timing(qb, kb, vb, rg_window, BF16_OPS_PER_S)
+        hybrid[str(hd)] = rg_err
+        del q, k, v, qb, kb, vb
     lm_cfg = get_arch_config(LM_ARCH)
     heads, kv_heads, head_dim, window = (lm_cfg.num_heads, lm_cfg.num_kv_heads, lm_cfg.head_dim,
                                          lm_cfg.sliding_window)
@@ -1073,13 +1171,13 @@ def main() -> int:
     del banded, out, again
     require(path_err["bf16_vs_bf16_banded_max_abs_err"] <= SWA_TOL[torch.bfloat16],
             f"swa_attention at the prefill's shape vs the bf16 banded path: {path_err}")
-    emit("swa", ptxas=swa_ptxas, ptxas_hd256=wide_ptxas, cases=n_swa,
-         cases_hd_256_and_96=n_swa - n_narrow, max_abs_err=swa_err,
+    emit("swa", ptxas=swa_ptxas, ptxas_scalar=scalar_ptxas, cases=n_swa,
+         cases_wide_hd=n_swa - n_narrow, wide_hds=SWA_WIDE["hds"], max_abs_err=swa_err,
          tol={str(d): t for d, t in SWA_TOL.items()}, sweep_bf16_max_err_over_bound=bf16_over_bound,
          repeat_bitwise=True, path_shape=dict(B=1, S=seq, H=heads, K=kv_heads, hd=head_dim,
                                                window=window),
          path_vs_fp32_banded=path_err, hybrid_arch=HYBRID_ARCH, hybrid_shape=rg_shape,
-         hybrid_vs_fp32_banded=rg_err,
+         hybrid_vs_fp32_banded=hybrid,
          bf16_bound="swa_bf16_bound: 2^-8 (|o32| + (P|v|)/l) + 3e-5")
 
     # 15. the LM prefill and decode at full width (the main path) ----------
@@ -1245,7 +1343,8 @@ def main() -> int:
                  "replaces": "src/repro/kernels/swa_attention.py:82",
                  "launches": lm_counts["swa_attention"], "max_abs_err": path_err["bf16_max_abs_err"],
                  "max_abs_err_sweep": swa_err, **swa_row,
-                 "bound_fp32_ms": ops / FP32_OPS_PER_S * 1e3})
+                 "bound_fp32_ms": ops / FP32_OPS_PER_S * 1e3,
+                 "hybrid_shape": rg_shape, "hybrid": hybrid})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,10 +41,10 @@
 // straight from global memory.  The sparse block stages its row of (idx,
 // wgt) in shared memory (the TPU kernel's scalar prefetch has no
 // counterpart); the dense block reads M[n, :] as a warp-uniform
-// broadcast.  It serves gossip_mix_sparse and gossip_mix_dp, the other
-// two beyond the staged kernel's shared memory, and as
-// gossip_mix_rowwise_launch / gossip_mix_sparse_dp_rowwise_launch the
-// checks that hold the staged kernel to its bits.
+// broadcast.  It serves gossip_mix_sparse, the other three beyond the
+// staged kernel's shared memory, and as gossip_mix_rowwise_launch,
+// gossip_mix_dp_rowwise_launch and gossip_mix_sparse_dp_rowwise_launch
+// the checks that hold the staged kernel to its bits.
 //
 // Column-tile-stationary (gossip_mix_staged_kernel): a tile is T columns
 // of ALL N rows.  A block copies W's (and Z's) N x T tile into shared
@@ -86,7 +86,8 @@
 // clearly faster.
 // At N=12 the 261 tiles of T=256 are all resident at once: one memory
 // round trip, then arithmetic from shared memory (a 4 x 4 register tile
-// a thread).
+// a thread; for DP, v = w + z formed once for the tile's 4 rows and
+// M[n, n] for the restore read from the staged M^T).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -380,7 +381,14 @@ gossip_mix_staged_kernel(const float* __restrict__ mix,     // dense (N, N)
         float acc[4][4] = {};
 #pragma unroll 4
         for (int m = 0; m < N; ++m) {
-          const float4 v = lds4(&w_s[m * T + c4]);
+          float4 v = lds4(&w_s[m * T + c4]);
+          if constexpr (DP) {  // v = w + z once, for the tile's 4 rows
+            const float4 zz = lds4(&z_s[m * T + c4]);
+            v.x += zz.x;
+            v.y += zz.y;
+            v.z += zz.z;
+            v.w += zz.w;
+          }
           const float4 cf = lds4(&mt_s[m * n4 + n0]);
           const float vs[4] = {v.x, v.y, v.z, v.w};
           const float cs[4] = {cf.x, cf.y, cf.z, cf.w};
@@ -390,10 +398,19 @@ gossip_mix_staged_kernel(const float* __restrict__ mix,     // dense (N, N)
             for (int k = 0; k < 4; ++k) acc[r][k] = fmaf(cs[r], vs[k], acc[r][k]);
         }
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          if (n0 + r < N)
-            store4(out, D, n0 + r, d, cols, act_s[n0 + r] > 0.0f, acc[r],
-                   lds4(&w_s[(n0 + r) * T + c4]));
+        for (int r = 0; r < 4; ++r) {
+          const int n = n0 + r;
+          if (n >= N) continue;
+          if constexpr (DP) {  // clean-self restore, M[n, n] from M^T
+            const float self_w = mt_s[n * n4 + n];
+            const float4 zn = lds4(&z_s[n * T + c4]);
+            acc[r][0] = fmaf(-self_w, zn.x, acc[r][0]);
+            acc[r][1] = fmaf(-self_w, zn.y, acc[r][1]);
+            acc[r][2] = fmaf(-self_w, zn.z, acc[r][2]);
+            acc[r][3] = fmaf(-self_w, zn.w, acc[r][3]);
+          }
+          store4(out, D, n, d, cols, act_s[n] > 0.0f, acc[r], lds4(&w_s[n * T + c4]));
+        }
       }
     }
     __syncthreads();  // the tile is read: the next may land in it
@@ -466,9 +483,18 @@ extern "C" int gossip_mix_sparse_launch(const int* idx, const float* wgt, const 
   return launch_rowwise<true, false>(nullptr, idx, wgt, w, nullptr, active, out, N, S, D, stream);
 }
 
+// gossip_mix_dp: staged, T columns a tile
 extern "C" int gossip_mix_dp_launch(const float* mix, const float* w, const float* z,
-                                    const float* active, float* out, int N, long long D,
-                                    void* stream) {
+                                    const float* active, float* out, int N, long long D, int T,
+                                    int threads, void* stream) {
+  return launch_staged<false, true>(mix, nullptr, nullptr, w, z, active, out, N, 0, D, T, threads,
+                                    stream);
+}
+
+// gossip_mix_dp: the row-wise kernel
+extern "C" int gossip_mix_dp_rowwise_launch(const float* mix, const float* w, const float* z,
+                                            const float* active, float* out, int N, long long D,
+                                            void* stream) {
   return launch_rowwise<false, true>(mix, nullptr, nullptr, w, z, active, out, N, 0, D, stream);
 }
 

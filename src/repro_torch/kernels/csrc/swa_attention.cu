@@ -13,8 +13,8 @@
 // layer).  fp32 or bf16 in, the same type out; scores, softmax statistics
 // and the accumulator are fp32, as in the Pallas kernel: the scale on the
 // scores, NEG_INF = -1e30 for masked scores, l clamped at 1e-30 before
-// the divide.  hd is 64, 128 or 256 (the wrapper zero-pads any other
-// hd <= 256 to the next of these); S a multiple of 64 (the wrapper refuses
+// the divide.  hd is 64, 128 or a multiple of 256 (the wrapper zero-pads
+// any other hd to the next of these); S a multiple of 64 (the wrapper refuses
 // any other S, as repro.kernels.ops refuses S % 128 != 0: the only
 // caller, gqa_attention's banded branch, takes S % 1024 == 0); window >= 1.
 //
@@ -71,12 +71,19 @@
 // the scores and the same rows of the output, so a row's max and sum are
 // xor-shuffles over its 16 lanes.  It is right and simple, not fast.
 //
-// hd 256, both types: the scalar kernel.  bf16 is loaded 4 values at a
-// time and widened to fp32, computed as fp32 is, and the output rounded
-// to bf16 once (so it meets the fp32 bound before that rounding).  Its
-// shared memory, 4 (2 x 64 x 256 + 64 x 260) = 197,632 bytes, holds one
-// block an SM.  RecurrentGemma-9B's local attention (H=16, K=1, window
-// 2048) is the config that reaches it; a wgmma kernel at hd 256 (its O
+// hd 256 and above, both types: the scalar kernel, built at a chunk of
+// 256 columns.  bf16 is loaded 4 values at a time and widened to fp32,
+// computed as fp32 is, and the output rounded to bf16 once (so it meets
+// the fp32 bound before that rounding).  Its shared memory, 4 (2 x 64 x
+// 256 + 64 x 260) = 197,632 bytes, holds one block an SM.  Above 256 the
+// head dim runs in hd / 256 chunks along blockIdx.z: each chunk's block
+// takes the scores over the whole head dim, 256 columns of Q and K at a
+// time through the same shared memory, and writes its own 256 columns of
+// O -- so it repeats Q K^T and the softmax hd / 256 times (right and
+// simple, not fast).  At hd 256 (one chunk) it does the operations of the
+// hd-256 kernel without chunks in their order.  RecurrentGemma-9B's local
+// attention (H=16, K=1, window 2048) is the config that reaches hd 256;
+// none in the repo goes above it.  A wgmma kernel at hd 256 (its O
 // accumulator twice hd 128's) is later work.
 
 #include <cuda_bf16.h>
@@ -154,11 +161,23 @@ constexpr size_t smem_bytes() {
 // Two blocks an SM at hd 64 and 128.  At hd 256 one block's shared
 // memory (197,632 bytes) leaves room for no second, so the bound asks for
 // one and lets a thread keep its 64 accumulators in up to 255 registers.
+//
+// HD is the block's chunk of the head dim, which is chunks x HD: a
+// head dim above 256 runs HD = 256 in chunks of 256 columns (only there
+// is chunks > 1).  Block (x, y, z) writes the 64 q rows x of head y and
+// the output columns [z HD, z HD + HD): each tile's scores run over the
+// whole head dim, chunk by chunk in ascending order, each chunk of Q and
+// K staged in Q's and K's space; V's chunk z is staged with K's first
+// chunk; the softmax statistics are the block's own (every chunk's block
+// recomputes them, Q K^T chunks times).  At one chunk Q is staged once,
+// and the FMAs and their order are those of a kernel without chunks.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, (HD == 256 ? 1 : 2))
 swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                     int K, int window, float scale) {
+                     int K, int window, float scale, int head_chunks) {
+  // a compile-time 1 below hd 256, so those builds keep no chunk loop
+  const int chunks = HD == 256 ? head_chunks : 1;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // kTile x HD
   float* ks = qs + kTile * HD;                   // kTile x (HD + kKStride)
@@ -170,13 +189,15 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kTile;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int g = h / (H / K);
-  const long long q_step = static_cast<long long>(H) * HD;
-  const long long kv_step = static_cast<long long>(K) * HD;
-  const T* qb = q + (static_cast<long long>(b) * S * H + h) * HD;
-  const T* kb = k + (static_cast<long long>(b) * S * K + g) * HD;
-  const T* vb = v + (static_cast<long long>(b) * S * K + g) * HD;
+  const long long hd = static_cast<long long>(chunks) * HD;  // the head dim
+  const long long q_step = H * hd;
+  const long long kv_step = K * hd;
+  const long long col0 = HD == 256 ? static_cast<long long>(blockIdx.z) * HD : 0;  // V's, O's chunk
+  const T* qb = q + (static_cast<long long>(b) * S * H + h) * hd;
+  const T* kb = k + (static_cast<long long>(b) * S * K + g) * hd;
+  const T* vb = v + (static_cast<long long>(b) * S * K + g) * hd + col0;
 
-  load_tile<T, HD>(qs, HD, qb, q_step, q0);
+  if (chunks == 1) load_tile<T, HD>(qs, HD, qb, q_step, q0);
 
   float acc[4][kCols][4];
   float m[4], l[4];
@@ -192,37 +213,40 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int k_start = (max(q0 - window + 1, 0) / kTile) * kTile;
   for (int k0 = k_start; k0 <= q0; k0 += kTile) {
-    __syncthreads();  // Q is staged; the last tile's P and V are read
-    load_tile<T, HD>(ks, HD + kKStride, kb, kv_step, k0);
-    load_tile<T, HD>(vs, HD, vb, kv_step, k0);
-    __syncthreads();
-
-    // scores of rows ty + 16 i against keys tx + 16 j
-    float sc[4][4];
+    float sc[4][4];  // scores of rows ty + 16 i against keys tx + 16 j
+    for (int c = 0; c < chunks; ++c) {
+      __syncthreads();  // Q is staged; the last chunk's Q and K, the last tile's P and V are read
+      if (chunks > 1) load_tile<T, HD>(qs, HD, qb + c * HD, q_step, q0);
+      load_tile<T, HD>(ks, HD + kKStride, kb + c * HD, kv_step, k0);
+      if (c == 0) load_tile<T, HD>(vs, HD, vb, kv_step, k0);
+      __syncthreads();
+      if (c == 0) {  // zeroed after the loads, as sc is not live across them
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+          for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+      }
 #pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kv[4];
+      for (int d = 0; d < HD; d += 4) {
+        float4 qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * HD + d);
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * HD + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * (HD + kKStride) + d);
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * (HD + kKStride) + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float s = sc[i][j];
-          s = fmaf(qv[i].x, kv[j].x, s);
-          s = fmaf(qv[i].y, kv[j].y, s);
-          s = fmaf(qv[i].z, kv[j].z, s);
-          s = fmaf(qv[i].w, kv[j].w, s);
-          sc[i][j] = s;
-        }
+          for (int j = 0; j < 4; ++j) {
+            float s = sc[i][j];
+            s = fmaf(qv[i].x, kv[j].x, s);
+            s = fmaf(qv[i].y, kv[j].y, s);
+            s = fmaf(qv[i].z, kv[j].z, s);
+            s = fmaf(qv[i].w, kv[j].w, s);
+            sc[i][j] = s;
+          }
+      }
     }
 
     // the element mask, only where the tile crosses an edge of the band
@@ -299,7 +323,7 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + (static_cast<long long>(b) * S * H + h) * HD;
+  T* ob = o + (static_cast<long long>(b) * S * H + h) * hd + col0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
@@ -313,18 +337,22 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+constexpr int kMaxChunks = 65535;  // chunks of the head dim along gridDim.z
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-           int K, int window, float scale, void* stream) {
+           int K, int window, float scale, int chunks, void* stream) {
+  if (chunks < 1 || chunks > kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = swa_attention_kernel<T, HD>;
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(S / kTile), static_cast<unsigned>(B * H));
+  const dim3 grid(static_cast<unsigned>(S / kTile), static_cast<unsigned>(B * H),
+                  static_cast<unsigned>(chunks));
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, K, window, scale);
+      static_cast<T*>(o), S, H, K, window, scale, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -670,9 +698,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
 }  // namespace
 
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for an hd
-// other than 64, 128 or 256, or a tensor map cuTensorMapEncodeTiled
-// refuses).  The wrapper zero-pads any other hd <= 256 to the next of
-// these.
+// other than 64, 128 or a multiple of 256 up to 65535 x 256, or a tensor
+// map cuTensorMapEncodeTiled refuses).  The wrapper zero-pads any other
+// hd to the next of these.
 // The wrapper (kernels/swa_attention.py) checks the rest: contiguous
 // (B, S, H, hd) / (B, S, K, hd) tensors of one dtype, 16-byte aligned,
 // H % K == 0, S a positive multiple of 64, window >= 1, B * H <= 65535.
@@ -681,12 +709,13 @@ extern "C" int swa_attention_launch(const void* q, const void* k, const void* v,
                                     float scale, int bf16, void* stream) {
   if (hd == 64)
     return bf16 ? launch_wgmma<64>(q, k, v, o, B, S, H, K, window, scale, stream)
-                : launch<float, 64>(q, k, v, o, B, S, H, K, window, scale, stream);
+                : launch<float, 64>(q, k, v, o, B, S, H, K, window, scale, 1, stream);
   if (hd == 128)
     return bf16 ? launch_wgmma<128>(q, k, v, o, B, S, H, K, window, scale, stream)
-                : launch<float, 128>(q, k, v, o, B, S, H, K, window, scale, stream);
-  if (hd == 256)
-    return bf16 ? launch<__nv_bfloat16, 256>(q, k, v, o, B, S, H, K, window, scale, stream)
-                : launch<float, 256>(q, k, v, o, B, S, H, K, window, scale, stream);
+                : launch<float, 128>(q, k, v, o, B, S, H, K, window, scale, 1, stream);
+  if (hd > 0 && hd % 256 == 0)
+    return bf16 ? launch<__nv_bfloat16, 256>(q, k, v, o, B, S, H, K, window, scale, hd / 256,
+                                             stream)
+                : launch<float, 256>(q, k, v, o, B, S, H, K, window, scale, hd / 256, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

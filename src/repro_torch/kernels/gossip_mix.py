@@ -17,16 +17,17 @@ Two kernel designs share ``csrc/gossip_mix.cu`` and agree bitwise: the
 row-wise kernel (a block a row and 1024 columns, reading the rows it
 mixes from global memory) and the column-tile-stationary kernel (a tile
 of T columns of every row staged in shared memory once, a persistent
-grid walking the tiles).  :func:`_plan` picks one from the shapes: ``gossip_mix``
-and ``gossip_mix_sparse_dp`` stage while their tile fits in shared
-memory; ``gossip_mix_sparse`` and ``gossip_mix_dp`` stay row-wise.
-:func:`gossip_mix_rowwise` and :func:`gossip_mix_sparse_dp_rowwise`
-launch the row-wise kernel at any shape, so that checks can hold the
-staged kernel against it; nothing on the training path calls them.
+grid walking the tiles).  :func:`_plan` picks one from the shapes:
+``gossip_mix``, ``gossip_mix_dp`` and ``gossip_mix_sparse_dp`` stage
+while their tile fits in shared memory; ``gossip_mix_sparse`` stays
+row-wise.  :func:`gossip_mix_rowwise`, :func:`gossip_mix_dp_rowwise` and
+:func:`gossip_mix_sparse_dp_rowwise` launch the row-wise kernel at any
+shape, so that checks can hold the staged kernel against it; nothing on
+the training path calls them.
 
 :data:`LAUNCHES` counts each kernel's launches in this process, so a
 run can show that its path went through the kernels
-(:data:`ROWWISE_LAUNCHES` counts the two comparison wrappers').
+(:data:`ROWWISE_LAUNCHES` counts the three comparison wrappers').
 """
 from __future__ import annotations
 
@@ -39,20 +40,23 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_operands, refuse_autograd
 
 LAUNCHES = {"gossip_mix": 0, "gossip_mix_sparse": 0, "gossip_mix_dp": 0, "gossip_mix_sparse_dp": 0}
-ROWWISE_LAUNCHES = {"gossip_mix": 0, "gossip_mix_sparse_dp": 0}
+ROWWISE_LAUNCHES = {"gossip_mix": 0, "gossip_mix_dp": 0, "gossip_mix_sparse_dp": 0}
 
-STAGED = ("gossip_mix", "gossip_mix_sparse_dp")  # the kernels with a staged design
+STAGED = ("gossip_mix", "gossip_mix_dp", "gossip_mix_sparse_dp")  # the kernels with a staged design
 ROW_TILE = 1024              # the row-wise kernel's columns a block (kTile)
 MAX_ROW_TILES = 65535        # its tiles along gridDim.y
 MAX_SLOTS = 6144             # its sparse row's (idx, wgt) within 48 KB of shared memory
 SMEM_LIMIT = 232_448         # dynamic shared memory a block may opt into on sm_90
 # The staged kernel's tile width and block size, the fastest measured on
 # an H100 at the main path's shapes (PERF.md): N=12 dense mixes a 256-column
-# tile (1 KB of each row) with a thread per 4 x 4 outputs; N=226 sparse
-# DP a 32-column tile, 72 KB with its table, so that three blocks of 512
-# threads share an SM and one loads while the others compute.
-STAGED_TILE = {"gossip_mix": 256, "gossip_mix_sparse_dp": 32}
-STAGED_THREADS = {"gossip_mix": 256, "gossip_mix_sparse_dp": 512}
+# tile (1 KB of each row) with a thread per 4 x 4 outputs; so does N=12
+# dense DP (chip_smoke.py phase 12 times T = 64 to 512: 256 columns with
+# 256 threads had the lowest event time in each run, 512 with 512 the
+# same device time; staged up to N=95); N=226 sparse DP a 32-column tile,
+# 72 KB with its table, so that three blocks of 512 threads share an SM
+# and one loads while the others compute.
+STAGED_TILE = {"gossip_mix": 256, "gossip_mix_dp": 256, "gossip_mix_sparse_dp": 32}
+STAGED_THREADS = {"gossip_mix": 256, "gossip_mix_dp": 256, "gossip_mix_sparse_dp": 512}
 
 
 class Plan(NamedTuple):
@@ -94,7 +98,8 @@ _SIGNATURES = {  # C symbol -> argument types, the stream last
     "gossip_mix_dense_launch": [_P, _P, _P, _P, _I, _L, _I, _I, _P],
     "gossip_mix_rowwise_launch": [_P, _P, _P, _P, _I, _L, _P],
     "gossip_mix_sparse_launch": [_P, _P, _P, _P, _P, _I, _I, _L, _P],
-    "gossip_mix_dp_launch": [_P, _P, _P, _P, _P, _I, _L, _P],
+    "gossip_mix_dp_launch": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
+    "gossip_mix_dp_rowwise_launch": [_P, _P, _P, _P, _P, _I, _L, _P],
     "gossip_mix_sparse_dp_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P],
     "gossip_mix_sparse_dp_rowwise_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _P],
 }
@@ -186,9 +191,14 @@ def gossip_mix_dp(mix, w, z, active) -> torch.Tensor:
     """Dense local-DP gossip: ``mix @ (w + z) - diag(mix) z`` where
     active, else ``w``.  z (N, D) is the scaled noise."""
     n, d, _ = _check("gossip_mix_dp", {"mix": mix, "w": w, "z": z, "active": active}, sparse=False)
-    _check_rowwise("gossip_mix_dp", n, 0, d)
+    plan = _plan("gossip_mix_dp", n, 0, d)
     out = torch.empty_like(w)
-    return _launch("gossip_mix_dp", LAUNCHES, "gossip_mix_dp_launch", out, mix, w, z, active, out, n, d)
+    if plan.design == "staged":
+        return _launch("gossip_mix_dp", LAUNCHES, "gossip_mix_dp_launch", out,
+                       mix, w, z, active, out, n, d, plan.tile, plan.threads)
+    _check_rowwise("gossip_mix_dp", n, 0, d)
+    return _launch("gossip_mix_dp", LAUNCHES, "gossip_mix_dp_rowwise_launch", out,
+                   mix, w, z, active, out, n, d)
 
 
 def gossip_mix_sparse_dp(idx, wgt, w, z, active) -> torch.Tensor:
@@ -214,6 +224,16 @@ def gossip_mix_rowwise(mix, w, active) -> torch.Tensor:
     out = torch.empty_like(w)
     return _launch("gossip_mix", ROWWISE_LAUNCHES, "gossip_mix_rowwise_launch", out,
                    mix, w, active, out, n, d)
+
+
+def gossip_mix_dp_rowwise(mix, w, z, active) -> torch.Tensor:
+    """:func:`gossip_mix_dp` on the row-wise kernel whatever the shape (a
+    comparison for checks; counted in :data:`ROWWISE_LAUNCHES`)."""
+    n, d, _ = _check("gossip_mix_dp", {"mix": mix, "w": w, "z": z, "active": active}, sparse=False)
+    _check_rowwise("gossip_mix_dp", n, 0, d)
+    out = torch.empty_like(w)
+    return _launch("gossip_mix_dp", ROWWISE_LAUNCHES, "gossip_mix_dp_rowwise_launch", out,
+                   mix, w, z, active, out, n, d)
 
 
 def gossip_mix_sparse_dp_rowwise(idx, wgt, w, z, active) -> torch.Tensor:

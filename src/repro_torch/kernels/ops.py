@@ -6,7 +6,7 @@ a tensor on the CPU goes to the plain twin.  There is no fallback from
 one to the other, and no padding of rows or columns: the LSTM and
 gossip kernels mask any shape, and ``swa_attention``'s kernel refuses
 S % 64 != 0 (its twin takes any S) and zero-pads only the head dim (to
-64, 128 or 256; hd > 256 is refused), unlike ``repro.kernels.ops``,
+64, 128, 256 or a multiple of 256), unlike ``repro.kernels.ops``,
 which pads N to 8 rows and D to 512 columns, falls back to the reference
 LSTM cell when ``H % 128 != 0`` and refuses an attention length
 S % 128 != 0.

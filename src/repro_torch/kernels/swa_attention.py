@@ -9,12 +9,14 @@ serves query head h from KV head ``h // (H // K)``; K = H is the Pallas
 case.  S must be a multiple of 64 (the fp32 kernel's tile, half the
 bf16 kernel's 128-row tile), as ``repro.kernels.ops`` refuses
 S % 128 != 0 (the banded branch of ``gqa_attention``, the only caller,
-takes S % 1024 == 0).  The kernel is built for hd 64, 128 and 256; any
-other hd <= 256 is zero-padded to the next of these
-(:func:`with_padded_head_dim`), which is exact, and hd > 256 is refused.
-bf16 at hd 64 and 128 runs on the tensor cores with P rounded to bf16
-(``ref.swa_bf16_bound`` states what that costs); fp32, and bf16 at hd
-256, on scalar fp32 FMAs.  Its plain twin is
+takes S % 1024 == 0).  The kernel is built for hd 64, 128 and 256, and
+runs any multiple of 256 in chunks of 256 columns; any other hd is
+zero-padded to the next of these (:func:`with_padded_head_dim`), which
+is exact.  Only what the grid cannot hold is refused: more than
+:data:`MAX_CHUNKS` chunks.  bf16 at hd 64 and 128 runs on the tensor
+cores with P rounded to bf16 (``ref.swa_bf16_bound`` states what that
+costs); fp32, and bf16 from hd 256 up, on scalar fp32 FMAs.  Its plain
+twin is
 ``repro_torch.kernels.ref.swa_attention_plain``;
 the CUDA-or-CPU dispatch is ``repro_torch.kernels.ops.swa_attention``.
 
@@ -33,9 +35,11 @@ from repro_torch.kernels._checks import check_operands, refuse_autograd
 LAUNCHES = 0
 
 HEAD_DIMS = (64, 128, 256)  # the kernel's builds; other hd <= 256 are padded
+CHUNK = HEAD_DIMS[-1]  # above it, hd runs in chunks of these columns (padded to a multiple)
 TILE = 64  # S must be a multiple of this
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEADS = 65535  # B * H blocks along gridDim.y
+MAX_CHUNKS = 65535  # hd / CHUNK blocks along gridDim.z
 
 _launch_fn = None
 
@@ -68,8 +72,9 @@ def _check(q, k, v, window) -> tuple[int, int, int, int, int]:
     if k.shape[:2] != (b, s) or k.shape[3] != hd or kh < 1 or h % kh:
         raise ValueError(f"swa_attention: k, v must be (B, S, K, hd) with H % K == 0, got "
                          f"q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if not 1 <= hd <= HEAD_DIMS[-1]:
-        raise ValueError(f"swa_attention: hd must be <= {HEAD_DIMS[-1]}, got {hd}")
+    if not 1 <= hd <= CHUNK * MAX_CHUNKS:
+        raise ValueError(f"swa_attention: hd must be 1 to {CHUNK * MAX_CHUNKS} "
+                         f"({MAX_CHUNKS} chunks of {CHUNK} along gridDim.z), got {hd}")
     if min(b, s, h) < 1 or b * h > MAX_HEADS:
         raise ValueError(f"swa_attention: need B, S, H >= 1 and B * H <= {MAX_HEADS}, "
                          f"got B={b} S={s} H={h}")
@@ -80,15 +85,21 @@ def _check(q, k, v, window) -> tuple[int, int, int, int, int]:
     return b, s, h, kh, hd
 
 
+def padded_head_dim(hd: int) -> int:
+    """The head dim the kernel runs hd at: the least of :data:`HEAD_DIMS`
+    that holds it, above that the next multiple of :data:`CHUNK`."""
+    return next((p for p in HEAD_DIMS if p >= hd), -(-hd // CHUNK) * CHUNK)
+
+
 def with_padded_head_dim(attention, q, k, v, *, window: int) -> torch.Tensor:
-    """``attention(q, k, v, window=, scale=)`` at the least of
-    :data:`HEAD_DIMS` that holds hd: q, k and v zero-padded on their last
-    dim, the scale ``hd ** -0.5`` of the original hd, the output sliced
-    back to hd.  Exact: the zero columns add exact zeros to q k^T, and
-    v's zero columns give output columns that are sliced away.  At an hd
-    of :data:`HEAD_DIMS` nothing is copied."""
+    """``attention(q, k, v, window=, scale=)`` at :func:`padded_head_dim`:
+    q, k and v zero-padded on their last dim, the scale ``hd ** -0.5`` of
+    the original hd, the output sliced back to hd.  Exact: the zero
+    columns add exact zeros to q k^T, and v's zero columns give output
+    columns that are sliced away.  At an hd the kernel runs as it is,
+    nothing is copied."""
     hd = q.shape[-1]
-    width = next(p for p in HEAD_DIMS if p >= hd)
+    width = padded_head_dim(hd)
     if width == hd:
         return attention(q, k, v, window=window, scale=hd ** -0.5)
     pad = [torch.nn.functional.pad(t, (0, width - hd)) for t in (q, k, v)]
@@ -112,7 +123,8 @@ def _launch(q, k, v, *, window: int, scale: float) -> torch.Tensor:
 
 def swa_attention(q, k, v, *, window: int) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream: q (B, S, H, hd),
-    k and v (B, S, K, hd), hd <= 256, one dtype (float32 or bfloat16),
+    k and v (B, S, K, hd), any hd up to :data:`MAX_CHUNKS` chunks of
+    :data:`CHUNK`, one dtype (float32 or bfloat16),
     contiguous and 16-byte aligned, on one CUDA device, S % 64 == 0 ->
     o (B, S, H, hd) in q's dtype.  Query i attends to the keys j with
     i - window < j <= i.  Raises on anything else, on a failed launch,

@@ -125,7 +125,7 @@ def gqa_attention(q, k, v, *, causal: bool = True, window: int = 0,
     band_span = (-(-window // block) + 1) * block if window > 0 else 0
     if window > 0 and sq == skv and sq % block == 0 and block <= window and band_span < sq:
         # JAX's banded path is causal whatever ``causal`` says; so is the
-        # kernel, which takes every hd <= 256 (RecurrentGemma's 256 among them)
+        # kernel, which takes every hd (RecurrentGemma's 256 among them)
         BRANCHES["banded"] += 1
         return ops.swa_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=window)
     BRANCHES["flash"] += 1

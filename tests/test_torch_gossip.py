@@ -248,7 +248,7 @@ def test_wrapper_refuses_grad_then_cpu_tensors():
     ("gossip_mix", 12, 0, "staged", 256),             # OhioT1DM
     ("gossip_mix_sparse_dp", 226, 8, "staged", 32),   # REPLACE-BG
     ("gossip_mix_sparse", 226, 8, "rowwise", 1024),   # no staged design
-    ("gossip_mix_dp", 12, 0, "rowwise", 1024)])
+    ("gossip_mix_dp", 12, 0, "staged", 256)])         # OhioT1DM with DP
 def test_gossip_plan_at_the_main_path_shapes(kernel, n, s, design, tile):
     plan = gossip_kernels._plan(kernel, n, s, 66_689)
     assert (plan.design, plan.tile) == (design, tile)
@@ -256,7 +256,8 @@ def test_gossip_plan_at_the_main_path_shapes(kernel, n, s, design, tile):
         assert 3 * (plan.smem + 1024) <= 228 * 1024 and 3 * plan.threads <= 2048
 
 
-@pytest.mark.parametrize("kernel,s", [("gossip_mix", 0), ("gossip_mix_sparse_dp", 8)])
+@pytest.mark.parametrize("kernel,s", [("gossip_mix", 0), ("gossip_mix_dp", 0),
+                                      ("gossip_mix_sparse_dp", 8)])
 def test_gossip_plan_stages_while_the_tile_fits(kernel, s):
     """Staged up to the largest N whose tile and operator fit in a block's
     shared memory, row-wise from the next N on, whatever D is."""
@@ -280,5 +281,7 @@ def test_gossip_smem_layout_words():
     multiples of 4 words, the mask, the W (and Z) tile."""
     assert gossip_kernels._smem_bytes(12, 0, 256, False, False) == 4 * (12 * 12 + 12 + 12 * 256)
     assert gossip_kernels._smem_bytes(5, 0, 32, False, False) == 4 * (5 * 8 + 8 + 5 * 32)
+    assert gossip_kernels._smem_bytes(12, 0, 256, False, True) == 4 * (12 * 12 + 12 + 2 * 12 * 256)
+    assert gossip_kernels._smem_bytes(95, 0, 256, False, True) == 4 * (95 * 96 + 96 + 2 * 95 * 256)
     assert gossip_kernels._smem_bytes(226, 8, 32, True, True) == 4 * (2 * 226 * 8 + 228 + 2 * 226 * 32)
     assert gossip_kernels._smem_bytes(3, 5, 64, True, True) == 4 * (2 * 3 * 8 + 4 + 2 * 3 * 64)

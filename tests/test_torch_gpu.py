@@ -189,10 +189,12 @@ def test_gossip_kernels_match_plain(cuda, n, d, ratio):
 
 def _rowwise_pairs(w, z, act, mix, idx, wgt):
     """(name, staged-or-planned wrapper, row-wise wrapper, args) for the
-    two kernels with a staged design."""
+    three kernels with a staged design."""
     return [
         ("gossip_mix", gossip_kernels.gossip_mix, gossip_kernels.gossip_mix_rowwise,
          (mix, w, act)),
+        ("gossip_mix_dp", gossip_kernels.gossip_mix_dp, gossip_kernels.gossip_mix_dp_rowwise,
+         (mix, w, z, act)),
         ("gossip_mix_sparse_dp", gossip_kernels.gossip_mix_sparse_dp,
          gossip_kernels.gossip_mix_sparse_dp_rowwise, (idx, wgt, w, z, act)),
     ]
@@ -205,10 +207,10 @@ def _bits(t):
 @pytest.mark.parametrize("n,d", [(1, 1), (12, 513), (37, 66689), (226, 4099)])
 @pytest.mark.parametrize("ratio", [0.0, 0.3, 1.0])
 def test_staged_gossip_kernels_equal_the_rowwise_kernel_bitwise(cuda, n, d, ratio):
-    """gossip_mix and gossip_mix_sparse_dp through their planned kernel
-    (staged at every case but the dense N=226, whose M^T overflows shared
-    memory) give the bits of the row-wise kernel (the same FMAs in
-    the same order), whose launches are counted apart."""
+    """gossip_mix, gossip_mix_dp and gossip_mix_sparse_dp through their
+    planned kernel (staged at every case but the dense N=226, whose M^T
+    overflows shared memory) give the bits of the row-wise kernel (the
+    same FMAs in the same order), whose launches are counted apart."""
     w, z, act, mix, idx, wgt = _gossip_case(n, d, ratio, seed=n + d, device=cuda)
     for name, kernel, rowwise, args in _rowwise_pairs(w, z, act, mix, idx, wgt):
         before = dict(gossip_kernels.LAUNCHES), dict(gossip_kernels.ROWWISE_LAUNCHES)
@@ -223,10 +225,10 @@ def test_staged_gossip_kernels_equal_the_rowwise_kernel_bitwise(cuda, n, d, rati
 # trainer's 8-slot table), from the pure plan
 _STAGED_LIMIT = {
     name: max(n for n in range(1, 1200) if gossip_kernels._plan(name, n, s, 300).design == "staged")
-    for name, s in (("gossip_mix", 0), ("gossip_mix_sparse_dp", 8))}
+    for name, s in (("gossip_mix", 0), ("gossip_mix_dp", 0), ("gossip_mix_sparse_dp", 8))}
 
 
-@pytest.mark.parametrize("name", ["gossip_mix", "gossip_mix_sparse_dp"])
+@pytest.mark.parametrize("name", ["gossip_mix", "gossip_mix_dp", "gossip_mix_sparse_dp"])
 @pytest.mark.parametrize("side", [0, 1])
 def test_gossip_kernels_on_each_side_of_the_staged_limit(cuda, name, side):
     """At the largest N the staged kernel takes, and one more (the
@@ -236,7 +238,7 @@ def test_gossip_kernels_on_each_side_of_the_staged_limit(cuda, name, side):
     w, z, act, mix, idx, wgt = _gossip_case(n, 300, 0.3, seed=n, device=cuda)
     _, kernel, rowwise, args = next(p for p in _rowwise_pairs(w, z, act, mix, idx, wgt)
                                     if p[0] == name)
-    plain = {"gossip_mix": ref.gossip_mix_plain,
+    plain = {"gossip_mix": ref.gossip_mix_plain, "gossip_mix_dp": ref.gossip_mix_dp_plain,
              "gossip_mix_sparse_dp": ref.gossip_mix_sparse_dp_plain}[name]
     s = idx.shape[1] if "sparse" in name else 0
     assert gossip_kernels._plan(name, n, s, 300).design == ("rowwise" if side else "staged")
@@ -316,7 +318,10 @@ def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
     # hd 256 on the scalar kernel (RecurrentGemma's one KV head, window
     # 2048), S % 128 == 64 at B=2; hd 96 zero-padded to 128
     (1, 1024, 2, 1, 256, 2048), (2, 192, 4, 2, 256, 100), (1, 320, 3, 1, 96, 100),
-    (2, 1024, 4, 2, 96, 300)])
+    (2, 1024, 4, 2, 96, 300),
+    # hd 512 in two chunks of 256 columns, hd 288 zero-padded to 512
+    (1, 1024, 2, 1, 512, 2048), (2, 192, 4, 2, 512, 100), (1, 320, 3, 1, 288, 100),
+    (2, 1024, 4, 2, 288, 300)])
 def test_swa_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, window):
     q, k, v = _swa_inputs(b, s, h, kh, hd, dtype, seed=s + window, device=cuda)
     before = swa_kernel.LAUNCHES
@@ -344,9 +349,6 @@ def test_swa_wrapper_checks(cuda):
         swa_kernel.swa_attention(q, k.bfloat16(), v, window=64)
     with pytest.raises(ValueError, match="H % K"):
         swa_kernel.swa_attention(q[:, :, :3].contiguous(), k, v, window=64)
-    wide = [torch.zeros(t.shape[:3] + (288,), device=cuda) for t in (q, k, v)]
-    with pytest.raises(ValueError, match="hd must be <= 256"):
-        swa_kernel.swa_attention(*wide, window=64)
     with pytest.raises(ValueError, match="contiguous"):
         swa_kernel.swa_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, window=64)
     with pytest.raises(ValueError, match="window"):
@@ -363,6 +365,12 @@ def test_swa_wrapper_checks(cuda):
     with torch.no_grad():
         swa_kernel.swa_attention(q.clone().requires_grad_(True), k, v, window=64)
     assert swa_kernel.LAUNCHES == before + 1
+    # hd > 256 is taken, on the kernel (hd 288 zero-padded to 512), not refused
+    wide = _swa_inputs(1, 128, 4, 2, 288, torch.float32, seed=1, device=cuda)
+    got = swa_kernel.swa_attention(*wide, window=64)
+    assert swa_kernel.LAUNCHES == before + 2 and got.shape == wide[0].shape
+    torch.testing.assert_close(got, ref.swa_attention_plain(*wide, window=64), rtol=0,
+                               atol=SWA_ATOL[torch.float32])
 
 
 def test_gqa_attention_banded_branch_runs_the_kernel(cuda):
