@@ -135,6 +135,35 @@ Phases, each printing one JSON line:
                 then the prefill's wall time, tokens/s and its device
                 time split into the kernel, the GEMMs and the rest, and
                 decode steps/s;
+ 17. personalize — cold-start personalization, then serving, at full
+                width: the REPLACE-BG fast twin, an H=128 population
+                from a seeded ``torch.Generator``, the last 32 patients
+                as a cohort with 24 windows each, fine-tuned by one
+                ``GlucoseServable.personalize`` call (100 Adam steps at
+                5e-4, batch 24, the servable's defaults, through the
+                CLI's ``personalize_cohort``): every patient's last-10
+                loss below its first-10; for one patient
+                ``personalize`` bitwise ``personalize_loop`` and within
+                1e-6 of its batched row (bitwise or not, reported);
+                4096 requests mixing personalized and population rows
+                through ``MicroBatcher`` + ``replay``, bitwise the
+                direct apply and within 1e-5 of the plain twin, the
+                ``lstm_forward`` launch count read around it; the
+                fine-tune's time (ms a step, patients/s), p50/p99,
+                forecasts/s; and ``launch.serve --personalize 4
+                --selfcheck`` on the committed H=8 checkpoint;
+ 18. masked   — ``gossip_impl="masked"`` training at full width:
+                REPLACE-BG (N=226, sparse kernel) and OhioT1DM (N=12,
+                dense kernel), H=128, 30% inactive, 8 rounds, DP off
+                and at sigma=0.01: each masked run bitwise its unmasked
+                twin from the same seed (params, optimizer rows,
+                history), one gossip launch a round in both; rounds/s
+                of each in turns, the ``round.secure_mask`` span's
+                device time a round (``torch.profiler``) and peak
+                memory; then ``simulate_wires`` at N=37, D=66,689: no
+                valid slot of a row with >= 2 of them puts its raw row
+                on the wire, and the books balance within 1e-5 of the
+                sparse mix;
 
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -197,6 +226,17 @@ GOSSIP_RATIOS = (0.0, 0.3, 1.0)
 DP_TILES = ((64, 256), (128, 256), (256, 256), (256, 512), (512, 512))
 TRAIN_ROUNDS = 64
 EVAL_EVERY = 16
+# the cold-start cohort: the last 32 REPLACE-BG patients, 24 windows each
+PERSONALIZE_COHORT = 32
+PERSONALIZE_WINDOWS = 24
+# personalize against its row of the batched call: bitwise on the CPU; on
+# the card cuBLAS may pick another bmm at batch 1 than at batch 32
+PERSONALIZE_ROW_TOL = 1e-6
+MASKED_ROUNDS = 8
+WIRES_NODES = 37
+# the wires' books: fp32 sums of <= 8 weighted rows, each a raw row plus
+# <= 7 signed unit-normal masks, against the plain sparse mix
+WIRES_TOL = 1e-5
 # swa_attention: JAX's own tolerances for this kernel (tests/test_kernels.py):
 # fp32 sums over <= 4096 keys in another order; bf16 inputs with fp32
 # inside on both sides and the output rounded to bf16 (at the prefill's
@@ -220,6 +260,8 @@ GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 # the trainer's record_function spans, in the order of a round
 SPANS = ("round.draws", "round.mixing_operator", "round.gossip", "round.local_step",
          "round.mask", "round.eval", "chunk.sync")
+# the masked round's span, inside round.gossip
+MASK_SPANS = ("round.secure_mask",)
 
 
 def require(cond, what) -> None:
@@ -535,6 +577,23 @@ def cudnn_lstm(wx, wh, b, w_out, b_out):
     return run
 
 
+def served_vs_plain(sv, reqs, preds: dict[int, float]) -> float:
+    """The largest |served forecast - the plain twin's| over a replay,
+    each store row's requests as one plain forward under that row."""
+    from repro_torch.kernels.ref import lstm_forward_plain
+
+    err = 0.0
+    for row in sorted({r.patient for r in reqs}):
+        mine = [r for r in reqs if r.patient == row]
+        params = sv.params_rows([row])
+        x = torch.tensor(np.stack([r.window for r in mine]), device="cuda")[None, :, :, None]
+        ref = lstm_forward_plain(x, params["wx"], params["wh"], params["b"],
+                                 params["w_out"], params["b_out"])[0].cpu()
+        got = torch.tensor([preds[r.rid] for r in mine])
+        err = max(err, float((got - ref).abs().max()))
+    return err
+
+
 def reset_launches() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
     from repro_torch.kernels import gossip_mix as gk
@@ -554,20 +613,21 @@ def launches() -> dict[str, int]:
             "swa_attention": swa_attention.LAUNCHES}
 
 
-def span_breakdown(prof) -> tuple[dict[str, float], dict[str, float], float, int]:
+def span_breakdown(prof, spans=SPANS) -> tuple[dict[str, float], dict[str, float], float, int]:
     """Device busy time (ms) of one profile, split by the trainer's
-    spans: each device kernel or copy goes to the span whose range on
-    the device timeline holds its start ("other" if none).  Also the
+    ``spans``: each device kernel or copy goes to the span whose range
+    on the device timeline holds its start ("other" if none).  Also the
     same split of the GEMM kernels alone (a "gemm" in the kernel's
-    name), the total, and the number of device kernels and copies."""
+    name), the total, and the number of device kernels and copies.
+    Spans not in ``spans`` are neither ranges nor work."""
     from torch.autograd import DeviceType
 
     events = list(prof.events())
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
-    ranges = [(e.name, e.time_range.start, e.time_range.end) for e in on_device if e.name in SPANS]
-    busy = dict.fromkeys(SPANS + ("other",), 0.0)
-    gemm = dict.fromkeys(SPANS + ("other",), 0.0)
-    work = [e for e in on_device if e.name not in SPANS]
+    ranges = [(e.name, e.time_range.start, e.time_range.end) for e in on_device if e.name in spans]
+    busy = dict.fromkeys(spans + ("other",), 0.0)
+    gemm = dict.fromkeys(spans + ("other",), 0.0)
+    work = [e for e in on_device if e.name not in SPANS + MASK_SPANS]
     for e in work:
         start = e.time_range.start
         owner = next((name for name, lo, hi in ranges if lo <= start < hi), "other")
@@ -676,15 +736,7 @@ def main() -> int:
     require(bool(torch.isfinite(served).all()), "non-finite forecast")
     bad = selfcheck(sv, reqs, preds)
     require(bad == 0, f"{bad} served forecasts differ from the direct apply")
-    plain_err = 0.0
-    for row in sorted({r.patient for r in reqs}):
-        mine = [r for r in reqs if r.patient == row]
-        params = sv.params_rows([row])
-        x = torch.tensor(np.stack([r.window for r in mine]), device="cuda")[None, :, :, None]
-        ref = lstm_forward_plain(x, params["wx"], params["wh"], params["b"],
-                                 params["w_out"], params["b_out"])[0].cpu()
-        got = torch.tensor([preds[r.rid] for r in mine])
-        plain_err = max(plain_err, float((got - ref).abs().max()))
+    plain_err = served_vs_plain(sv, reqs, preds)
     require(plain_err <= TOL, f"served vs plain twin: {plain_err}")
     errs.append(plain_err)
     stats = batcher.stats()
@@ -948,7 +1000,7 @@ def main() -> int:
             draws = tk.draw(mix_gen, data, 64)
             after_k, loss_k = tk.round(state, data, draws)
             after_t, loss_t = tt.round(state, data, draws)
-            active, operand = tk.mixing_operator(state, draws)
+            active, operand, _ = tk.mixing_operator(state, draws)
             noise = sigma * draws.dp_noise if sigma else None
             mixed_err = float((tk.plan.gossip(state.params, operand, active, noise)
                                - tt.plan.gossip(state.params, operand, active, noise)).abs().max())
@@ -1322,12 +1374,194 @@ def main() -> int:
          decode_step_ms_median=statistics.median(decode_walls) * 1e3,
          decode_steps_per_s=1 / statistics.median(decode_walls), nvidia_smi=card)
 
+    # 17. cold-start personalization, then serving (the main path) ---------
+    from repro_torch.core import personalize, personalize_loop
+    from repro_torch.launch.serve import personalize_cohort
+    from repro_torch.utils.rng import draw_personalize
+
+    fed = feds["replace-bg"]
+    lstm = LSTMModel(hidden=128)
+    sv = GlucoseServable(lstm.as_model(), lstm.init(torch.Generator().manual_seed(0)),
+                         buckets=(1, 4, 16, 64))
+    steps, m = sv.personalize_steps, PERSONALIZE_WINDOWS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cohort = personalize_cohort(sv, fed, PERSONALIZE_COHORT, m, seed=0)  # ends in a sync
+    tune_s = time.perf_counter() - t0
+    # the same call again on a fresh store, profiled: where a step's time goes
+    again = GlucoseServable(sv.model, sv.population, buckets=sv.buckets)
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            personalize_cohort(again, fed, PERSONALIZE_COHORT, m, seed=0)
+        tune_profiled_s = time.perf_counter() - t0
+    require(torch.equal(again.personalize_losses, sv.personalize_losses),
+            "two fine-tunes of one cohort from one seed differ")
+    tune_busy, tune_gemm, tune_items = 0.0, 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if e.self_cpu_time_total == 0 and us > 0:
+            tune_busy += us / 1e3
+            tune_items += e.count
+            if any(g in e.key.lower() for g in GEMM_NAMES):
+                tune_gemm += us / 1e3
+    losses = sv.personalize_losses.cpu()
+    require(tuple(losses.shape) == (PERSONALIZE_COHORT, steps) and bool(torch.isfinite(losses).all()),
+            f"fine-tune losses {tuple(losses.shape)} or non-finite")
+    first10, last10 = losses[:, :10].mean(dim=1), losses[:, -10:].mean(dim=1)
+    require(bool((last10 < first10).all()),
+            f"a patient's loss did not fall: {(last10 >= first10).nonzero()[:, 0].tolist()}")
+    require(sv.num_rows == 1 + PERSONALIZE_COHORT and
+            [sv.row_of(pi) for pi in cohort] == list(range(1, 1 + PERSONALIZE_COHORT)),
+            "the cohort's store rows")
+    # the engines, for the cohort's first patient: the draws the servable's
+    # call made (the same seeded generator), its batched row, personalize
+    # and personalize_loop
+    counts = [min(m, len(fed.patients[pi].train_x)) for pi in cohort]
+    batch_idx = draw_personalize(torch.Generator(device="cuda").manual_seed(0), counts, m, steps,
+                                 sv.personalize_batch_size)
+    patient = fed.patients[cohort[0]]
+    px = np.zeros((m, fed.x.shape[-1]), np.float32)
+    py = np.zeros((m,), np.float32)
+    px[:counts[0]], py[:counts[0]] = patient.train_x[:counts[0]], patient.train_y[:counts[0]]
+    one = personalize(sv.model, sv.optimizer, sv.population, batch_idx[0], px, py)
+    loop = personalize_loop(sv.model, sv.optimizer, sv.population, batch_idx[0], px, py)
+    require(all(torch.equal(one[k], loop[k]) for k in one), "personalize != personalize_loop")
+    batched = sv.params_rows([1])
+    row_diff = max(float((batched[k][0] - one[k]).abs().max()) for k in one)
+    row_bitwise = all(torch.equal(batched[k][0], one[k]) for k in one)
+    require(row_diff <= PERSONALIZE_ROW_TOL, f"personalize vs its batched row: {row_diff}")
+    batches = []
+    batcher = CountingBatcher(sv.buckets)
+    reqs = build_request_stream(fed, sv, 4096, seed=2)
+    personalized_reqs = sum(r.patient > 0 for r in reqs)
+    require(personalized_reqs > 0, "no request reached a personalized row")
+    reset_launches()
+    sv.warmup(history_len=fed.x.shape[-1])
+    preds = replay(sv, batcher, reqs)
+    torch.cuda.synchronize()
+    launches_personalize = launches()
+    require(launches_personalize["lstm_forward"] >= len(batches) > 0 and
+            sum(launches_personalize.values()) == launches_personalize["lstm_forward"],
+            f"{launches_personalize} launches for {len(batches)} batches")
+    require(sorted(preds) == list(range(len(reqs))), "a request went unanswered")
+    bad = selfcheck(sv, reqs, preds)
+    require(bad == 0, f"{bad} served forecasts differ from the direct apply")
+    plain_err = served_vs_plain(sv, reqs, preds)
+    require(plain_err <= TOL, f"served (personalized) vs plain twin: {plain_err}")
+    errs.append(plain_err)
+    stats = batcher.stats()
+    with contextlib.redirect_stdout(io.StringIO()) as cli_log:
+        rc = serve_main(["--checkpoint", str(CKPT), "--personalize", "4", "--requests", "256",
+                         "--selfcheck", "--device", "cuda"])
+    require(rc == 0, f"launch.serve --personalize 4 --selfcheck exited {rc}")
+    cli_lines = [ln for ln in cli_log.getvalue().splitlines()
+                 if ln.startswith(("personalized", "selfcheck"))]
+    emit("personalize", dataset=fed.name, patients=fed.num_nodes, hidden=128,
+         cohort=PERSONALIZE_COHORT, history_windows=m, steps=steps,
+         batch=min(sv.personalize_batch_size, m), optimizer="adam 5e-4",
+         fine_tune_s=tune_s, fine_tune_ms_per_step=tune_s * 1e3 / steps,
+         fine_tune_patients_per_s=PERSONALIZE_COHORT / tune_s,
+         profiled_fine_tune_s=tune_profiled_s, fine_tune_device_busy_ms=tune_busy,
+         fine_tune_device_busy_share=tune_busy / (tune_profiled_s * 1e3),
+         fine_tune_gemm_device_ms=tune_gemm, fine_tune_device_items_per_step=tune_items / steps,
+         loss_first10_mean=float(first10.mean()), loss_last10_mean=float(last10.mean()),
+         loss_fell_every_patient=True, personalize_vs_loop="bitwise",
+         personalize_vs_batched_row_bitwise=row_bitwise,
+         personalize_vs_batched_row_max_abs_diff=row_diff, requests=len(reqs),
+         personalized_requests=personalized_reqs, batches=len(batches),
+         launches=launches_personalize, selfcheck_bitwise=len(reqs) - bad,
+         max_abs_err_vs_plain=plain_err, p50_latency_ms=stats["p50_latency_ms"],
+         p99_latency_ms=stats["p99_latency_ms"], forecasts_per_sec=stats["forecasts_per_sec"],
+         cli=cli_lines, nvidia_smi=card)
+
+    # 18. masked training at full width (the main path) -----------------
+    from repro_torch.core.gossip import gossip_mix_sparse_tree
+    from repro_torch.core.secure_agg import edge_mask_source, simulate_wires
+
+    masked_counts: dict[str, int] = {}
+    for dataset, repr_ in (("replace-bg", "sparse"), ("ohiot1dm", "dense")):
+        fed = feds[dataset]
+        for sigma in (0.0, 0.01):
+            name = {("sparse", False): "gossip_mix_sparse", ("dense", False): "gossip_mix",
+                    ("sparse", True): "gossip_mix_sparse_dp", ("dense", True): "gossip_mix_dp"}[
+                        (repr_, sigma > 0)]
+            runs = {}
+            for impl in ("allgather", "masked"):
+                trainer = GluADFL(LSTMModel(hidden=128).as_model(), get_optimizer("adam", 1e-3),
+                                  FLConfig(num_nodes=fed.num_nodes, inactive_ratio=0.3),
+                                  mixer="kernel", gossip_impl=impl, gossip_repr=repr_,
+                                  dp_noise_sigma=sigma)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                _, hist, state = trainer.train(torch.Generator(device="cuda").manual_seed(8),
+                                               fed.x, fed.y, fed.counts, batch_size=64,
+                                               rounds=MASKED_ROUNDS, chunk=MASKED_ROUNDS)
+                torch.cuda.synchronize()
+                counts = launches()
+                require(counts[name] == MASKED_ROUNDS and sum(counts.values()) == MASKED_ROUNDS,
+                        f"{impl} {dataset} sigma={sigma}: launches {counts}, want "
+                        f"{MASKED_ROUNDS} of {name}")
+                require(all(math.isfinite(h["loss"]) for h in hist), f"{impl} {dataset}: losses")
+                runs[impl] = (trainer, hist, state, counts,
+                              torch.cuda.max_memory_allocated() / 1e9)
+            (ta, ha, a, _, peak_a), (tb, hb, b, counts, peak_b) = runs["allgather"], runs["masked"]
+            require(ha == hb and torch.equal(a.params, b.params) and
+                    all(torch.equal(a.opt_state[k], b.opt_state[k]) for k in a.opt_state),
+                    f"{dataset} sigma={sigma}: masked training is not bitwise unmasked")
+            masked_counts[name] = counts[name]
+            # steady state, in turns (unmasked, masked, masked, unmasked), from each
+            # run's state, with the round generator carried on
+            walls = {"allgather": [], "masked": []}
+            for impl in ("allgather", "masked", "masked", "allgather"):
+                trainer, _, state, _, _ = runs[impl]
+                gen = torch.Generator(device="cuda").manual_seed(9)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train(gen, fed.x, fed.y, fed.counts, batch_size=64, rounds=MASKED_ROUNDS,
+                              chunk=MASKED_ROUNDS, state=state)
+                torch.cuda.synchronize()
+                walls[impl].append(time.perf_counter() - t0)
+            with torch.profiler.profile(activities=activities) as prof:
+                tb.train(torch.Generator(device="cuda").manual_seed(9), fed.x, fed.y, fed.counts,
+                         batch_size=64, rounds=MASKED_ROUNDS, chunk=MASKED_ROUNDS, state=b)
+                torch.cuda.synchronize()
+            mask_busy, _, busy_ms, _ = span_breakdown(prof, MASK_SPANS)
+            require(mask_busy["round.secure_mask"] > 0, "the profile saw no secure_mask work")
+            emit("masked", dataset=dataset, nodes=fed.num_nodes, hidden=128, gossip_repr=repr_,
+                 sigma=sigma, rounds=MASKED_ROUNDS, kernel=name, launches=counts,
+                 bitwise_params_opt_state_history=True,
+                 pairs=math.comb(ta.cfg.comm_batch + 1, 2),
+                 rounds_per_s_unmasked=[MASKED_ROUNDS / w for w in walls["allgather"]],
+                 rounds_per_s_masked=[MASKED_ROUNDS / w for w in walls["masked"]],
+                 secure_mask_device_ms_per_round=mask_busy["round.secure_mask"] / MASKED_ROUNDS,
+                 device_busy_ms_per_round_masked=busy_ms / MASKED_ROUNDS,
+                 peak_memory_gb_unmasked=peak_a, peak_memory_gb_masked=peak_b, nvidia_smi=card)
+    # the wires at N=37: no valid slot of a row with >= 2 of them sends its raw
+    # row, and the books balance against the sparse mix
+    wire_gen = torch.Generator(device="cuda").manual_seed(10)
+    w, _, act, _, idx, wgt = gossip_inputs(wire_gen, WIRES_NODES, d_main, 0.3)
+    masks = edge_mask_source(wire_gen, d_main)(idx, wgt)
+    wires = simulate_wires(w, idx, wgt, masks)
+    valid = wgt > 0
+    raw = (wires == w[idx.long()]).all(dim=-1)
+    guarded = valid & (valid.sum(dim=1, keepdim=True) >= 2)
+    require(bool(guarded.any()) and not bool((raw & guarded).any()), "a wire carries a raw row")
+    books = float((torch.einsum("nb,nbd->nd", wgt, wires)
+                   - gossip_mix_sparse_tree(w, idx, wgt)).abs().max())
+    require(books <= WIRES_TOL, f"the wires' books vs the sparse mix: {books}")
+    emit("wires", nodes=WIRES_NODES, cols=d_main, active=int(act.sum()),
+         masked_slots=int(guarded.sum()), raw_on_wire=0, books_max_abs_err=books, tol=WIRES_TOL)
+
     sources = "src/repro_torch/kernels/csrc/"
     rows = [{
         "name": "lstm_forward", "route": "cuda",
         "source": sources + "lstm_forward.cu",
         "replaces": "src/repro/kernels/lstm_cell.py:51",
-        "launches": launches_serve, "max_abs_err": max(errs), **lstm_row,
+        "launches": launches_serve, "launches_personalize": launches_personalize["lstm_forward"],
+        "max_abs_err": max(errs), **lstm_row,
     }]
     path_launches = {"gossip_mix": trained["ohiot1dm"][1]["gossip_mix"],
                      "gossip_mix_sparse": trained["replace-bg"][1]["gossip_mix_sparse"],
@@ -1337,7 +1571,8 @@ def main() -> int:
     for name, line in replaces.items():
         rows.append({"name": name, "route": "cuda", "source": sources + "gossip_mix.cu",
                      "replaces": f"src/repro/kernels/gossip_mix.py:{line}",
-                     "launches": path_launches[name], "max_abs_err": gossip_err[name],
+                     "launches": path_launches[name], "launches_masked": masked_counts[name],
+                     "max_abs_err": gossip_err[name],
                      **gossip_rows[name]})
     rows.append({"name": "swa_attention", "route": "cuda", "source": sources + "swa_attention.cu",
                  "replaces": "src/repro/kernels/swa_attention.py:82",

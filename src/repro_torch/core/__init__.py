@@ -1,5 +1,17 @@
 """GluADFL's federated core (the single-process counterpart of
 ``repro.core``): the trainer, participation schedules, topologies,
-gossip mixing and the resolved gossip plan."""
+gossip mixing, the resolved gossip plan (with pairwise-masked secure
+aggregation, ``core.secure_agg``) and cold-start personalization."""
 from repro_torch.core.gluadfl import DEFAULT_CHUNK, FLState, GluADFL
-from repro_torch.core.gossip_plan import GossipPlanError, choose_gossip_repr, resolve_gossip_plan
+from repro_torch.core.gossip_plan import (
+    GossipPlanError,
+    choose_gossip_impl,
+    choose_gossip_repr,
+    resolve_gossip_plan,
+)
+from repro_torch.core.personalize import (
+    personalize,
+    personalize_batch,
+    personalize_batch_fn,
+    personalize_loop,
+)

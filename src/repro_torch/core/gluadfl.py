@@ -35,9 +35,16 @@ syncs with the host once per ``chunk`` rounds (``chunk=1`` is the JAX
 package's loop engine); the numbers do not depend on ``chunk``.
 Each stage of a round runs inside a ``torch.profiler.record_function``
 span (``round.draws``, ``round.mixing_operator``, ``round.gossip``,
-``round.local_step``, ``round.mask``, ``round.eval``, ``chunk.sync``),
-so a profile splits a round's time by stage; without an active
-profiler a span costs a few microseconds of host time.
+``round.local_step``, ``round.mask``, ``round.eval``, ``chunk.sync``;
+with ``gossip_impl="masked"``, ``round.secure_mask`` inside
+``round.gossip``), so a profile splits a round's time by stage; without
+an active profiler a span costs a few microseconds of host time.
+
+``gossip_impl="masked"`` adds pairwise-masked secure aggregation
+(``core.secure_agg``): the masks come from a mask source of their own,
+by default a generator seeded from ``cfg.seed`` and the mask stream's
+tag, never from the round's draws, so a masked run is bitwise its
+unmasked twin.
 Not ported yet: the sweep engine, the sharded mixer and multi-host
 runs (``core.gossip_plan`` refuses their knobs), custom loss and eval
 functions.
@@ -54,6 +61,7 @@ from torch.profiler import record_function
 from repro_torch.config import FLConfig
 from repro_torch.core.async_sched import bernoulli_active, markov_active, staleness_update
 from repro_torch.core.gossip_plan import resolve_gossip_plan
+from repro_torch.core.secure_agg import MaskSource, edge_mask_source, mask_generator
 from repro_torch.core.topology import (
     neighbor_table_from_candidates,
     random_adjacency,
@@ -87,6 +95,23 @@ class FedTensors:
     counts: torch.Tensor   # (N,) int64
 
 
+def mse_value_and_grad(model: Model, layout: ParamLayout, params: torch.Tensor,
+                       bx: torch.Tensor, by: torch.Tensor):
+    """Per-row MSE losses (N,) and their gradients (N, D) at the flat
+    ``params`` (N, D), row n's batch ``bx[n]`` (Bt, L) against
+    ``by[n]``, through the plain differentiable forward
+    ``model.apply_nodes``.  Rows share no parameters, so one backward of
+    the summed losses gives every row its own gradient (the JAX package
+    takes a ``vmap`` of ``value_and_grad``).  The trainer's local step
+    and the cold-start fine-tune (``core.personalize``) both use it."""
+    p = params.detach().requires_grad_(True)
+    with torch.enable_grad():
+        pred = model.apply_nodes(layout.views(p), bx)
+        losses = torch.mean(torch.square(pred - by), dim=1)
+        (grads,) = torch.autograd.grad(losses.sum(), p)
+    return losses.detach(), grads
+
+
 class GluADFL:
     """Asynchronous decentralized FL trainer (the paper's contribution).
 
@@ -102,8 +127,10 @@ class GluADFL:
         *,
         grad_at: str = "premix",
         mixer: str | None = None,
+        gossip_impl: str = "allgather",
         gossip_repr: str = "dense",
         dp_noise_sigma: float = 0.0,
+        mask_source: MaskSource | None = None,
         device=None,
     ):
         if grad_at not in ("premix", "mixed"):
@@ -117,12 +144,19 @@ class GluADFL:
         self.grad_at = grad_at
         self.dp_noise_sigma = float(dp_noise_sigma)
         self.plan = resolve_gossip_plan(
-            mixer=mixer, gossip_repr=gossip_repr,
+            mixer=mixer, gossip_impl=gossip_impl, gossip_repr=gossip_repr,
             num_nodes=cfg.num_nodes,
             comm_batch=cfg.comm_batch, topology=cfg.topology,
             cluster_size=cfg.cluster_size, device=self.device,
         )
         self.layout = ParamLayout.of(model.init(torch.Generator().manual_seed(0)))
+        if mask_source is not None and not self.plan.masked:
+            raise ValueError("mask_source is for gossip_impl='masked'")
+        # (idx, wgt) -> (N, P, D) masks; None unless masked
+        self.mask_source = mask_source
+        if self.plan.masked and mask_source is None:
+            self.mask_source = edge_mask_source(mask_generator(cfg.seed, self.device),
+                                                self.layout.dim)
         n = cfg.num_nodes
         adj = static_adjacency(cfg.topology, n, cfg.cluster_size)
         self._static_adj = None if adj is None else adj.to(self.device)
@@ -174,16 +208,6 @@ class GluADFL:
         )
 
     # ------------------------------------------------------------------
-    def _value_and_grad(self, params, bx, by):
-        """Per-node MSE losses (N,) and their gradients (N, D) at
-        ``params``, through the plain differentiable forward."""
-        p = params.detach().requires_grad_(True)
-        with torch.enable_grad():
-            pred = self.model.apply_nodes(self.layout.views(p), bx)
-            losses = torch.mean(torch.square(pred - by), dim=1)
-            (grads,) = torch.autograd.grad(losses.sum(), p)
-        return losses.detach(), grads
-
     def _local_step(self, premix, mixed, opt_state, data: FedTensors, batch_idx):
         """``local_steps`` optimizer steps for every node: the first
         gradient at the pre-mix (or mixed) params, applied to the mixed
@@ -200,7 +224,7 @@ class GluADFL:
             if self._shift is not None:
                 bx = bx + self._shift[:, None, None]
                 by = by + self._shift[:, None]
-            loss, grads = self._value_and_grad(p_grad, bx, by)
+            loss, grads = mse_value_and_grad(self.model, self.layout, p_grad, bx, by)
             p_apply, state = self.optimizer.update(grads, state, p_apply)
             p_grad = p_apply
             losses.append(loss)
@@ -213,7 +237,7 @@ class GluADFL:
         cfg = self.cfg
         n = cfg.num_nodes
         with record_function("round.mixing_operator"):
-            active, operand = self.mixing_operator(state, draws)
+            active, operand, adj = self.mixing_operator(state, draws)
         premix = state.params
         noise = None
         if self.dp_noise_sigma > 0.0:
@@ -221,7 +245,8 @@ class GluADFL:
                 raise ValueError("dp_noise_sigma > 0 needs RoundDraws.dp_noise")
             noise = self.dp_noise_sigma * draws.dp_noise
         with record_function("round.gossip"):
-            mixed = self.plan.gossip(premix, operand, active, noise)
+            mask_ctx = (self.mask_source, adj) if self.plan.masked else None
+            mixed = self.plan.gossip(premix, operand, active, noise, mask_ctx)
         with record_function("round.local_step"):
             new_params, new_opt, losses = self._local_step(
                 premix, mixed, state.opt_state, data, draws.batch_idx)
@@ -241,8 +266,9 @@ class GluADFL:
         return FLState(params, opt_state, staleness, state.round + 1), loss
 
     def mixing_operator(self, state: FLState, draws: RoundDraws):
-        """The round's active mask and mixing operator (dense matrix or
-        neighbor table)."""
+        """The round's active mask, mixing operator (dense matrix or
+        neighbor table) and adjacency (None when a static topology's
+        table is built from its candidates)."""
         cfg = self.cfg
         n = cfg.num_nodes
         if cfg.schedule == "markov":
@@ -255,12 +281,11 @@ class GluADFL:
         if self.plan.neighbor_cand is not None:
             cand_idx, cand_valid = self.plan.neighbor_cand
             operand = neighbor_table_from_candidates(cand_idx, cand_valid, active, cfg.comm_batch)
-        else:
-            adj = self._static_adj
-            if adj is None:
-                adj = random_adjacency(draws.scores, min(cfg.comm_batch, n - 1))
-            operand = self.plan.build_repr(adj, active)
-        return active, operand
+            return active, operand, None
+        adj = self._static_adj
+        if adj is None:
+            adj = random_adjacency(draws.scores, min(cfg.comm_batch, n - 1))
+        return active, self.plan.build_repr(adj, active), adj
 
     # ------------------------------------------------------------------
     def population(self, state: FLState) -> dict[str, torch.Tensor]:

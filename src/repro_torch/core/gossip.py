@@ -8,13 +8,17 @@ reference ("tree") contractions in plain PyTorch and the composed
 local-DP stage the tree mixer runs; the kernel mixer calls
 ``kernels.ops`` (the hand-written CUDA kernels for CUDA tensors, their
 plain twins for CPU tensors), whose DP variants fuse the same stage
-into one pass.  ``core.gossip_plan`` picks among them once per trainer.
+into one pass.  :func:`gossip_mix_masked` adds the secure-aggregation
+term of ``core.secure_agg`` after any of them.  ``core.gossip_plan``
+picks among them once per trainer.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+
+from repro_torch.core.secure_agg import masked_mix_zero
 
 
 def gossip_mix_tree(w: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
@@ -49,3 +53,15 @@ def gossip_dp_composed(mix_fn: Callable, premix: torch.Tensor, noise: torch.Tens
         out = mixed_noisy - operand[1][:, :1] * noise
         return torch.where(active[:, None] > 0, out, premix)
     return mixed_noisy - torch.diagonal(operand)[:, None] * noise
+
+
+def gossip_mix_masked(mixed: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
+                      masks: torch.Tensor) -> torch.Tensor:
+    """Secure-aggregation wrapper (``gossip_impl="masked"``): add the
+    pairwise-mask cancellation term to an already-mixed (N, D) state.
+    The term is exactly ``+0.0`` everywhere, so the result is bitwise
+    ``mixed`` (a ``-0.0`` becomes ``+0.0``, as in the JAX package),
+    while the masks are really drawn and summed.  ``(idx, wgt)`` is the
+    round's (N, B+1) neighbor table and ``masks`` its (N, P, D) masks
+    (``core.secure_agg``); it follows any mixer, dense or sparse."""
+    return mixed + masked_mix_zero(idx, wgt, masks)

@@ -10,13 +10,18 @@ A :class:`GossipPlan` holds every knob decision:
     ``"kernel"`` (the hand-written CUDA kernels on the card);
   * the local-DP stage: the kernel mixer fuses noise, mix and the clean
     self-restore into one pass; the tree mixer composes them
-    (noise-add -> mix -> self-restore), as the JAX package does.
+    (noise-add -> mix -> self-restore), as the JAX package does;
+  * the gossip schedule, ``gossip_impl``: on one process every mix is
+    the JAX package's ``"allgather"`` schedule, and ``"masked"`` adds
+    the pairwise-mask cancellation term of ``core.secure_agg`` to the
+    final mixed state, after the DP stage, so a masked run is the
+    bitwise twin of its unmasked one on every mixer, representation
+    and DP setting.  ``"auto"`` resolves to ``"allgather"``
+    (:func:`choose_gossip_impl`).
 
-On one process every mix is the JAX package's ``allgather`` schedule,
-so there is no ``gossip_impl`` knob here.  The sharded mixer is not
-ported yet and raises here, at construction; the ``psum``, ``masked``
-and ``gather`` schedules, sweeps and multi-host runs are refused by the
-training CLI.
+The sharded mixer and the schedules that need it (``"psum"``,
+``"gather"``) are not ported yet and raise here, at construction;
+sweeps and multi-host runs are refused by the training CLI.
 """
 from __future__ import annotations
 
@@ -25,13 +30,23 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.gossip import gossip_dp_composed, gossip_mix_sparse_tree, gossip_mix_tree
+from torch.profiler import record_function
+
+from repro_torch.core.gossip import (
+    gossip_dp_composed,
+    gossip_mix_masked,
+    gossip_mix_sparse_tree,
+    gossip_mix_tree,
+)
 from repro_torch.core.topology import mixing_matrix, neighbor_candidates, neighbor_table
 from repro_torch.kernels import ops
 
 MIXERS = ("tree", "kernel")
 GOSSIP_REPRS = ("dense", "sparse")
 NOT_PORTED_MIXERS = ("sharded",)
+GOSSIP_IMPLS = ("allgather", "masked")
+# the JAX package's schedules that only its sharded mixer runs
+SHARDED_IMPLS = ("psum", "gather")
 
 # sparse tables win once the kept row (B+1 entries) is a small fraction
 # of N; 4x covers the gather bookkeeping the dense matmul doesn't pay
@@ -50,6 +65,13 @@ def choose_gossip_repr(num_nodes: int, comm_batch: int, *,
     return "sparse" if num_nodes >= factor * (comm_batch + 1) else "dense"
 
 
+def choose_gossip_impl(*, secure: bool = False) -> str:
+    """``--gossip-impl auto`` on one process: ``"masked"`` when secure
+    aggregation is asked for, else ``"allgather"`` (the JAX package's
+    answer with one shard, where the gathered federation always fits)."""
+    return "masked" if secure else "allgather"
+
+
 @dataclass(frozen=True, eq=False)
 class GossipPlan:
     """One resolved mixing pipeline; the round calls :meth:`build_repr`
@@ -57,6 +79,7 @@ class GossipPlan:
 
     mixer: str
     gossip_repr: str                 # "dense" | "sparse", never "auto"
+    gossip_impl: str                 # "allgather" | "masked", never "auto"
     comm_batch: int
     neighbor_cand: Any = None        # static-topology candidates (sparse)
     _mix: Callable = None
@@ -69,13 +92,37 @@ class GossipPlan:
             return neighbor_table(adj, active, self.comm_batch)
         return mixing_matrix(adj, active, self.comm_batch)
 
+    @property
+    def masked(self) -> bool:
+        return self.gossip_impl == "masked"
+
+    def mask_table(self, operand, adj: torch.Tensor | None, active: torch.Tensor):
+        """The (N, B+1) neighbor table the masks are drawn over: the
+        operand itself under the sparse representation (also the
+        candidate-built table of a static topology), else a table built
+        from the round's adjacency beside the dense matrix, for the
+        masks alone."""
+        if self.gossip_repr == "sparse":
+            return operand
+        return neighbor_table(adj, active, self.comm_batch)
+
     def gossip(self, premix: torch.Tensor, operand, active: torch.Tensor,
-               noise: torch.Tensor | None = None) -> torch.Tensor:
+               noise: torch.Tensor | None = None, mask_ctx=None) -> torch.Tensor:
         """One round's mixing step; ``noise`` is the (N, D) DP noise
-        already scaled by sigma, or None when DP is off."""
+        already scaled by sigma, or None when DP is off.  ``mask_ctx``,
+        ``(mask source, adjacency)`` on a masked plan, adds the
+        cancellation term after the mix and the DP stage, inside a
+        ``round.secure_mask`` span (the table, the masks and the term)."""
         if noise is None:
-            return self._mix(premix, operand, active)
-        return self._dp(premix, noise, operand, active)
+            out = self._mix(premix, operand, active)
+        else:
+            out = self._dp(premix, noise, operand, active)
+        if mask_ctx is not None:
+            source, adj = mask_ctx
+            with record_function("round.secure_mask"):
+                idx, wgt = self.mask_table(operand, adj, active)
+                out = gossip_mix_masked(out, idx, wgt, source(idx, wgt))
+        return out
 
 
 def _tree_stages(sparse: bool) -> tuple[Callable, Callable]:
@@ -106,6 +153,7 @@ def _kernel_stages(sparse: bool) -> tuple[Callable, Callable]:
 def resolve_gossip_plan(
     *,
     mixer: str | None = None,
+    gossip_impl: str = "allgather",
     gossip_repr: str = "dense",
     num_nodes: int,
     comm_batch: int,
@@ -123,6 +171,14 @@ def resolve_gossip_plan(
                               f"runs mixer in {MIXERS} on one process")
     if mixer not in MIXERS:
         raise GossipPlanError(f"mixer {mixer!r} not in {MIXERS}")
+    if gossip_impl == "auto":
+        gossip_impl = choose_gossip_impl()
+    if gossip_impl in SHARDED_IMPLS:
+        raise GossipPlanError(f"gossip_impl={gossip_impl!r} needs the sharded mixer, which is "
+                              f"not ported to PyTorch yet; this port runs gossip_impl in "
+                              f"{GOSSIP_IMPLS} on one process")
+    if gossip_impl not in GOSSIP_IMPLS:
+        raise GossipPlanError(f"gossip_impl {gossip_impl!r} not in {GOSSIP_IMPLS} or 'auto'")
     if gossip_repr == "auto":
         gossip_repr = choose_gossip_repr(num_nodes, comm_batch)
     if gossip_repr not in GOSSIP_REPRS:
@@ -134,4 +190,4 @@ def resolve_gossip_plan(
         cand = neighbor_candidates(topology, num_nodes, cluster_size)
         if cand is not None and device is not None:
             cand = tuple(t.to(device) for t in cand)
-    return GossipPlan(mixer, gossip_repr, comm_batch, cand, mix_fn, dp_fn)
+    return GossipPlan(mixer, gossip_repr, gossip_impl, comm_batch, cand, mix_fn, dp_fn)

@@ -4,7 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         [--checkpoint experiments/checkpoints/gluadfl_ohiot1dm_ring.npz] \
         [--init-hidden 128 --init-seed 0] [--device cuda] \
-        [--buckets 1,4,16,64] [--requests 256] [--selfcheck]
+        [--buckets 1,4,16,64] [--personalize 3 --steps 50] \
+        [--requests 256] [--selfcheck]
 
 Lifecycle:
 
@@ -13,19 +14,26 @@ Lifecycle:
      the servable's param store.  ``--init-hidden H`` serves freshly
      initialised population params of width H instead, drawn from a
      ``torch.Generator`` seeded with ``--init-seed``;
-  2. **serve** — a synthetic request stream (random patient, random
-     test window) flows through the ``MicroBatcher`` (pad-to-bucket,
+  2. **personalize** — the LAST ``--personalize`` patients of the
+     dataset twin play newly diagnosed arrivals: their first
+     ``--history-windows`` training windows fine-tune the population
+     model for ``--steps`` steps as one batched call
+     (``GlucoseServable.personalize``, plain PyTorch autograd), the
+     minibatches drawn from a ``torch.Generator`` on the device seeded
+     with ``--seed``; their rows join the param store under their
+     patient index and the time prints (0 = population-only serving);
+  3. **serve** — a synthetic request stream (random patient, random
+     test window; a personalized patient's requests read its own row)
+     flows through the ``MicroBatcher`` (pad-to-bucket,
      max-live-batches admission, timeout flush) into the bucketed
      ``forecast`` method, one ``lstm_forward`` launch per batch;
      per-request latency stats print at the end.
 
-``--personalize`` (cold-start fine-tuning) is not ported yet: a positive
-value exits 2.
-
-``--selfcheck`` additionally asserts that EVERY served forecast
-bitwise-matches a direct ``model.apply(params_row, window)`` call through
-the same dispatch — padding, bucketing and batching must be invisible to
-the numbers — and exits 1 on the first mismatch.
+``--selfcheck`` additionally asserts that EVERY served forecast,
+personalized rows included, bitwise-matches a direct
+``model.apply(params_row, window)`` call through the same dispatch —
+padding, bucketing and batching must be invisible to the numbers — and
+exits 1 on the first mismatch.
 
 ``--device`` defaults to ``cuda`` and fails when no GPU is present;
 ``--device cpu`` runs the kernels' plain twins.
@@ -34,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import numpy as np
 import torch
@@ -41,7 +50,6 @@ import torch
 from repro_torch.data import load_federated_dataset
 from repro_torch.models import LSTMModel
 from repro_torch.serve import GlucoseServable, MicroBatcher, Request, load_population, replay
-from repro_torch.serve.servable import PERSONALIZE_PENDING
 
 DEFAULT_CKPT = "experiments/checkpoints/gluadfl_ohiot1dm_ring.npz"
 
@@ -64,6 +72,32 @@ def build_request_stream(fed, servable, n_requests: int, seed: int):
             )
         )
     return reqs
+
+
+def personalize_cohort(servable: GlucoseServable, fed, k: int, m: int, seed: int) -> list[int]:
+    """The last ``k`` patients of ``fed`` arrive new, each with its first
+    ``m`` training windows (zero-padded, ``counts`` marking the real
+    ones), and fine-tune as one batched call, drawing from a
+    ``torch.Generator`` on the servable's device seeded with ``seed``.
+    Prints the time and returns the cohort's patient indices."""
+    k = min(k, fed.num_nodes)
+    cohort = list(range(fed.num_nodes - k, fed.num_nodes))
+    x = np.zeros((k, m, fed.x.shape[-1]), np.float32)
+    y = np.zeros((k, m), np.float32)
+    counts = np.zeros((k,), np.int64)
+    for i, pi in enumerate(cohort):
+        p = fed.patients[pi]
+        c = min(m, len(p.train_x))
+        x[i, :c], y[i, :c], counts[i] = p.train_x[:c], p.train_y[:c], c
+    generator = torch.Generator(device=servable.device).manual_seed(seed)
+    t0 = time.perf_counter()
+    servable.personalize(cohort, x, y, counts, generator=generator)
+    if servable.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"personalized {k} cold-start patients ({servable.personalize_steps} steps on "
+          f"<= {m} windows each) as one batched call in {dt:.2f}s")
+    return cohort
 
 
 def selfcheck(servable: GlucoseServable, reqs, preds: dict[int, float]) -> int:
@@ -106,15 +140,15 @@ def main(argv=None) -> int:
                     help="admission cap: formed-but-unfinished batches")
     ap.add_argument("--flush-timeout-ms", type=float, default=5.0,
                     help="oldest-request wait before a partial batch ships")
-    ap.add_argument("--personalize", type=int, default=0,
-                    help="cold-start patients to fine-tune; not yet "
-                         "available in the port (a positive value exits 2)")
+    ap.add_argument("--personalize", type=int, default=3,
+                    help="how many patients play cold-start arrivals "
+                         "(personalized as one batched call; 0 = "
+                         "population-only serving)")
     ap.add_argument("--history-windows", type=int, default=24,
                     help="windows of own history each cold-start patient "
-                         "brings (used with --personalize)")
+                         "brings (small on purpose — newly diagnosed)")
     ap.add_argument("--steps", type=int, default=50,
-                    help="fine-tune steps per cold-start patient (used "
-                         "with --personalize)")
+                    help="fine-tune steps per cold-start patient")
     ap.add_argument("--requests", type=int, default=256,
                     help="synthetic request-stream length")
     ap.add_argument("--seed", type=int, default=0)
@@ -126,10 +160,6 @@ def main(argv=None) -> int:
                          "direct model.apply; exit 1 on mismatch")
     args = ap.parse_args(argv)
 
-    if args.personalize > 0:
-        print(f"--personalize {args.personalize}: {PERSONALIZE_PENDING}", file=sys.stderr)
-        return 2
-
     buckets = tuple(int(b) for b in args.buckets.split(",") if b)
     if args.init_hidden is not None:
         lstm = LSTMModel(hidden=args.init_hidden)
@@ -139,11 +169,13 @@ def main(argv=None) -> int:
         model, pop = load_population(args.checkpoint, hidden=args.hidden)
         print(f"checkpoint {args.checkpoint}")
     n_params = sum(v.numel() for v in pop.values())
-    servable = GlucoseServable(model, pop, buckets=buckets,
+    servable = GlucoseServable(model, pop, buckets=buckets, personalize_steps=args.steps,
                                batch_mode=args.batch_mode, device=args.device)
     print(f"{n_params} params on {servable.device}")
 
     fed = load_federated_dataset(args.dataset, fast=not args.full_data)
+    if args.personalize > 0:
+        personalize_cohort(servable, fed, args.personalize, args.history_windows, args.seed)
     servable.warmup(history_len=fed.x.shape[-1])
     print(f"warmed {len(servable.compiled_buckets)} buckets: "
           f"{sorted(servable.compiled_buckets)}")

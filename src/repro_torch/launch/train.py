@@ -18,13 +18,16 @@ packages' ``load_population`` read.
   * ``--gossip-repr auto`` (default) picks the sparse neighbor table
     once N >= 4 (B+1): sparse at replace-bg's N=226, dense at
     ohiot1dm's N=12;
+  * ``--gossip-impl masked`` adds pairwise-masked secure aggregation
+    (``core.secure_agg``; bitwise the unmasked run from the same seed);
+    ``allgather`` (default) and ``auto`` mix plainly;
   * ``--chunk K`` rounds between host syncs (0 = every round, as
     ``--engine loop``); ``--eval-every K`` adds the population's val
     RMSE every K rounds.
 
 Not ported yet, and refused with exit code 2: scenario sweeps
-(``--sweep-*``), multi-host runs, ``--mixer sharded``,
-``--gossip-impl`` other than ``allgather`` and the deprecated
+(``--sweep-*``), multi-host runs, ``--mixer sharded``, the sharded
+schedules ``--gossip-impl psum`` and ``gather``, and the deprecated
 ``--use-kernel``.
 """
 from __future__ import annotations
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ExperimentConfig, apply_overrides
-from repro_torch.core import GluADFL, GossipPlanError, choose_gossip_repr
+from repro_torch.core import GluADFL, GossipPlanError, choose_gossip_impl, choose_gossip_repr
 from repro_torch.data import load_federated_dataset
 from repro_torch.device import resolve_device
 from repro_torch.metrics import all_metrics
@@ -142,8 +145,6 @@ def run(argv: list[str] | None = None) -> TrainRun:
     args = build_parser().parse_args(argv)
     if args.mixer == "sharded":
         raise Refused("--mixer sharded is not ported to PyTorch yet; use tree or kernel")
-    if args.gossip_impl not in ("allgather", "auto"):
-        raise Refused(f"--gossip-impl {args.gossip_impl} is not ported to PyTorch yet")
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -159,11 +160,17 @@ def run(argv: list[str] | None = None) -> TrainRun:
     if gossip_repr == "auto":
         gossip_repr = choose_gossip_repr(fed.num_nodes, fl_cfg.comm_batch)
         print(f"gossip-repr auto -> {gossip_repr}")
+    gossip_impl = args.gossip_impl
+    if gossip_impl == "auto":
+        gossip_impl = choose_gossip_impl()
+        print(f"gossip-impl auto -> {gossip_impl}")
     try:
         trainer = GluADFL(lstm.as_model(), get_optimizer(cfg.train.optimizer, cfg.train.lr),
-                          fl_cfg, mixer=args.mixer, gossip_repr=gossip_repr, device=device)
+                          fl_cfg, mixer=args.mixer, gossip_impl=gossip_impl,
+                          gossip_repr=gossip_repr, device=device)
     except GossipPlanError as e:
         raise Refused(str(e)) from e
+    print(f"gossip-impl {trainer.plan.gossip_impl}")
 
     val_data = None
     if args.eval_every:

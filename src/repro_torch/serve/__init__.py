@@ -1,10 +1,13 @@
 """BG-forecast prediction service (the counterpart of ``repro.serve``):
-take a federation checkpoint and answer CGM-window -> BG-forecast
-requests through a padded-bucket micro-batching queue, each batch one
-launch of the ``lstm_forward`` kernel.
+take a federation checkpoint, personalize it on new patients' short CGM
+histories as one batched fine-tune (``core.personalize``), and answer
+CGM-window -> BG-forecast requests through a padded-bucket
+micro-batching queue, each batch one launch of the ``lstm_forward``
+kernel.
 
   * ``servable.py`` — :class:`GlucoseServable`: checkpoint loading, the
-    patient param store and the bucketed ``forecast`` method;
+    patient param store, the batched cold-start ``personalize`` entry
+    point and the bucketed ``forecast`` method;
   * ``batcher.py``  — :class:`MicroBatcher`: the request queue
     (pad-to-bucket sizing, max-live-batches admission, timeout flush,
     per-request latency accounting), host-side Python with an

@@ -7,7 +7,10 @@
     federation checkpoint by :func:`load_population`, which infers the
     LSTM width from the flat parameter count;
   * the **param store**: a dict of stacked per-patient parameter rows on
-    the servable's device;
+    the servable's device; :meth:`GlucoseServable.personalize` appends
+    a cold-start cohort's rows, fine-tuned from the population
+    (``core.personalize``, plain PyTorch autograd, as the trainer's
+    local step);
   * the **forecast method**: requests are padded to the smallest fitting
     bucket (windows with zeros, param rows with the last real row) and
     run as ONE launch of the ``lstm_forward`` kernel with one weight row
@@ -18,36 +21,30 @@
     pinned by ``tests/test_torch_serve.py`` and the launcher's
     ``--selfcheck``.
 
-Cold-start personalization (``repro.core.personalize``) is not ported
-yet; it will fine-tune through the same plain-PyTorch autograd path the
-trainer uses, and until then :meth:`GlucoseServable.personalize` raises.
-
 The batching policy lives in ``serve.batcher``; :func:`replay` is the
 deterministic driver that marries the two.
 """
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Iterable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
 
+from repro_torch.core.personalize import personalize_batch_fn
 from repro_torch.device import resolve_device
 from repro_torch.models.base import Model, Params
+from repro_torch.optim import Optimizer, adam
 from repro_torch.serve.batcher import MicroBatcher, Request, bucket_for
 from repro_torch.utils.pytree import tree_to_vector, vector_to_tree
+from repro_torch.utils.rng import draw_personalize
 
 # widths the checkpoint loader tries when recovering the LSTM hidden
 # size from a flat parameter count
 KNOWN_HIDDEN = (4, 8, 16, 32, 64, 128, 256)
 
 DEFAULT_BUCKETS = (1, 4, 16, 64)
-
-PERSONALIZE_PENDING = (
-    "cold-start personalization is not ported to PyTorch yet; it waits on "
-    "core/personalize.py over the trainer's autograd path"
-)
 
 
 def load_population(path, *, hidden: int | None = None, history_len: int = 12) -> tuple[Model, Params]:
@@ -88,7 +85,11 @@ class GlucoseServable:
 
     ``buckets`` are the only batch shapes the forecast launches: a batch
     of n requests runs at the smallest bucket >= n (padded), and batches
-    beyond the largest bucket are split.  ``batch_mode`` takes the JAX
+    beyond the largest bucket are split.  ``optimizer`` (default Adam at
+    5e-4), ``personalize_steps`` and ``personalize_batch_size`` configure
+    the cold-start fine-tune (``core.personalize`` semantics: draws with
+    replacement from the patient's real windows, the batch clamped to
+    short histories).  ``batch_mode`` takes the JAX
     servable's values, ``"map"`` and ``"vmap"``; here both run the same
     batch-independent kernel, so both are bitwise the direct
     :meth:`Model.apply`.  ``device`` defaults to CUDA and raises when no
@@ -100,7 +101,10 @@ class GlucoseServable:
         model: Model,
         population_params: Params,
         *,
+        optimizer: Optimizer | None = None,
         buckets: tuple[int, ...] = DEFAULT_BUCKETS,
+        personalize_steps: int = 100,
+        personalize_batch_size: int = 32,
         batch_mode: str = "map",
         device=None,
     ):
@@ -113,8 +117,11 @@ class GlucoseServable:
         self.batch_mode = batch_mode
         self.model = model
         self.buckets = buckets
+        self.optimizer = optimizer or adam(5e-4)
+        self.personalize_steps = personalize_steps
+        self.personalize_batch_size = personalize_batch_size
         # param store: row 0 is ALWAYS the population model (the
-        # brand-new-patient fallback)
+        # brand-new-patient fallback); personalize() appends rows
         self._store: Params = {
             k: v.to(self.device, torch.float32)[None].contiguous()
             for k, v in population_params.items()
@@ -122,6 +129,10 @@ class GlucoseServable:
         self._names: dict[object, int] = {"population": 0}
         # padded batch shapes launched so far (introspection for tests/ops)
         self.compiled_buckets: set[int] = set()
+        # one fine-tune closure per padded history length M
+        self._personalize_fns: dict[int, Callable] = {}
+        # (P, steps) losses of the last personalize() call, on the device
+        self.personalize_losses: torch.Tensor | None = None
 
     # --------------------------------------------------------- params
     @property
@@ -147,9 +158,36 @@ class GlucoseServable:
         return {k: v.index_select(0, idx) for k, v in self._store.items()}
 
     # ----------------------------------------------------- personalize
-    def personalize(self, names, keys, x, y, counts) -> Params:
-        """Not yet available in the port (see :data:`PERSONALIZE_PENDING`)."""
-        raise NotImplementedError(PERSONALIZE_PENDING)
+    def personalize(self, names, x, y, counts, *, generator: torch.Generator | None = None,
+                    batch_idx=None) -> Params:
+        """Cold-start a cohort: fine-tune the population model on each
+        patient's own padded history as one batched computation, append
+        the personalized rows to the param store, map each name to its
+        row (:meth:`row_of`) and return the stacked params.
+
+        ``x`` (P, M, L), ``y`` (P, M) and ``counts`` (P,) follow the
+        federation layout.  The minibatch indices come from exactly one
+        of ``generator`` (drawn by ``utils.rng.draw_personalize`` on its
+        device) and ``batch_idx`` (P, steps, bs), handed in.  One
+        fine-tune closure is kept per M."""
+        if (generator is None) == (batch_idx is None):
+            raise ValueError("personalize takes exactly one of generator= and batch_idx=")
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        m = x.shape[1]
+        if m not in self._personalize_fns:
+            self._personalize_fns[m] = personalize_batch_fn(
+                self.model, self.optimizer, steps=self.personalize_steps,
+                batch_size=self.personalize_batch_size, n_rows=m)
+        if batch_idx is None:
+            batch_idx = draw_personalize(generator, counts, m, self.personalize_steps,
+                                         self.personalize_batch_size)
+        params, self.personalize_losses = self._personalize_fns[m](
+            self.population, batch_idx, x, y)
+        base = self.num_rows
+        self._store = {k: torch.cat([v, params[k]]) for k, v in self._store.items()}
+        for i, name in enumerate(names):
+            self._names[name] = base + i
+        return params
 
     # -------------------------------------------------------- forecast
     def _pad_forecast(self, params_batch: Params, windows: torch.Tensor, n: int) -> torch.Tensor:

@@ -6,7 +6,9 @@ so the port's round takes its random draws as inputs: a
 :class:`RoundDraws` record.  Production draws it with
 :func:`draw_round` from a ``torch.Generator`` on the device; the parity
 tests draw the same record with ``jax.random`` in ``GluADFL._round``'s
-split order and hand it in.
+split order and hand it in.  The cold-start fine-tune
+(``core.personalize``) takes its minibatch indices the same way, from
+:func:`draw_personalize`.
 """
 from __future__ import annotations
 
@@ -49,13 +51,43 @@ def draw_round(
     n = counts.shape[0]
     u_act = torch.rand(n, generator=generator, device=dev)
     scores = torch.rand((n, n), generator=generator, device=dev) if random_topology else None
-    # floor(u * hi) over float64 uniforms: uniform on [0, hi) like
-    # jax.random.randint; the clamp guards the rounding at u -> 1
-    hi = counts.to(dev, torch.int64).clamp_min(1)
-    u = torch.rand((n, local_steps, batch_size), generator=generator, device=dev,
-                   dtype=torch.float64)
-    batch_idx = torch.minimum((u * hi[:, None, None]).long(), hi[:, None, None] - 1)
+    batch_idx = _uniform_indices(generator, counts.to(dev, torch.int64).clamp_min(1),
+                                 local_steps, batch_size)
     noise = None
     if dp_dim:
         noise = torch.randn((n, dp_dim), generator=generator, device=dev)
     return RoundDraws(u_act, scores, batch_idx, noise)
+
+
+def _uniform_indices(generator: torch.Generator, hi: torch.Tensor, steps: int,
+                     batch: int) -> torch.Tensor:
+    """(len(hi), steps, batch) int64 indices, row p uniform on
+    ``[0, hi[p])``: floor(u * hi) over float64 uniforms, like
+    ``jax.random.randint``; the clamp guards the rounding at u -> 1."""
+    u = torch.rand((hi.shape[0], steps, batch), generator=generator, device=generator.device,
+                   dtype=torch.float64)
+    return torch.minimum((u * hi[:, None, None]).long(), hi[:, None, None] - 1)
+
+
+def clamped_batch(batch_size: int, n_rows: int) -> int:
+    """The fine-tune's minibatch: ``batch_size`` clamped to the padded
+    history length ``n_rows`` (and at least 1)."""
+    return max(1, min(batch_size, n_rows))
+
+
+def draw_personalize(
+    generator: torch.Generator,
+    counts: torch.Tensor,
+    n_rows: int,
+    steps: int,
+    batch_size: int,
+) -> torch.Tensor:
+    """The cold-start fine-tune's minibatch indices for P patients on
+    ``generator``'s device: (P, steps, bs) int64 with
+    ``bs = clamped_batch(batch_size, n_rows)``, patient p's drawn with
+    replacement from ``[0, max(min(counts[p], n_rows), 1))``, so padded
+    rows are never sampled and a history shorter than a batch still
+    takes ``bs`` draws from its real rows."""
+    hi = torch.as_tensor(counts, device=generator.device).to(torch.int64)
+    hi = hi.clamp(max=n_rows).clamp_min(1)
+    return _uniform_indices(generator, hi, steps, clamped_batch(batch_size, n_rows))

@@ -2,8 +2,9 @@
 gossip kernels and ``swa_attention`` held against their plain twins, a
 row's result bitwise independent of the launch it shares, the staged
 gossip kernels bitwise the row-wise kernel they replace, the wrappers'
-refusals, the servable's bitwise contract through ``lstm_forward``, a
-few training rounds through the gossip kernels, and the banded branch
+refusals, the servable's bitwise contract through ``lstm_forward`` (a
+personalized cohort's rows too), a few training rounds through the
+gossip kernels (masked rounds bitwise unmasked ones), and the banded branch
 of ``gqa_attention`` and a small LM prefill through ``swa_attention``.
 
 These tests need a CUDA device and skip elsewhere (decided inside the
@@ -299,6 +300,56 @@ def test_training_rounds_go_through_the_gossip_kernels(cuda, n, repr_, sigma):
     assert gossip_kernels.LAUNCHES[name] == before + 5
     assert all(np.isfinite(h["loss"]) for h in hist)
     assert bool(torch.isfinite(state.params).all())
+
+
+@pytest.mark.parametrize("n,repr_", [(12, "dense"), (40, "sparse")])
+@pytest.mark.parametrize("sigma", [0.0, 0.01])
+def test_masked_rounds_are_bitwise_unmasked_through_the_gossip_kernels(cuda, n, repr_, sigma):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(n, 64, L)).astype(np.float32)
+    y = x[:, :, -1].copy()
+    counts = np.full(n, 64, np.int32)
+    runs = {}
+    for impl in ("allgather", "masked"):
+        trainer = GluADFL(LSTMModel(hidden=32).as_model(), adam(1e-3),
+                          FLConfig(num_nodes=n, inactive_ratio=0.3), mixer="kernel",
+                          gossip_impl=impl, gossip_repr=repr_, dp_noise_sigma=sigma)
+        before = dict(gossip_kernels.LAUNCHES)
+        _, hist, state = trainer.train(torch.Generator(device=cuda).manual_seed(2), x, y, counts,
+                                       batch_size=16, rounds=4)
+        ran = {k: v - before[k] for k, v in gossip_kernels.LAUNCHES.items() if v != before[k]}
+        assert list(ran.values()) == [4], ran
+        runs[impl] = (hist, state)
+    (ha, a), (hb, b) = runs["allgather"], runs["masked"]
+    assert ha == hb and torch.equal(a.params, b.params)
+    assert all(torch.equal(a.opt_state[k], b.opt_state[k]) for k in a.opt_state)
+
+
+def test_personalized_cohort_is_served_with_a_bitwise_selfcheck(cuda):
+    from repro_torch.core import personalize, personalize_loop
+    from repro_torch.utils.rng import draw_personalize
+
+    lstm = LSTMModel(hidden=128)
+    sv = GlucoseServable(lstm.as_model(), lstm.init(torch.Generator().manual_seed(0)),
+                         buckets=(1, 4, 16), personalize_steps=10)
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(4, 24, L)).astype(np.float32)
+    y = x[:, :, -1].copy()
+    counts = np.array([24, 12, 3, 1])
+    params = sv.personalize(["a", "b", "c", "d"], x, y, counts,
+                            generator=torch.Generator(device=cuda).manual_seed(3))
+    assert sv.num_rows == 5 and params["wh"].shape == (4, 128, 512)
+    assert bool(torch.isfinite(sv.personalize_losses).all())
+    windows = rng.normal(size=(37, L)).astype(np.float32)
+    reqs = [Request(rid=i, patient=i % 5, window=w) for i, w in enumerate(windows)]
+    before = lstm_cell.LAUNCHES
+    preds = replay(sv, MicroBatcher(sv.buckets), reqs)
+    assert lstm_cell.LAUNCHES > before
+    assert selfcheck(sv, reqs, preds) == 0
+    idx = draw_personalize(torch.Generator(device=cuda).manual_seed(4), [12], 24, 10, 32)[0]
+    one = personalize(sv.model, sv.optimizer, sv.population, idx, x[1], y[1])
+    loop = personalize_loop(sv.model, sv.optimizer, sv.population, idx, x[1], y[1])
+    assert all(torch.equal(one[k], loop[k]) for k in one)
 
 
 def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):

@@ -1,8 +1,9 @@
 """The port's serving slice against the JAX package's: checkpoint
 loading (the committed H=8 checkpoint and an H=128 one written by the
 JAX launcher), forecasts within ``atol=1e-5`` of the JAX servable's, the
-bitwise padding/batching contract on the CPU path, the MicroBatcher
-policy step for step under one fake clock, and the CLI.
+bitwise padding/batching contract on the CPU path, the param store's
+personalized rows, the MicroBatcher policy step for step under one fake
+clock, and the CLI (with a personalized cohort).
 
 The forecasts differ from JAX's only in fp32 summation order (~1e-7
 over 12 recurrent steps), hence ``atol=1e-5``.  Everything runs with
@@ -151,15 +152,32 @@ def test_warmup_launches_exactly_the_buckets(servable):
     assert servable.compiled_buckets == set(servable.buckets)
 
 
-def test_store_rows_and_personalize_pending(servable):
+def test_store_rows_of_personalized_patients(servable):
+    """A personalized cohort's rows join the store under their names;
+    the population keeps row 0 and unknown names fall back to it."""
     assert servable.num_rows == 1
     assert servable.row_of_or_population("never-seen") == 0
     with pytest.raises(KeyError):
         servable.row_of("never-seen")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        servable.personalize(["a"], None, None, None, None)
     with pytest.raises(ValueError, match="batch_mode"):
         GlucoseServable(servable.model, servable.population, batch_mode="scan", device="cpu")
+    sv = GlucoseServable(servable.model, servable.population, buckets=(1, 4),
+                         personalize_steps=5, device="cpu")
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(2, 10, L)).astype(np.float32)
+    y = x[:, :, -1].copy()
+    params = sv.personalize(["new-a", "new-b"], x, y, np.array([10, 4]),
+                            generator=torch.Generator().manual_seed(0))
+    assert sv.num_rows == 3 and sv.row_of("new-a") == 1 and sv.row_of("new-b") == 2
+    assert sv.row_of_or_population("new-b") == 2
+    assert all(torch.equal(sv.population[k], servable.population[k]) for k in params)
+    windows = _windows(3, seed=13)
+    served = sv.forecast_rows([1, 2, 0], windows)
+    for i, row in enumerate((0, 1)):
+        direct = sv.model.apply({k: v[row] for k, v in params.items()},
+                                torch.from_numpy(windows[i : i + 1]))
+        assert torch.equal(served[i : i + 1], direct)
+    assert torch.equal(served[2:], sv.model.apply(sv.population, torch.from_numpy(windows[2:])))
 
 
 # ------------------------------------------------------------------- (g)
@@ -235,10 +253,12 @@ def test_launcher_serves_fresh_init_population():
     assert "hidden=16" in out.stdout and "9/9 served" in out.stdout
 
 
-def test_launcher_personalize_exits_nonzero():
-    out = _cli("--device", "cpu", "--personalize", "1")
-    assert out.returncode != 0
-    assert "not ported" in out.stderr
+def test_launcher_personalize_selfcheck_passes_on_cpu():
+    out = _cli("--device", "cpu", "--personalize", "2", "--selfcheck", "--requests", "64",
+               "--steps", "10")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "personalized 2 cold-start patients (10 steps on <= 24 windows each)" in out.stdout
+    assert "64/64 served forecasts bitwise-match" in out.stdout
 
 
 # ------------------------------------------------------------------- (i)

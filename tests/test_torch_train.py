@@ -47,6 +47,7 @@ from repro.optim import get_optimizer as jax_get_optimizer
 from repro.serve.servable import load_population as jax_load_population
 from repro_torch.config import ExperimentConfig, FLConfig, apply_overrides
 from repro_torch.core import GluADFL
+from repro_torch.core.gluadfl import mse_value_and_grad
 from repro_torch.launch import train as train_cli
 from repro_torch.metrics import all_metrics
 from repro_torch.models import LSTMModel
@@ -272,9 +273,9 @@ def test_draw_round_shapes_ranges_and_seeding():
 
 
 def test_loss_and_grads_match_jax_grad():
-    """The trainer's per-node loss and gradient through
-    ``LSTMModel.apply_nodes`` against ``jax.value_and_grad`` of the JAX
-    model's MSE, node by node (atol 1e-6: fp32 summation order)."""
+    """The trainer's per-node loss and gradient (``mse_value_and_grad``
+    through ``LSTMModel.apply_nodes``) against ``jax.value_and_grad`` of
+    the JAX model's MSE, node by node (atol 1e-6: fp32 summation order)."""
     n = 3
     x, y, _ = _data(n, seed=7, m=BATCH)
     jm = JaxLSTM(hidden=H)
@@ -283,7 +284,8 @@ def test_loss_and_grads_match_jax_grad():
     stacked = {k: np.stack([np.asarray(r[k]) for r in rows]) for k in rows[0]}
     _, tt = _pair(n, "sgd")
     state = tt.state_from_params(stacked)
-    losses, grads = tt._value_and_grad(state.params, torch.from_numpy(x), torch.from_numpy(y))
+    losses, grads = mse_value_and_grad(tt.model, tt.layout, state.params, torch.from_numpy(x),
+                                       torch.from_numpy(y))
     assert not grads.requires_grad and grads.shape == state.params.shape
 
     def loss_fn(p, bx, by):
@@ -358,11 +360,28 @@ def test_cli_engine_and_chunk_flags_set_the_sync_interval(argv, chunk, monkeypat
 
 @pytest.mark.parametrize("argv", [["--sweep-ratios", "0,0.5"], ["--num-processes=2"],
                                   ["--use-kernel"], ["--mixer", "sharded"],
-                                  ["--gossip-impl", "psum"], ["--gossip-impl", "masked"],
-                                  ["--gossip-impl", "gather"]])
+                                  ["--gossip-impl", "psum"], ["--gossip-impl", "gather"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert train_cli.main(["--device", "cpu", *argv]) == 2
     assert "not ported" in capsys.readouterr().err
+
+
+def test_cli_gossip_impl_masked_trains_bitwise_like_allgather(tmp_path, capsys):
+    """``--gossip-impl masked`` draws its masks apart from the round's
+    draws and cancels them exactly: the same history and the same
+    checkpoint, bit for bit, as ``allgather``."""
+    runs = {}
+    for impl in ("allgather", "masked", "auto"):
+        runs[impl] = train_cli.run(["--device", "cpu", "--fast-data", "--rounds", "3", "--hidden",
+                                    "8", "--gossip-impl", impl, "--out", str(tmp_path / impl)])
+        out = capsys.readouterr().out
+        assert f"gossip-impl {'allgather' if impl == 'auto' else impl}" in out
+    assert "gossip-impl auto -> allgather" in out
+    assert runs["masked"].trainer.plan.masked
+    for impl in ("masked", "auto"):
+        assert runs[impl].history == runs["allgather"].history
+        a, b = (np.load(runs[k].checkpoint)["vec"] for k in ("allgather", impl))
+        assert a.tobytes() == b.tobytes()
 
 
 def test_no_gpu_means_cpu_must_be_asked_for(monkeypatch):
