@@ -18,7 +18,9 @@ Phases, each printing one JSON line:
                 cp.async, streamed); a row's output bitwise independent
                 of the batch it was launched in (row 5 of a G=64 launch,
                 and rows at row-tile edges of the (1, 2034) eval launch,
-                against their own R=1 launches);
+                against their own R=1 launches; a middle group of the
+                sweep's (15, 2034) eval launch against its own G=1
+                launch);
   4. serve    — the main path at full width: the REPLACE-BG fast twin
                 (N=226 patients), an H=128 population from a seeded
                 ``torch.Generator``, buckets 1,4,16,64, 4096 requests
@@ -164,6 +166,36 @@ Phases, each printing one JSON line:
                 valid slot of a row with >= 2 of them puts its raw row
                 on the wire, and the books balance within 1e-5 of the
                 sparse mix;
+ 19. sweep    — the scenario-sweep engine (``GluADFL.train_sweep``, tree
+                mixer): (a) the paper's Fig-5 grid (ring, cluster,
+                random x inactive 0, 0.3, 0.5, 0.7, 0.9, seed 0: G=15)
+                on the REPLACE-BG fast twin (N=226, sparse) at H=128,
+                Adam 1e-3, batch 64, 32 rounds in chunks of 16, eval
+                every 16: one ``lstm_forward`` launch (G=15 groups) per
+                eval and no gossip kernel launch, finite losses, the
+                last 8 rounds' mean loss below the first 8's at every
+                ratio <= 0.7, the val records within 1e-5 of the plain
+                twin on the same populations, and ring@0.3, cluster@0
+                and random@0.7 within 1e-5 of their serial ``train()``
+                runs (losses, val records, population; bitwise or not,
+                reported); (b) the CLI, ``--sweep-ratios 0,0.3,0.7
+                --sweep-seeds 2`` for 16 rounds: 6 summary records
+                with the JAX launcher's keys and 226 prediction
+                launches (one per patient over the 6 populations); (c)
+                OhioT1DM (N=12, dense) with every axis armed (3
+                topologies x 0.3, 0.7 x bernoulli, markov x skews 0,
+                0.5 x DP sigma 0.01, 0.05: G=48) for 16 rounds, one
+                scenario engaging all three axes within 1e-5 of its
+                serial twin; (d) ``gossip_impl="masked"`` sweeps
+                bitwise the unmasked ones over 4 rounds (REPLACE-BG,
+                ring, cluster, random x 0.3: G=3, with peak memory;
+                and the OhioT1DM G=48 grid); (e) scenario-rounds/s of
+                the G=15 grid over a 16-round chunk, in turns with one
+                serial scenario's rounds/s on the tree and the kernel
+                mixer, peak memory, the device busy share and span
+                split of a profiled 4-round swept chunk, and
+                ``lstm_forward`` at the sweep's eval shape (G=15,
+                R=2034) timed as phase 6 times the others;
 
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -204,11 +236,15 @@ BF16_OPS_PER_S = 989e12  # dense, tensor cores
 # ``lstm_cell._plan`` at its edges: a ragged last row tile (R = 8 + 1)
 # with weights in registers, the largest H a cluster of 8 holds
 # (cp.async, H % 4 != 0), the first H that streams, and a cp.async
-# slice with L=1, I=3
+# slice with L=1, I=3; last, the sweep's eval: the Fig-5 grid's 15
+# populations over the REPLACE-BG val windows
+SWEEP_EVAL = (15, 2034, 12, 1, 128)
+SWEEP_EVAL_GROUP = 7  # a middle group, held bitwise against its own G=1 launch
 CASES = [(1, 1, 12, 1, 8), (37, 1, 12, 1, 32), (64, 1, 12, 1, 128),
          (64, 1, 12, 1, 256), (5, 3, 1, 3, 16),
          (1, 2034, 12, 1, 128), (1, 2040, 12, 1, 128), (1, 329, 12, 1, 128),
-         (37, 9, 12, 1, 128), (3, 9, 12, 1, 312), (2, 3, 12, 1, 313), (4, 9, 1, 3, 30)]
+         (37, 9, 12, 1, 128), (3, 9, 12, 1, 312), (2, 3, 12, 1, 313), (4, 9, 1, 3, 30),
+         SWEEP_EVAL]
 # rows of the (1, 2034) eval launch held bitwise against their own R=1
 # launches: both edges of the first, a middle and the last (ragged) tile
 TILE_ROWS = (0, 7, 8, 9, 1015, 1016, 2031, 2032, 2033)
@@ -233,6 +269,20 @@ PERSONALIZE_WINDOWS = 24
 # the card cuBLAS may pick another bmm at batch 1 than at batch 32
 PERSONALIZE_ROW_TOL = 1e-6
 MASKED_ROUNDS = 8
+# phase 19: the Fig-5 grid's run, its serial twins (topology, ratio; seed
+# 0), the CLI's grid, the all-axes OhioT1DM grid and its serial twin
+SWEEP_ROUNDS, SWEEP_CHUNK, SWEEP_EVAL_EVERY = 32, 16, 16
+SWEEP_SERIAL = (("ring", 0.3), ("cluster", 0.0), ("random", 0.7))
+SWEEP_TOL = 1e-5
+SWEEP_CLI = ["--dataset", "replace-bg", "--fast-data", "--topology", "random",
+             "--sweep-ratios", "0,0.3,0.7", "--sweep-seeds", "2", "--rounds", "16"]
+SWEEP_AXES = dict(schedules=("bernoulli", "markov"), skews=(0.0, 0.5), dp_sigmas=(0.01, 0.05))
+SWEEP_AXES_RATIOS = (0.3, 0.7)
+SWEEP_AXES_TWIN = ("cluster", 0.7, "markov", 0.5, 0.05, 0)
+SWEEP_SHORT = 16  # rounds of the CLI's and the axes' runs, and of a timed chunk
+SWEEP_MASKED_ROUNDS = 4
+SWEEP_PROFILED_ROUNDS = 4
+DEV = "cuda"
 WIRES_NODES = 37
 # the wires' books: fp32 sums of <= 8 weighted rows, each a raw row plus
 # <= 7 signed unit-normal masks, against the plain sparse mix
@@ -637,6 +687,256 @@ def span_breakdown(prof, spans=SPANS) -> tuple[dict[str, float], dict[str, float
     return busy, gemm, sum(busy.values()), len(work)
 
 
+def sweep_phase(feds, card: str, flush: torch.Tensor, errs: list) -> dict:
+    """Phase 19, the scenario-sweep engine; returns the ``lstm_forward``
+    row's fields for the sweep's eval (its launches on the main path,
+    its times at the (15, 2034) shape)."""
+    from repro_torch.config import FLConfig, SweepConfig
+    from repro_torch.core import GluADFL, SweepGrid, choose_gossip_repr
+    from repro_torch.kernels import lstm_cell
+    from repro_torch.kernels.ref import lstm_forward_plain
+    from repro_torch.launch.train import run as train_run
+    from repro_torch.launch.train import val_windows
+    from repro_torch.metrics import all_metrics
+    from repro_torch.models import LSTMModel
+    from repro_torch.optim import get_optimizer
+
+    def trainer(n, *, topology="random", ratio=0.0, mixer="tree", impl="allgather", sigma=0.0,
+                **fl):
+        return GluADFL(LSTMModel(hidden=128).as_model(), get_optimizer("adam", 1e-3),
+                       FLConfig(topology=topology, num_nodes=n, inactive_ratio=ratio, **fl),
+                       mixer=mixer, gossip_impl=impl,
+                       gossip_repr=choose_gossip_repr(n, COMM_BATCH), dp_noise_sigma=sigma,
+                       device=DEV)
+
+    def sync():
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+
+    start = {}
+
+    def reset_peak():
+        sync()
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            start["bytes"] = torch.cuda.memory_allocated()
+
+    def peak_gb():
+        """The peak since :func:`reset_peak`, and how far it rose above
+        what earlier phases still held then, in GB."""
+        if DEV != "cuda":
+            return None
+        peak = torch.cuda.max_memory_allocated()
+        return {"peak": peak / 1e9, "added": (peak - start["bytes"]) / 1e9}
+
+    def against_serial(data, pops, hists, states, g, twin, rounds, **kw):
+        """Scenario g of a sweep against its serial run from a generator
+        seeded with its seed (0): the largest loss, val and population
+        differences, and whether the params and the history are bitwise
+        the scenario's (a static topology's serial run mixes over its
+        candidates' shorter table, so its sums may differ in the last
+        bit)."""
+        pop, hist, state = twin.train(torch.Generator(device=DEV).manual_seed(0), data.x, data.y,
+                                      data.counts, batch_size=64, rounds=rounds, **kw)
+        loss = max(abs(a["loss"] - b["loss"]) for a, b in zip(hist, hists[g]))
+        val = max((abs(a["val_rmse"] - b["val_rmse"]) for a, b in zip(hist, hists[g])
+                   if "val_rmse" in a), default=0.0)
+        population = max(float((pop[k] - pops[k][g]).abs().max()) for k in pop)
+        return dict(loss_max_abs_diff=loss, val_rmse_max_abs_diff=val,
+                    population_max_abs_diff=population,
+                    params_max_abs_diff=float((state.params - states.params[g]).abs().max()),
+                    params_bitwise=torch.equal(state.params, states.params[g]),
+                    history_bitwise=hist == hists[g])
+
+    # (a) the Fig-5 grid through the API (the main path) ---------------------
+    fed = feds["replace-bg"]
+    n = fed.num_nodes
+    fig5 = SweepConfig()
+    grid = SweepGrid.build(fig5.topologies, fig5.inactive_ratios, fig5.seed_list(), num_nodes=n)
+    vx, vy = val_windows(fed)
+    swept = trainer(n)
+    reset_peak()
+    reset_launches()
+    t0 = time.perf_counter()
+    pops, hists, states = swept.train_sweep(fed.x, fed.y, fed.counts, grid=grid, batch_size=64,
+                                            rounds=SWEEP_ROUNDS, chunk=SWEEP_CHUNK,
+                                            eval_every=SWEEP_EVAL_EVERY, val_data=(vx, vy))
+    sync()
+    run_s = time.perf_counter() - t0
+    counts = launches()
+    evals = SWEEP_ROUNDS // SWEEP_EVAL_EVERY
+    require(counts["lstm_forward"] == evals and sum(counts.values()) == evals,
+            f"Fig-5 sweep: launches {counts}, want {evals} of lstm_forward and no gossip kernel")
+    run_peak = peak_gb()
+    losses = np.array([[h["loss"] for h in hist] for hist in hists])
+    require(losses.shape == (grid.size, SWEEP_ROUNDS) and np.isfinite(losses).all(),
+            "Fig-5 sweep: losses")
+    first, last = losses[:, :8].mean(axis=1), losses[:, -8:].mean(axis=1)
+    names = [f"{lab[0]}@{lab[1]}" for lab in grid.labels]
+    slow = [names[g] for g in range(grid.size)
+            if grid.labels[g][1] <= 0.7 and last[g] >= first[g]]
+    require(not slow, f"Fig-5 sweep: the loss did not fall in {slow}")
+    xs = torch.as_tensor(vx, device=DEV)[None, :, :, None].expand(grid.size, -1, -1, -1)
+    plain = lstm_forward_plain(xs.contiguous(), *(pops[k].contiguous()
+                                                  for k in ("wx", "wh", "b", "w_out", "b_out")))
+    plain_rmse = torch.sqrt(torch.mean(torch.square(plain - torch.as_tensor(vy, device=DEV)),
+                                       dim=1)).tolist()
+    val_err = max(abs(plain_rmse[g] - hists[g][-1]["val_rmse"]) for g in range(grid.size))
+    require(val_err <= TOL, f"Fig-5 sweep: val RMSE records vs the plain twin: {val_err}")
+    errs.append(val_err)
+    serial = {}
+    for topo, ratio in SWEEP_SERIAL:
+        g = grid.labels.index((topo, ratio, 0))
+        serial[names[g]] = cmp = against_serial(
+            fed, pops, hists, states, g, trainer(n, topology=topo, ratio=ratio), SWEEP_ROUNDS,
+            chunk=SWEEP_CHUNK, eval_every=SWEEP_EVAL_EVERY, val_data=(vx, vy))
+        require(max(cmp["loss_max_abs_diff"], cmp["val_rmse_max_abs_diff"],
+                    cmp["population_max_abs_diff"]) <= SWEEP_TOL,
+                f"Fig-5 sweep: {names[g]} vs its serial run: {cmp}")
+    emit("sweep", dataset=fed.name, nodes=n, hidden=128, scenarios=grid.size,
+         gossip_repr=swept.plan.gossip_repr, rounds=SWEEP_ROUNDS, chunk=SWEEP_CHUNK,
+         launches=counts, scenario_rounds_per_s_whole_run=grid.size * SWEEP_ROUNDS / run_s,
+         memory_gb=run_peak, loss_first8=dict(zip(names, first.tolist())),
+         loss_last8=dict(zip(names, last.tolist())), val_rmse_vs_plain_max_abs_err=val_err,
+         serial=serial, tol=SWEEP_TOL, nvidia_smi=card)
+
+    # (b) the CLI -----------------------------------------------------------
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = train_run([*SWEEP_CLI, "--hidden", "128", "--device", DEV,
+                         "--out", str(ROOT / "build" / "chip_smoke")])
+    cli_counts = launches()
+    records = json.loads(run.checkpoint.read_text())
+    keys = {"topology", "inactive_ratio", "schedule", "skew", "dp_sigma", "seed", "final_loss",
+            *all_metrics(np.array([100.0, 120.0]), np.array([110.0, 118.0]))}
+    require(len(records) == 6 and all(set(r) == keys for r in records),
+            f"sweep CLI: {len(records)} records, keys {[sorted(r) for r in records[:1]]}")
+    require(all(math.isfinite(r["final_loss"]) and math.isfinite(r["rmse"]) for r in records),
+            "sweep CLI: non-finite records")
+    require(cli_counts["lstm_forward"] == n and sum(cli_counts.values()) == n,
+            f"sweep CLI: launches {cli_counts}, want {n} lstm_forward (one per patient)")
+    emit("sweep_cli", argv=SWEEP_CLI, records=len(records), launches=cli_counts,
+         summary=[{k: r[k] for k in ("inactive_ratio", "seed", "final_loss", "rmse", "mard")}
+                  for r in records], seconds=run.seconds)
+
+    # (c) OhioT1DM with every axis armed -------------------------------------
+    ohio = feds["ohiot1dm"]
+    grid48 = SweepGrid.build(fig5.topologies, SWEEP_AXES_RATIOS, (0,),
+                             num_nodes=ohio.num_nodes, **SWEEP_AXES)
+    axes_trainer = trainer(ohio.num_nodes)
+    t0 = time.perf_counter()
+    pops48, hists48, states48 = axes_trainer.train_sweep(
+        ohio.x, ohio.y, ohio.counts, grid=grid48, batch_size=64, rounds=SWEEP_SHORT)
+    sync()
+    axes_s = time.perf_counter() - t0
+    require(grid48.size == 48 and all(math.isfinite(h["loss"]) for hist in hists48 for h in hist),
+            "all-axes sweep: losses")
+    topo, ratio, sched, skew, sigma, _ = SWEEP_AXES_TWIN
+    twin = against_serial(ohio, pops48, hists48, states48, grid48.labels.index(SWEEP_AXES_TWIN),
+                          trainer(ohio.num_nodes, topology=topo, ratio=ratio, sigma=sigma,
+                                  schedule=sched, data_skew=skew), SWEEP_SHORT)
+    require(max(twin["loss_max_abs_diff"], twin["population_max_abs_diff"]) <= SWEEP_TOL,
+            f"all-axes sweep: {SWEEP_AXES_TWIN} vs its serial twin: {twin}")
+    emit("sweep_axes", dataset=ohio.name, nodes=ohio.num_nodes, scenarios=grid48.size,
+         gossip_repr=axes_trainer.plan.gossip_repr, rounds=SWEEP_SHORT,
+         scenario_rounds_per_s=grid48.size * SWEEP_SHORT / axes_s, twin=SWEEP_AXES_TWIN,
+         vs_serial=twin, tol=SWEEP_TOL)
+
+    # (d) masked sweeps, bitwise the unmasked ones ---------------------------
+    grid3 = SweepGrid.build(fig5.topologies, (0.3,), (0,), num_nodes=n)
+    for data, masked_grid in ((fed, grid3), (ohio, grid48)):
+        runs = {}
+        for impl in ("allgather", "masked"):
+            reset_peak()
+            reset_launches()
+            _, h, st = trainer(data.num_nodes, impl=impl).train_sweep(
+                data.x, data.y, data.counts, grid=masked_grid, batch_size=64,
+                rounds=SWEEP_MASKED_ROUNDS)
+            sync()
+            require(sum(launches().values()) == 0, f"masked sweep {data.name}: a kernel ran")
+            runs[impl] = (h, st, peak_gb())
+        (ha, a, peak_a), (hb, b, peak_b) = runs["allgather"], runs["masked"]
+        require(ha == hb and torch.equal(a.params, b.params) and
+                all(torch.equal(a.opt_state[k], b.opt_state[k]) for k in a.opt_state),
+                f"masked sweep {data.name}: not bitwise the unmasked sweep")
+        emit("sweep_masked", dataset=data.name, nodes=data.num_nodes, scenarios=masked_grid.size,
+             rounds=SWEEP_MASKED_ROUNDS, bitwise_params_opt_state_history=True,
+             memory_gb_unmasked=peak_a, memory_gb_masked=peak_b)
+
+    # (e) the swept chunk in turns with one scenario's serial chunk ----------
+    gens = [torch.Generator(device=DEV).manual_seed(100 + s) for s in range(grid.size)]
+    serial_runs = {}
+    for mixer in ("tree", "kernel"):
+        tr = trainer(n, topology="random", ratio=0.3, mixer=mixer)
+        gen = torch.Generator(device=DEV).manual_seed(7)
+        serial_runs[mixer] = (tr, gen, tr.train(gen, fed.x, fed.y, fed.counts, batch_size=64,
+                                                rounds=2)[2])
+
+    def sweep_chunk(rounds=SWEEP_SHORT):
+        nonlocal states
+        _, _, states = swept.train_sweep(fed.x, fed.y, fed.counts, grid=grid, generators=gens,
+                                         batch_size=64, rounds=rounds, chunk=rounds,
+                                         states=states)
+
+    def serial_chunk(mixer):
+        tr, gen, state = serial_runs[mixer]
+        state = tr.train(gen, fed.x, fed.y, fed.counts, batch_size=64, rounds=SWEEP_SHORT,
+                         chunk=SWEEP_SHORT, state=state)[2]
+        serial_runs[mixer] = (tr, gen, state)
+
+    walls = {"sweep": [], "tree": [], "kernel": []}
+    reset_peak()
+    for key in ("sweep", "tree", "kernel", "kernel", "tree", "sweep"):
+        sync()
+        t0 = time.perf_counter()
+        sweep_chunk() if key == "sweep" else serial_chunk(key)
+        sync()
+        walls[key].append(time.perf_counter() - t0)
+    timed_peak = peak_gb()
+    profile = {}
+    if DEV == "cuda":
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            sweep_chunk(SWEEP_PROFILED_ROUNDS)
+            sync()
+        by_span, gemm_by_span, busy_ms, items = span_breakdown(prof)
+        require(by_span["round.local_step"] > 0, f"the profile saw no local-step work: {by_span}")
+        per_round = {k: v / SWEEP_PROFILED_ROUNDS for k, v in by_span.items()}
+        round_wall_ms = statistics.median(walls["sweep"]) * 1e3 / SWEEP_SHORT
+        profile = dict(device_ms_per_round=busy_ms / SWEEP_PROFILED_ROUNDS,
+                       wall_ms_per_round=round_wall_ms,
+                       device_busy_share=busy_ms / SWEEP_PROFILED_ROUNDS / round_wall_ms,
+                       device_ms_by_span_per_round=per_round,
+                       gemm_device_ms_by_span_per_round={
+                           k: v / SWEEP_PROFILED_ROUNDS for k, v in gemm_by_span.items()},
+                       device_items_per_round=items / SWEEP_PROFILED_ROUNDS)
+    emit("sweep_timing", scenarios=grid.size, rounds=SWEEP_SHORT,
+         order="sweep, tree, kernel, kernel, tree, sweep",
+         scenario_rounds_per_s=[grid.size * SWEEP_SHORT / w for w in walls["sweep"]],
+         serial_rounds_per_s_tree=[SWEEP_SHORT / w for w in walls["tree"]],
+         serial_rounds_per_s_kernel=[SWEEP_SHORT / w for w in walls["kernel"]],
+         memory_gb=timed_peak, **profile, nvidia_smi=card)
+
+    # the sweep's eval launch at its shape, timed as phase 6 times the others
+    args = random_inputs(torch.Generator().manual_seed(19), *SWEEP_EVAL)
+    library = cudnn_lstm(*(t[0] for t in args[1:]))
+    windows = args[0].reshape(-1, *args[0].shape[2:])  # the 15 x 2034 windows, one weight set
+    nbytes, ops = lstm_forward_cost(*args)
+    bound_ms, bound_by = bound(nbytes, ops)
+    ms = time_ms(lambda: lstm_cell.lstm_forward(*args), 200)
+    timing = dict(ms=ms, ms_l2_flushed=time_ms(lambda: lstm_cell.lstm_forward(*args), 200, flush),
+                  bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+                  plain_ms=time_ms(lambda: lstm_forward_plain(*args), 10),
+                  library_ms=time_ms(lambda: library(windows), 100),
+                  library="torch.nn.LSTM (cuDNN) + nn.Linear over the 15 x 2034 windows",
+                  bytes=nbytes, ops=ops, plan=lstm_cell._plan(*SWEEP_EVAL)._asdict())
+    emit("timing", shape=dict(zip("GRLIH", SWEEP_EVAL)), **timing)
+    return dict(launches_sweep=counts["lstm_forward"], sweep_eval_ms=ms,
+                sweep_eval_bound_ms=bound_ms, sweep_eval_bound_share=timing["bound_share"],
+                sweep_eval_plain_ms=timing["plain_ms"],
+                sweep_eval_library_ms=timing["library_ms"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -698,6 +998,13 @@ def main() -> int:
             row5 = lstm_cell.lstm_forward(*(t[5:6] for t in inputs))
             bitwise = bool(torch.equal(row5[0], y[5]))
             require(bitwise, f"row 5 at G=64 differs from its G=1 launch: {case}")
+        group = None
+        if case == SWEEP_EVAL:
+            g = SWEEP_EVAL_GROUP
+            one = lstm_cell.lstm_forward(*(t[g:g + 1] for t in inputs))
+            require(torch.equal(one[0], y[g]), f"group {g} of the {case} launch differs from "
+                                               f"its G=1 launch")
+            group = g
         tiles = None
         if case == (1, 2034, 12, 1, 128):
             for r in TILE_ROWS:
@@ -706,7 +1013,8 @@ def main() -> int:
                         f"row {r} of the {case} launch differs from its R=1 launch")
             tiles = list(TILE_ROWS)
         emit("kernel", case=dict(zip("GRLIH", case)), plan=lstm_cell._plan(*case)._asdict(),
-             max_abs_err=err, row5_bitwise_vs_g1=bitwise, rows_bitwise_vs_r1=tiles)
+             max_abs_err=err, row5_bitwise_vs_g1=bitwise, rows_bitwise_vs_r1=tiles,
+             group_bitwise_vs_g1=group)
 
     # 4. full-width serve (the main path) --------------------------------
     fed = load_federated_dataset("replace-bg", fast=True)
@@ -1555,13 +1863,16 @@ def main() -> int:
     emit("wires", nodes=WIRES_NODES, cols=d_main, active=int(act.sum()),
          masked_slots=int(guarded.sum()), raw_on_wire=0, books_max_abs_err=books, tol=WIRES_TOL)
 
+    # 19. the scenario-sweep engine ----------------------------------------
+    sweep_row = sweep_phase(feds, card, flush, errs)
+
     sources = "src/repro_torch/kernels/csrc/"
     rows = [{
         "name": "lstm_forward", "route": "cuda",
         "source": sources + "lstm_forward.cu",
         "replaces": "src/repro/kernels/lstm_cell.py:51",
         "launches": launches_serve, "launches_personalize": launches_personalize["lstm_forward"],
-        "max_abs_err": max(errs), **lstm_row,
+        "max_abs_err": max(errs), **lstm_row, **sweep_row,
     }]
     path_launches = {"gossip_mix": trained["ohiot1dm"][1]["gossip_mix"],
                      "gossip_mix_sparse": trained["replace-bg"][1]["gossip_mix_sparse"],

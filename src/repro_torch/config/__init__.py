@@ -6,6 +6,7 @@ from repro_torch.config.base import (
     DataConfig,
     ExperimentConfig,
     FLConfig,
+    SweepConfig,
     TrainConfig,
     apply_overrides,
     get_arch_config,

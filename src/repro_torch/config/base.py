@@ -1,7 +1,6 @@
 """Typed configs, the architecture registry and ``a.b=c`` overrides (a
-copy of ``repro.config.base``; ``SweepConfig`` waits for the sweep
-engine).  Same fields, same defaults, same coercion from the dataclass
-annotation.
+copy of ``repro.config.base``).  Same fields, same defaults, same
+coercion from the dataclass annotation.
 
 Every assigned architecture registers an :class:`ArchConfig` under its
 id (``--arch <id>``) in ``repro_torch.configs``, so ``list_archs()``
@@ -192,6 +191,29 @@ class FLConfig:
     data_skew: float = 0.0            # non-IID per-node mg/dL shift strength
     cluster_size: int = 4
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class SweepConfig:
+    """The scenario grid :meth:`repro_torch.core.GluADFL.train_sweep`
+    batches into one program; the defaults are the paper's Fig-5 grid
+    (3 topologies x 5 inactive ratios, seed 0).  ``seeds`` is a count:
+    seeds ``0..seeds-1`` each become a scenario replica.
+
+    The optional axes (``schedules``, ``skews``, ``dp_sigmas``) extend
+    the cross product with Markov-sticky staleness, non-IID data skew
+    and DP noise levels; their defaults leave the grid the classic
+    3-axis one (3-tuple labels)."""
+
+    topologies: tuple = ("ring", "cluster", "random")
+    inactive_ratios: tuple = (0.0, 0.3, 0.5, 0.7, 0.9)
+    seeds: int = 1
+    schedules: tuple = ()             # e.g. ("bernoulli", "markov")
+    skews: tuple = ()                 # e.g. (0.0, 0.5, 1.0), mg/dL-shift strengths
+    dp_sigmas: tuple = ()             # e.g. (0.0, 0.01, 0.05), gossip DP sigma
+
+    def seed_list(self) -> tuple:
+        return tuple(range(self.seeds))
 
 
 @dataclass(frozen=True)

@@ -1,13 +1,23 @@
 """GluADFL's federated core (the single-process counterpart of
 ``repro.core``): the trainer, participation schedules, topologies,
 gossip mixing, the resolved gossip plan (with pairwise-masked secure
-aggregation, ``core.secure_agg``) and cold-start personalization."""
-from repro_torch.core.gluadfl import DEFAULT_CHUNK, FLState, GluADFL
+aggregation, ``core.secure_agg``), the scenario-sweep engine
+(``SweepGrid``, ``GluADFL.train_sweep``) and cold-start
+personalization."""
+from repro_torch.config import SweepConfig
+from repro_torch.core.async_sched import sweep_active_masks
+from repro_torch.core.gluadfl import DEFAULT_CHUNK, FLState, GluADFL, SweepGrid
 from repro_torch.core.gossip_plan import (
     GossipPlanError,
     choose_gossip_impl,
     choose_gossip_repr,
     resolve_gossip_plan,
+)
+from repro_torch.core.topology import (
+    mixing_matrix_stacked,
+    spectral_gap,
+    stacked_adjacency,
+    stacked_neighbor_table,
 )
 from repro_torch.core.personalize import (
     personalize,

@@ -45,14 +45,28 @@ an active profiler a span costs a few microseconds of host time.
 by default a generator seeded from ``cfg.seed`` and the mask stream's
 tag, never from the round's draws, so a masked run is bitwise its
 unmasked twin.
-Not ported yet: the sweep engine, the sharded mixer and multi-host
-runs (``core.gossip_plan`` refuses their knobs), custom loss and eval
+The scenario-sweep engine (:meth:`GluADFL.train_sweep`) trains the
+G scenarios of a :class:`SweepGrid` (the paper's Fig-4/Fig-5 grids of
+topology x inactive ratio x seed, with optional schedule, data-skew and
+DP-sigma axes) as one federation of G·N rows: row ``g·N + n`` of the
+flat ``(G·N, D)`` buffer is node n of scenario g, so each swept round is
+one round's launches for the whole grid.  The per-scenario knobs are
+tensors with a leading G; the gossip mixes each scenario's block alone
+(``GossipPlan.sweep_gossip``, the tree mixer only, as in the JAX
+package); the local step runs over all G·N rows at once; every
+scenario's population is evaluated in one ``lstm_forward`` launch with
+G groups (``apply_groups``).  Scenario g draws from its own generator,
+seeded with its seed, in the order a serial :meth:`GluADFL.train` with
+that seed draws, so it reproduces that serial run.
+
+Not ported yet: the sharded mixer and multi-host runs
+(``core.gossip_plan`` refuses their knobs), custom loss and eval
 functions.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -61,10 +75,16 @@ from torch.profiler import record_function
 from repro_torch.config import FLConfig
 from repro_torch.core.async_sched import bernoulli_active, markov_active, staleness_update
 from repro_torch.core.gossip_plan import resolve_gossip_plan
-from repro_torch.core.secure_agg import MaskSource, edge_mask_source, mask_generator
+from repro_torch.core.secure_agg import (
+    MaskSource,
+    edge_mask_source,
+    mask_generator,
+    sweep_mask_sources,
+)
 from repro_torch.core.topology import (
     neighbor_table_from_candidates,
     random_adjacency,
+    stacked_adjacency,
     static_adjacency,
 )
 from repro_torch.data.synth import node_skew_offsets
@@ -72,7 +92,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.base import Model
 from repro_torch.optim import Optimizer
 from repro_torch.utils.pytree import ParamLayout
-from repro_torch.utils.rng import RoundDraws, draw_round
+from repro_torch.utils.rng import RoundDraws, draw_round, draw_sweep
 
 # rounds between host syncs of the scan engine's losses and eval records
 DEFAULT_CHUNK = 32
@@ -80,10 +100,127 @@ DEFAULT_CHUNK = 32
 
 @dataclass
 class FLState:
-    params: torch.Tensor            # (N, D) float32, row n = node n
-    opt_state: dict                 # leaves (N, ...) or None
-    staleness: torch.Tensor         # (N,) float32
+    params: torch.Tensor            # (N, D) float32, row n = node n; a sweep's (G, N, D)
+    opt_state: dict                 # leaves (N, ...) or None; a sweep's (G, N, ...)
+    staleness: torch.Tensor         # (N,) float32; a sweep's (G, N)
     round: int
+
+    def reshaped(self, lead: tuple[int, ...]) -> "FLState":
+        """The same state with its node rows viewed under the leading
+        axes ``lead``: a sweep's (G, N) or its flat (G·N,)."""
+        old = self.staleness.dim()
+
+        def re(t):
+            return None if t is None else t.reshape(*lead, *t.shape[old:])
+        return FLState(re(self.params), {k: re(v) for k, v in self.opt_state.items()},
+                       re(self.staleness), self.round)
+
+
+@dataclass
+class SweepGrid:
+    """A batch of G training scenarios for :meth:`GluADFL.train_sweep`
+    (the counterpart of ``repro.core.SweepGrid``).
+
+      * ``adjacency``      (G, N, N) static adjacency per scenario (a
+                           zero placeholder where the graph is drawn
+                           each round), from ``topology.stacked_adjacency``;
+      * ``resample``       (G,) 1 where the topology draws its graph every
+                           round (``"random"``);
+      * ``inactive_ratio`` (G,) the Fig-5 asynchrony ratio;
+      * ``seeds``          scenario g's seed: its generator's seed, as the
+                           JAX grid's ``init_keys`` hold ``PRNGKey(seed)``;
+      * ``labels``         ``(topology, ratio, seed)`` for a classic grid,
+                           ``(topology, ratio, schedule, skew, dp_sigma,
+                           seed)`` once an optional axis is armed
+                           (:meth:`label_dict` reads both).
+
+    The optional axes are each None (unarmed) or a (G,) tensor:
+    ``markov`` (1 = Markov-sticky participation), ``skew`` (node i's
+    batches shifted by ``skew * node_skew_offsets(N)[i]``) and
+    ``dp_sigma`` (the local-DP sigma; the noise is drawn for every
+    scenario of a dp-armed grid)."""
+
+    adjacency: torch.Tensor
+    resample: torch.Tensor
+    inactive_ratio: torch.Tensor
+    seeds: tuple
+    labels: tuple
+    markov: torch.Tensor | None = None
+    skew: torch.Tensor | None = None
+    dp_sigma: torch.Tensor | None = None
+
+    @property
+    def size(self) -> int:
+        return len(self.labels)
+
+    def label_dict(self, g: int) -> dict:
+        """Scenario ``g``'s knobs as a dict, from a 3-tuple (classic) or
+        6-tuple (axis-armed) label."""
+        lab = self.labels[g]
+        if len(lab) == 3:
+            topo, ratio, seed = lab
+            sched, skew, dp = "bernoulli", 0.0, 0.0
+        else:
+            topo, ratio, sched, skew, dp, seed = lab
+        return {"topology": topo, "inactive_ratio": ratio, "schedule": sched, "skew": skew,
+                "dp_sigma": dp, "seed": seed}
+
+    @classmethod
+    def build(cls, topologies, inactive_ratios, seeds=(0,), *, num_nodes: int,
+              cluster_size: int = 4, schedules=None, skews=None, dp_sigmas=None) -> "SweepGrid":
+        """The cross product, topology-major, then ratio, then schedule,
+        skew and dp_sigma, seed innermost (the paper's Fig-5 layout:
+        ``build(("ring", "cluster", "random"), (0.0, 0.3, 0.5, 0.7,
+        0.9), num_nodes=N)``).  An optional axis left None stays out of
+        the product and the labels stay 3-tuples unless one is armed."""
+        sched_ax = tuple(str(v) for v in schedules) if schedules else None
+        if sched_ax is not None:
+            bad = [v for v in sched_ax if v not in ("bernoulli", "markov")]
+            if bad:
+                raise ValueError(f"unknown schedule(s) {bad!r}")
+        skew_ax = tuple(float(v) for v in skews) if skews else None
+        dp_ax = tuple(float(v) for v in dp_sigmas) if dp_sigmas else None
+        armed = any(ax is not None for ax in (sched_ax, skew_ax, dp_ax))
+        scenarios = [
+            (str(t), float(r), sc, sk, dp, int(seed))
+            for t in topologies
+            for r in inactive_ratios
+            for sc in (sched_ax or ("bernoulli",))
+            for sk in (skew_ax or (0.0,))
+            for dp in (dp_ax or (0.0,))
+            for seed in seeds
+        ]
+        if not scenarios:
+            raise ValueError("empty sweep grid")
+        adjacency, resample = stacked_adjacency([sc[0] for sc in scenarios], num_nodes,
+                                                cluster_size)
+
+        def column(i, fn=float):
+            return torch.tensor([fn(sc[i]) for sc in scenarios], dtype=torch.float32)
+        return cls(
+            adjacency=adjacency,
+            resample=resample,
+            inactive_ratio=column(1),
+            seeds=tuple(sc[5] for sc in scenarios),
+            labels=tuple(scenarios if armed else [(t, r, seed) for t, r, *_, seed in scenarios]),
+            markov=None if sched_ax is None else column(2, lambda v: v == "markov"),
+            skew=None if skew_ax is None else column(3),
+            dp_sigma=None if dp_ax is None else column(4),
+        )
+
+
+@dataclass
+class _Scenarios:
+    """A grid's per-scenario knobs on the trainer's device, as the swept
+    round reads them (None: that axis is off for every scenario)."""
+
+    adjacency: torch.Tensor          # (G, N, N)
+    resample: torch.Tensor           # (G,)
+    inactive_ratio: torch.Tensor     # (G,)
+    markov: torch.Tensor | None      # (G,)
+    sigma: torch.Tensor | None       # (G·N, 1) DP sigma of each row
+    shift: torch.Tensor | None       # (G·N,) data-skew shift of each row
+    mask_sources: Sequence[MaskSource] | None
 
 
 @dataclass
@@ -168,27 +305,40 @@ class GluADFL:
     # ------------------------------------------------------------------
     def state_from_params(self, stacked: dict) -> FLState:
         """A fresh federation state from stacked per-node params (leaves
-        ``(N, *shape)``, tensors or arrays): optimizer state at zero,
-        staleness 0, round 0."""
+        ``(N, *shape)``, or a sweep's ``(G, N, *shape)``; tensors or
+        arrays): optimizer state at zero, staleness 0, round 0, with the
+        params' leading axes."""
         leaves = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v, np.float32))
                   for k, v in stacked.items()}
-        params = self.layout.flatten(leaves).to(self.device)
+        first, shape = leaves[self.layout.names[0]], self.layout.shapes[0]
+        lead = tuple(first.shape[: first.dim() - len(shape)])
+        params = self.layout.flatten(
+            {k: leaves[k].reshape(-1, *s) for k, s in zip(self.layout.names, self.layout.shapes)}
+        ).to(self.device)
         n = self.cfg.num_nodes
-        if params.shape != (n, self.layout.dim):
+        if lead[-1:] != (n,) or len(lead) > 2:
             raise ValueError(f"params must stack {n} nodes of {self.layout.dim} values, "
-                             f"got {tuple(params.shape)}")
+                             f"got leading axes {lead} and {tuple(params.shape)} in all")
+        return self._fresh_state(params).reshaped(lead)
+
+    def _fresh_state(self, params: torch.Tensor) -> FLState:
         return FLState(
             params=params,
             opt_state=self.optimizer.init(params),
-            staleness=torch.zeros(n, device=self.device),
+            staleness=torch.zeros(params.shape[0], device=self.device),
             round=0,
         )
+
+    def _draw_params(self, generator: torch.Generator) -> torch.Tensor:
+        """Every node's params from ``generator``, node 0 first, as one
+        (N, D) buffer."""
+        rows = [self.model.init(generator, device=self.device) for _ in range(self.cfg.num_nodes)]
+        return self.layout.flatten({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
 
     def init(self, generator: torch.Generator) -> FLState:
         """Draw every node's params from ``generator``, node 0 first (the
         JAX package's scales; not its numbers)."""
-        rows = [self.model.init(generator, device=self.device) for _ in range(self.cfg.num_nodes)]
-        return self.state_from_params({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+        return self._fresh_state(self._draw_params(generator))
 
     def to_device(self, x, y, counts) -> FedTensors:
         """The federation's padded arrays as tensors on the device."""
@@ -208,22 +358,26 @@ class GluADFL:
         )
 
     # ------------------------------------------------------------------
-    def _local_step(self, premix, mixed, opt_state, data: FedTensors, batch_idx):
-        """``local_steps`` optimizer steps for every node: the first
+    def _local_step(self, premix, mixed, opt_state, data: FedTensors, batch_idx, shift=None):
+        """``local_steps`` optimizer steps for every row: the first
         gradient at the pre-mix (or mixed) params, applied to the mixed
-        ones; later steps are ordinary steps.  Returns the new params,
-        optimizer state and each node's mean loss."""
+        ones; later steps are ordinary steps.  Row r trains on node
+        ``r % N``'s data (a sweep's G·N rows share the N nodes'),
+        shifted by ``shift[r]`` when given.  Returns the new params,
+        optimizer state and each row's mean loss."""
         p_grad = premix if self.grad_at == "premix" else mixed
         p_apply, state = mixed, opt_state
-        seq = data.x.shape[2]
+        n, m, seq = data.x.shape
+        # each row's node's first window in the flat (N·M, L) windows
+        base = (torch.arange(batch_idx.shape[0], device=batch_idx.device) % n * m)[:, None]
         losses = []
         for s in range(batch_idx.shape[1]):
-            idx = batch_idx[:, s]
-            bx = torch.gather(data.x, 1, idx[:, :, None].expand(-1, -1, seq))
-            by = torch.gather(data.y, 1, idx)
-            if self._shift is not None:
-                bx = bx + self._shift[:, None, None]
-                by = by + self._shift[:, None]
+            flat = base + batch_idx[:, s]
+            bx = data.x.view(-1, seq)[flat]
+            by = data.y.view(-1)[flat]
+            if shift is not None:
+                bx = bx + shift[:, None, None]
+                by = by + shift[:, None]
             loss, grads = mse_value_and_grad(self.model, self.layout, p_grad, bx, by)
             p_apply, state = self.optimizer.update(grads, state, p_apply)
             p_grad = p_apply
@@ -249,7 +403,7 @@ class GluADFL:
             mixed = self.plan.gossip(premix, operand, active, noise, mask_ctx)
         with record_function("round.local_step"):
             new_params, new_opt, losses = self._local_step(
-                premix, mixed, state.opt_state, data, draws.batch_idx)
+                premix, mixed, state.opt_state, data, draws.batch_idx, self._shift)
 
         # inactive nodes keep their params and optimizer rows: a
         # where-select, so they are bitwise copies and int32 leaves stay int32
@@ -356,3 +510,175 @@ class GluADFL:
                 history[t + i]["val_rmse"] = host[c + j]
             t += c
         return self.population(state), history, state
+
+    # ------------------------------------------------------------------
+    def _scenarios(self, grid: SweepGrid) -> _Scenarios:
+        """The grid's knobs on the device.  Unarmed axes fall back to the
+        trainer's own: its DP sigma and its config's data skew for every
+        scenario, as in the JAX package."""
+        dev, g, n = self.device, grid.size, self.cfg.num_nodes
+        sigma = grid.dp_sigma
+        if sigma is None and self.dp_noise_sigma > 0.0:
+            sigma = torch.full((g,), self.dp_noise_sigma)
+        skew = grid.skew
+        if skew is None and self.cfg.data_skew != 0.0:
+            skew = torch.full((g,), self.cfg.data_skew)
+        shift = None
+        if skew is not None:
+            offsets = torch.from_numpy(node_skew_offsets(n))
+            shift = (skew[:, None] * offsets[None, :]).reshape(-1).to(dev)
+        sources = None
+        if self.plan.masked:
+            sources = sweep_mask_sources(grid.seeds, self.layout.dim, dev)
+        return _Scenarios(
+            adjacency=grid.adjacency.to(dev), resample=grid.resample.to(dev),
+            inactive_ratio=grid.inactive_ratio.to(dev),
+            markov=None if grid.markov is None else grid.markov.to(dev),
+            sigma=None if sigma is None else sigma.repeat_interleave(n)[:, None].to(dev),
+            shift=shift, mask_sources=sources,
+        )
+
+    def sweep_round(self, state: FLState, data: FedTensors, draws: RoundDraws,
+                    sc: _Scenarios):
+        """One round of every scenario: ``state`` holds the flat (G·N, ...)
+        rows, ``draws`` the G scenarios' draws stacked (``draw_sweep``).
+        Returns ``(new_state, losses)``, each scenario's active-weighted
+        mean loss as a (G,) tensor on the device."""
+        cfg = self.cfg
+        g, n = draws.u_act.shape
+        with record_function("round.mixing_operator"):
+            active = bernoulli_active(draws.u_act, sc.inactive_ratio)
+            if sc.markov is not None:
+                # both schedules read the same uniforms: arming the axis moves no draw
+                prev_active = (state.staleness.view(g, n) == 0).to(torch.float32)
+                sticky = markov_active(draws.u_act, prev_active, cfg.p_stay_active,
+                                       cfg.p_stay_inactive)
+                active = torch.where(sc.markov[:, None] > 0, sticky, active)
+            adj = sc.adjacency
+            if draws.scores is not None:
+                drawn = random_adjacency(draws.scores, min(cfg.comm_batch, n - 1))
+                adj = torch.where(sc.resample[:, None, None] > 0, drawn, adj)
+            operand = self.plan.build_repr(adj, active)
+        premix = state.params
+        noise = None
+        if sc.sigma is not None:
+            if draws.dp_noise is None:
+                raise ValueError("a DP sweep needs RoundDraws.dp_noise")
+            noise = sc.sigma * draws.dp_noise.view(g * n, -1)
+        with record_function("round.gossip"):
+            mask_ctx = None if sc.mask_sources is None else (sc.mask_sources, adj)
+            mixed = self.plan.sweep_gossip(premix, operand, active, noise, mask_ctx)
+        with record_function("round.local_step"):
+            new_params, new_opt, losses = self._local_step(
+                premix, mixed, state.opt_state, data,
+                draws.batch_idx.view(g * n, *draws.batch_idx.shape[2:]), sc.shift)
+        rows = active.reshape(-1)
+
+        def keep_inactive(new, old):
+            if new is None:
+                return None
+            return torch.where(rows.reshape((g * n,) + (1,) * (new.dim() - 1)) > 0, new, old)
+
+        with record_function("round.mask"):
+            params = keep_inactive(new_params, premix)
+            opt_state = {k: keep_inactive(v, state.opt_state[k]) for k, v in new_opt.items()}
+            loss = (torch.sum(losses.view(g, n) * active, dim=1)
+                    / torch.clamp_min(torch.sum(active, dim=1), 1.0))
+            staleness = staleness_update(state.staleness, rows)
+        return FLState(params, opt_state, staleness, state.round + 1), loss
+
+    def populations(self, state: FLState, g: int) -> torch.Tensor:
+        """Each scenario's population model (the mean of its N rows of the
+        flat (G·N, D) params) as a (G, D) tensor."""
+        return state.params.view(g, self.cfg.num_nodes, -1).mean(dim=1)
+
+    def sweep_val_rmse(self, pops: torch.Tensor, val_x: torch.Tensor,
+                       val_y: torch.Tensor) -> torch.Tensor:
+        """Each population's val RMSE, (G,) on the device: one forward of
+        the G models over the shared windows (on CUDA one
+        ``lstm_forward`` launch with G groups)."""
+        with torch.no_grad():
+            pred = self.model.apply_groups(self.layout.views(pops), val_x)
+            return torch.sqrt(torch.mean(torch.square(pred - val_y), dim=1))
+
+    def train_sweep(
+        self,
+        x,
+        y,
+        counts,
+        *,
+        grid: SweepGrid,
+        generators: Sequence[torch.Generator] | None = None,
+        batch_size: int = 64,
+        rounds: int | None = None,
+        chunk: int | None = None,
+        eval_every: int = 0,
+        val_data: tuple | None = None,
+        states: FLState | None = None,
+        draws: Iterable[RoundDraws] | None = None,
+    ):
+        """Train every scenario of ``grid`` as one batched federation;
+        returns ``(populations, histories, states)`` in the JAX
+        package's layout: the populations as a param dict of (G, ...)
+        leaves (``utils.pytree.tree_index`` picks one), G history lists
+        of :meth:`train`'s records, and the final state with (G, N, ...)
+        leaves.
+
+        Scenario g draws from ``generators[g]`` (default: a generator on
+        the device seeded ``grid.seeds[g]``): its initial params unless
+        ``states`` (leaves (G, N, ...), e.g. from
+        :meth:`state_from_params`) is given, then its rounds unless
+        ``draws`` yields them stacked, one :class:`RoundDraws` with a
+        leading G a round.  So scenario g equals :meth:`train` of its
+        config from a generator seeded ``grid.seeds[g]``.  The host
+        syncs once per ``chunk`` rounds for the whole grid.  The kernel
+        mixer is refused (``GossipPlan.require_sweep``)."""
+        self.plan.require_sweep()
+        n = self.cfg.num_nodes
+        if grid.adjacency.shape[-1] != n:
+            raise ValueError(f"grid built for N={grid.adjacency.shape[-1]} nodes but "
+                             f"cfg.num_nodes={n}")
+        g = grid.size
+        rounds = self.cfg.rounds if rounds is None else rounds
+        data = self.to_device(x, y, counts)
+        if generators is None and (states is None or draws is None):
+            generators = [torch.Generator(device=self.device).manual_seed(seed)
+                          for seed in grid.seeds]
+        if states is None:
+            state = self._fresh_state(torch.cat([self._draw_params(gen) for gen in generators]))
+        else:
+            state = states.reshaped((g * n,))
+        sc = self._scenarios(grid)
+        stream: Iterator[RoundDraws] | None = None if draws is None else iter(draws)
+        resample = [bool(v) for v in grid.resample.tolist()]
+        dp_dim = self.layout.dim if sc.sigma is not None else 0
+        do_eval = bool(eval_every) and val_data is not None
+        if do_eval:
+            val_x, val_y = (torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
+                            for v in val_data)
+        chunk = max(1, min(chunk or DEFAULT_CHUNK, rounds))
+        histories: list[list[dict]] = [[] for _ in range(g)]
+        t = 0
+        while t < rounds:
+            c = min(chunk, rounds - t)
+            losses, evals = [], {}
+            for i in range(c):
+                with record_function("round.draws"):
+                    rd = next(stream) if stream is not None else draw_sweep(
+                        generators, data.counts, local_steps=self.cfg.local_steps,
+                        batch_size=batch_size, resample=resample, dp_dim=dp_dim)
+                state, loss = self.sweep_round(state, data, rd, sc)
+                losses.append(loss)
+                if do_eval and (t + i + 1) % eval_every == 0:
+                    with record_function("round.eval"):
+                        evals[i] = self.sweep_val_rmse(self.populations(state, g), val_x, val_y)
+            # one host sync per chunk for the whole grid
+            with record_function("chunk.sync"):
+                host = torch.stack(losses + list(evals.values())).cpu().tolist()
+            for s in range(g):
+                histories[s] += [{"round": t + i, "loss": host[i][s]} for i in range(c)]
+                for j, i in enumerate(evals):
+                    histories[s][t + i]["val_rmse"] = host[c + j][s]
+            t += c
+        pops = self.layout.views(self.populations(state, g))
+        return pops, histories, state.reshaped((g, n))

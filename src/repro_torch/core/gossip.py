@@ -23,8 +23,9 @@ from repro_torch.core.secure_agg import masked_mix_zero
 
 def gossip_mix_tree(w: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
     """Dense reference: ``out = mix @ w`` (identity rows keep inactive
-    nodes' rows, for finite data)."""
-    return mix.to(torch.float32) @ w
+    nodes' rows, for finite data).  A sweep's (G, N, N) ``mix`` mixes
+    its (G·N, D) ``w`` block by block, as one batched matmul."""
+    return (mix.to(torch.float32) @ w.view(*mix.shape[:-1], -1)).view(w.shape)
 
 
 def gossip_mix_sparse_tree(w: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
@@ -43,7 +44,8 @@ def gossip_dp_composed(mix_fn: Callable, premix: torch.Tensor, noise: torch.Tens
     view ``premix + noise``, then each node re-adds its own clean
     self-contribution (``noise`` is already scaled by sigma).
 
-    Dense: ``mix(W + Z) - diag(M) Z``; inactive rows are left to the
+    Dense (``operand`` (N, N), or a sweep's (G, N, N) on (G·N, D)
+    rows): ``mix(W + Z) - diag(M) Z``; inactive rows are left to the
     trainer's where-mask, as in the JAX package.  Sparse (``operand``
     the ``(idx, wgt)`` table, slot 0 self, so ``wgt[:, 0]`` is the
     diagonal): the same, and since the plain mix selected inactive rows
@@ -52,7 +54,7 @@ def gossip_dp_composed(mix_fn: Callable, premix: torch.Tensor, noise: torch.Tens
     if isinstance(operand, tuple):
         out = mixed_noisy - operand[1][:, :1] * noise
         return torch.where(active[:, None] > 0, out, premix)
-    return mixed_noisy - torch.diagonal(operand)[:, None] * noise
+    return mixed_noisy - torch.diagonal(operand, dim1=-2, dim2=-1).reshape(-1, 1) * noise
 
 
 def gossip_mix_masked(mixed: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,

@@ -19,9 +19,16 @@ A :class:`GossipPlan` holds every knob decision:
     and DP setting.  ``"auto"`` resolves to ``"allgather"``
     (:func:`choose_gossip_impl`).
 
+The sweep engine (``GluADFL.train_sweep``) runs G scenarios' stacked
+``(G·N, D)`` rows through :meth:`GossipPlan.sweep_gossip` on the tree
+mixer only, as the JAX package does (:meth:`GossipPlan.require_sweep`
+refuses the kernel mixer): the dense operator is a batched
+``(G, N, N) @ (G, N, D)``, the sparse one a single gather over the
+``(G·N, B+1)`` table with scenario g's indices offset by ``g·N``.
+
 The sharded mixer and the schedules that need it (``"psum"``,
 ``"gather"``) are not ported yet and raise here, at construction;
-sweeps and multi-host runs are refused by the training CLI.
+multi-host runs are refused by the training CLI.
 """
 from __future__ import annotations
 
@@ -47,6 +54,10 @@ NOT_PORTED_MIXERS = ("sharded",)
 GOSSIP_IMPLS = ("allgather", "masked")
 # the JAX package's schedules that only its sharded mixer runs
 SHARDED_IMPLS = ("psum", "gather")
+
+# the JAX package's refusal of a swept kernel mixer, in the port's terms
+SWEEP_REFUSAL = ("train_sweep batches the tree mixer; mixer='kernel' (the CUDA kernels) "
+                 "is a per-scenario program -- use serial train() for it")
 
 # sparse tables win once the kept row (B+1 entries) is a small fraction
 # of N; 4x covers the gather bookkeeping the dense matmul doesn't pay
@@ -96,6 +107,12 @@ class GossipPlan:
     def masked(self) -> bool:
         return self.gossip_impl == "masked"
 
+    def require_sweep(self) -> None:
+        """Raise the JAX package's refusal unless the plan's mixer can
+        batch a sweep grid (the tree mixer)."""
+        if self.mixer != "tree":
+            raise NotImplementedError(SWEEP_REFUSAL)
+
     def mask_table(self, operand, adj: torch.Tensor | None, active: torch.Tensor):
         """The (N, B+1) neighbor table the masks are drawn over: the
         operand itself under the sparse representation (also the
@@ -122,6 +139,35 @@ class GossipPlan:
             with record_function("round.secure_mask"):
                 idx, wgt = self.mask_table(operand, adj, active)
                 out = gossip_mix_masked(out, idx, wgt, source(idx, wgt))
+        return out
+
+    def sweep_gossip(self, premix: torch.Tensor, operand, active: torch.Tensor,
+                     noise: torch.Tensor | None = None, mask_ctx=None) -> torch.Tensor:
+        """One swept round's mixing step over G scenarios: ``premix`` and
+        ``noise`` (G·N, D), row ``g·N + n`` node n of scenario g;
+        ``operand`` the stacked (G, N, N) matrices or (G, N, B+1)
+        tables of :meth:`build_repr`; ``active`` (G, N).  The sparse
+        tables become one (G·N, B+1) table, scenario g's indices offset
+        by ``g·N``.  ``mask_ctx``, ``(G mask sources, (G, N, N)
+        adjacency)`` on a masked plan, adds each scenario's
+        cancellation term from its own source, scenario by scenario
+        (one scenario's masks at a time)."""
+        self.require_sweep()
+        g, n = active.shape
+        flat = operand
+        if self.gossip_repr == "sparse":
+            idx, wgt = operand
+            offset = (torch.arange(g, dtype=idx.dtype, device=idx.device) * n)[:, None, None]
+            flat = ((idx + offset).view(g * n, -1), wgt.reshape(g * n, -1))
+        out = self.gossip(premix, flat, active.reshape(-1), noise)
+        if mask_ctx is not None:
+            sources, adj = mask_ctx
+            with record_function("round.secure_mask"):
+                idx, wgt = self.mask_table(operand, adj, active)
+                rows = out.view(g, n, -1)
+                out = torch.cat([gossip_mix_masked(rows[s], idx[s], wgt[s],
+                                                   sources[s](idx[s], wgt[s]))
+                                 for s in range(g)])
         return out
 
 

@@ -37,6 +37,10 @@ vector for it:
     with :data:`MASK_STREAM_TAG` for the same reason);
   * tests: JAX's own per-leaf masks, concatenated in layout order.
 
+A sweep gives each scenario a source of its own
+(:func:`sweep_mask_sources`), seeded as a serial run with the
+scenario's seed would seed it.
+
 The trainer never materializes wires: it mixes plainly and adds
 :func:`masked_mix_zero`, computed term by term so that each pair
 contributes ``u*z + u*(-z) = +0.0`` and the mask generation stays live
@@ -156,3 +160,10 @@ def edge_mask_source(generator: torch.Generator, dim: int) -> MaskSource:
         vectors = torch.randn((key.numel(), dim), generator=generator, device=generator.device)
         return vectors[rank].view(n, -1, dim)
     return draw
+
+
+def sweep_mask_sources(seeds, dim: int, device) -> list[MaskSource]:
+    """One production mask source per swept scenario: scenario g's masks
+    from :func:`mask_generator` of ``seeds[g]``, as its serial run
+    draws them."""
+    return [edge_mask_source(mask_generator(seed, device), dim) for seed in seeds]

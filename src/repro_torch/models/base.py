@@ -10,6 +10,9 @@ A :class:`Model` bundles plain functions on parameter dicts:
   apply_nodes(stacked, x)  -> (N, B) prediction of node n's batch
                               x[n] under node n's weights, in plain
                               differentiable ops (the trainer's loss)
+  apply_groups(stacked, x) -> (G, R) prediction of the shared (R, L)
+                              windows under each group's weights (a
+                              sweep's G population models)
 
 ``apply_rows`` and ``apply_nodes`` replace the ``vmap`` of ``apply``
 that the JAX package uses over stacked params.
@@ -34,6 +37,7 @@ class Model:
     apply: Callable[[Params, torch.Tensor], torch.Tensor]
     apply_rows: Callable[[Params, torch.Tensor], torch.Tensor]
     apply_nodes: Callable[[Params, torch.Tensor], torch.Tensor]
+    apply_groups: Callable[[Params, torch.Tensor], torch.Tensor]
 
 
 def params_from_numpy(np_params: Mapping[str, Any], device=None) -> Params:

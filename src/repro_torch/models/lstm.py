@@ -6,7 +6,8 @@ hidden state is projected to the glucose level ahead.  The parameter
 dict is the JAX model's: ``wx (I, 4H)``, ``wh (H, 4H)``, ``b (4H,)``
 with the forget-gate bias set to 1, ``w_out (H, 1)``, ``b_out (1,)``,
 gates ordered i, f, g, o.  ``apply`` and ``apply_rows`` (evaluation
-and serving) are one call of ``kernels.ops.lstm_forward``: the CUDA
+and serving) and ``apply_groups`` (a sweep's G populations over shared
+windows) are one call of ``kernels.ops.lstm_forward``: the CUDA
 kernel for CUDA tensors, its plain twin for CPU tensors.
 ``apply_nodes`` is the trainer's differentiable forward over the
 federation, in plain PyTorch ops that autograd follows; the JAX package
@@ -79,6 +80,16 @@ class LSTMModel:
         (one launch, R=1).  A row's result does not depend on G."""
         return self._forward(stacked, _as_steps(x)[:, None])[:, 0]
 
+    def apply_groups(self, stacked: Params, x: torch.Tensor) -> torch.Tensor:
+        """x: (R, L) -> (G, R), every row under each group's weights
+        ``stacked[k][g]``: a sweep's G population models over one set of
+        windows, in one launch with G groups.  Group g's row equals
+        ``apply`` under its weights alone, bitwise on the CPU."""
+        xs = _as_steps(x)
+        g = stacked["wx"].shape[0]
+        return self._forward({k: v.contiguous() for k, v in stacked.items()},
+                             xs[None].expand(g, *xs.shape))
+
     def apply_nodes(self, stacked: Params, x: torch.Tensor) -> torch.Tensor:
         """x: (N, Bt, L) -> (N, Bt), node n's batch under its own
         weights ``stacked[k][n]``.  Plain batched matmuls (``torch.bmm``
@@ -101,4 +112,5 @@ class LSTMModel:
         )
 
     def as_model(self) -> Model:
-        return Model("lstm", self.init, self.apply, self.apply_rows, self.apply_nodes)
+        return Model("lstm", self.init, self.apply, self.apply_rows, self.apply_nodes,
+                     self.apply_groups)

@@ -38,6 +38,12 @@ def vector_to_tree(vec: torch.Tensor, like: dict[str, torch.Tensor]) -> dict[str
     return out
 
 
+def tree_index(stacked: dict[str, torch.Tensor], i) -> dict[str, torch.Tensor]:
+    """Entry ``i`` of every leaf's leading axis: one scenario's params
+    out of a sweep's stacked (G, ...) populations."""
+    return {k: v[i] for k, v in stacked.items()}
+
+
 def tree_mean(stacked: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """Mean over the leading (node) axis of every leaf."""
     return {k: v.mean(dim=0) for k, v in stacked.items()}

@@ -8,7 +8,9 @@ so the port's round takes its random draws as inputs: a
 tests draw the same record with ``jax.random`` in ``GluADFL._round``'s
 split order and hand it in.  The cold-start fine-tune
 (``core.personalize``) takes its minibatch indices the same way, from
-:func:`draw_personalize`.
+:func:`draw_personalize`.  The sweep engine draws G scenarios' rounds
+with :func:`draw_sweep`, one generator per scenario, each in the order
+a serial run draws, stacked along a leading G.
 """
 from __future__ import annotations
 
@@ -57,6 +59,34 @@ def draw_round(
     if dp_dim:
         noise = torch.randn((n, dp_dim), generator=generator, device=dev)
     return RoundDraws(u_act, scores, batch_idx, noise)
+
+
+def draw_sweep(
+    generators,
+    counts: torch.Tensor,
+    *,
+    local_steps: int,
+    batch_size: int,
+    resample,
+    dp_dim: int = 0,
+) -> RoundDraws:
+    """One swept round: scenario g's :func:`draw_round` from
+    ``generators[g]``, with scores only where ``resample[g]`` (a random
+    topology), stacked into one :class:`RoundDraws` with a leading G:
+    ``u_act`` (G, N), ``scores`` (G, N, N) with zeros for the static
+    scenarios (None when none resamples), ``batch_idx``
+    (G, N, local_steps, batch), ``dp_noise`` (G, N, dp_dim) or None."""
+    rounds = [draw_round(gen, counts, local_steps=local_steps, batch_size=batch_size,
+                         random_topology=bool(rs), dp_dim=dp_dim)
+              for gen, rs in zip(generators, resample)]
+    scores = None
+    if any(r.scores is not None for r in rounds):
+        n = counts.shape[0]
+        scores = torch.stack([r.scores if r.scores is not None
+                              else torch.zeros((n, n), device=r.u_act.device) for r in rounds])
+    noise = torch.stack([r.dp_noise for r in rounds]) if dp_dim else None
+    return RoundDraws(torch.stack([r.u_act for r in rounds]), scores,
+                      torch.stack([r.batch_idx for r in rounds]), noise)
 
 
 def _uniform_indices(generator: torch.Generator, hi: torch.Tensor, steps: int,

@@ -4,8 +4,10 @@ row's result bitwise independent of the launch it shares, the staged
 gossip kernels bitwise the row-wise kernel they replace, the wrappers'
 refusals, the servable's bitwise contract through ``lstm_forward`` (a
 personalized cohort's rows too), a few training rounds through the
-gossip kernels (masked rounds bitwise unmasked ones), and the banded branch
-of ``gqa_attention`` and a small LM prefill through ``swa_attention``.
+gossip kernels (masked rounds bitwise unmasked ones), a sweep's G-group
+eval through one ``lstm_forward`` launch and a small sweep on the card
+against the same sweep on the CPU, and the banded branch of
+``gqa_attention`` and a small LM prefill through ``swa_attention``.
 
 These tests need a CUDA device and skip elsewhere (decided inside the
 ``cuda`` fixture).  They import neither ``jax`` nor ``repro``, so they
@@ -323,6 +325,75 @@ def test_masked_rounds_are_bitwise_unmasked_through_the_gossip_kernels(cuda, n, 
     (ha, a), (hb, b) = runs["allgather"], runs["masked"]
     assert ha == hb and torch.equal(a.params, b.params)
     assert all(torch.equal(a.opt_state[k], b.opt_state[k]) for k in a.opt_state)
+
+
+def test_sweep_group_eval_is_one_launch_bitwise_per_scenario_applies(cuda):
+    """G populations over shared windows: one launch with G groups, each
+    group's row bitwise its own G=1 launch and within ATOL of the twin."""
+    lstm = LSTMModel(hidden=128)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rows = [lstm.init(gen) for _ in range(5)]
+    stacked = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    x = torch.randn((37, L), generator=gen, device=cuda)
+    before = lstm_cell.LAUNCHES
+    with torch.no_grad():
+        got = lstm.apply_groups(stacked, x)
+    assert lstm_cell.LAUNCHES == before + 1 and got.shape == (5, 37)
+    for g, params in enumerate(rows):
+        with torch.no_grad():
+            assert torch.equal(got[g], lstm.apply(params, x)), g
+    want = lstm_forward_plain(x[None, :, :, None].expand(5, -1, -1, -1).contiguous(),
+                              *(stacked[k] for k in ("wx", "wh", "b", "w_out", "b_out")))
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("repr_", ["dense", "sparse"])
+def test_sweep_on_the_card_matches_the_cpu(cuda, repr_):
+    """A small sweep from the same initial params and the same
+    (CPU-drawn) draws on the card and on the CPU: losses, val records
+    and params within ATOL; no gossip kernel runs (the sweep mixes
+    with the tree mixer) and each eval is one ``lstm_forward`` launch."""
+    from repro_torch.core import SweepGrid
+    from repro_torch.utils.rng import draw_sweep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, rounds = 8, 4
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(n, 32, L)).astype(np.float32)
+    y = x[:, :, -1].copy()
+    counts = np.full(n, 32, np.int32)
+    val = (x[0, :20], y[0, :20])
+    grid = SweepGrid.build(("ring", "random"), (0.0, 0.4), (0, 1), num_nodes=n,
+                           dp_sigmas=(0.01,))
+    runs = {}
+    for device in ("cpu", cuda):
+        trainer = GluADFL(LSTMModel(hidden=16).as_model(), adam(1e-3),
+                          FLConfig(num_nodes=n, comm_batch=3), gossip_repr=repr_, device=device)
+        gens = [torch.Generator().manual_seed(s) for s in grid.seeds]
+        flat = torch.cat([trainer._draw_params(gen).cpu() for gen in gens])
+        init = trainer.state_from_params({k: v.reshape(grid.size, n, *v.shape[1:])
+                                          for k, v in trainer.layout.views(flat).items()})
+        draws = [draw_sweep(gens, torch.as_tensor(counts), local_steps=1, batch_size=8,
+                            resample=grid.resample.tolist(), dp_dim=trainer.layout.dim)
+                 for _ in range(rounds)]
+        moved = [type(d)(*(None if t is None else t.to(device) for t in
+                           (d.u_act, d.scores, d.batch_idx, d.dp_noise))) for d in draws]
+        before = (lstm_cell.LAUNCHES, dict(gossip_kernels.LAUNCHES))
+        runs[str(device)] = trainer.train_sweep(x, y, counts, grid=grid, rounds=rounds, chunk=3,
+                                                eval_every=2, val_data=val, states=init,
+                                                draws=moved)
+        if device == cuda:
+            assert lstm_cell.LAUNCHES == before[0] + rounds // 2
+            assert gossip_kernels.LAUNCHES == before[1]
+    (_, hc, sc), (_, hg, sg) = runs["cpu"], runs[str(cuda)]
+    for a, b in zip(hc, hg):
+        np.testing.assert_allclose([r["loss"] for r in a], [r["loss"] for r in b], rtol=0,
+                                   atol=ATOL)
+        np.testing.assert_allclose([r["val_rmse"] for r in a if "val_rmse" in r],
+                                   [r["val_rmse"] for r in b if "val_rmse" in r], rtol=0,
+                                   atol=ATOL)
+    torch.testing.assert_close(sg.params.cpu(), sc.params, rtol=0, atol=ATOL)
+    assert torch.equal(sg.staleness.cpu(), sc.staleness)
 
 
 def test_personalized_cohort_is_served_with_a_bitwise_selfcheck(cuda):

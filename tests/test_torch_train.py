@@ -358,7 +358,7 @@ def test_cli_engine_and_chunk_flags_set_the_sync_interval(argv, chunk, monkeypat
     assert seen["chunk"] == chunk
 
 
-@pytest.mark.parametrize("argv", [["--sweep-ratios", "0,0.5"], ["--num-processes=2"],
+@pytest.mark.parametrize("argv", [["--coordinator", "localhost:1234"], ["--num-processes=2"],
                                   ["--use-kernel"], ["--mixer", "sharded"],
                                   ["--gossip-impl", "psum"], ["--gossip-impl", "gather"]])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
