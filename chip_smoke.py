@@ -196,6 +196,33 @@ Phases, each printing one JSON line:
                 split of a profiled 4-round swept chunk, and
                 ``lstm_forward`` at the sweep's eval shape (G=15,
                 R=2034) timed as phase 6 times the others;
+ 20. baselines — the paper's baselines (``core.fedavg``, ``core.meta``,
+                ``core.supervised``, ``repro_torch.paper``) on the
+                REPLACE-BG fast twin (N=226, D=66,689) at H=128, batch
+                64: (1) two FedAvg rounds (2 local steps, Adam 2e-3, 30%
+                inactive) and two MAML and two MetaSGD meta-steps (3
+                second-order inner steps at 1e-2, SGD 2e-2) on the card
+                and on the CPU from one set of draws, the change of the
+                params (and of MetaSGD's rates) within a relative norm
+                of 1e-4, losses within 1e-4 (Adam) / 1e-5 (SGD), and a
+                first-order MAML run on the card outside that limit;
+                (2) the Table-4 grid
+                (``run_baseline_grid``: FedAvg, MAML, MetaSGD, pooled
+                LSTM, 32 rounds each) in <= 4 chunks through
+                ``chunked.dispatch_chunk``, finite histories, each
+                population through ``eval_population`` (226
+                ``lstm_forward`` launches each, 904 in all, the counted
+                main path), every test forecast within 1e-5 of the plain
+                twin; (3) each method's chunk in turns (fedavg, maml,
+                metasgd, lstm, then back), rounds / meta-steps / steps
+                a second, the peak memory it adds, and a profiled short
+                chunk's device time split by the trainers' spans and
+                its busy share; (4) Table 4 with all eleven methods on
+                OhioT1DM and ABC4D (H=128, 16 rounds, 64 supervised
+                steps; the GBT's host fit kept off REPLACE-BG's 220,923
+                windows), every seen/unseen metric finite, and Fig 3 on
+                OhioT1DM; (5) ``lstm_forward`` at the pooled val set's
+                (G=1, R=71,317) timed as phase 6 times the others;
 
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -312,6 +339,38 @@ SPANS = ("round.draws", "round.mixing_operator", "round.gossip", "round.local_st
          "round.mask", "round.eval", "chunk.sync")
 # the masked round's span, inside round.gossip
 MASK_SPANS = ("round.secure_mask",)
+# phase 20: the Table-4 baselines on the REPLACE-BG fast twin at H=128.
+# The grid's rounds (FedAvg rounds, meta-steps, supervised steps); the
+# rounds held card against CPU; each method's timed and profiled chunk
+# and its spans; the pooled supervised val set's eval shape; the
+# datasets of the eleven-method Table 4
+BASELINE_ROUNDS = 32
+BASELINE_TIMED = {"fedavg": 8, "maml": 4, "metasgd": 4, "lstm": 32}
+BASELINE_PROFILED = {"fedavg": 2, "maml": 1, "metasgd": 1, "lstm": 8}
+BASELINE_SPANS = {
+    "fedavg": ("fedavg.draws", "fedavg.local_step", "fedavg.aggregate", "fedavg.eval",
+               "chunk.sync"),
+    "maml": ("meta.draws", "meta.inner", "meta.outer", "meta.eval", "chunk.sync"),
+    "lstm": ("supervised.draws", "supervised.step", "supervised.eval", "chunk.sync"),
+}
+BASELINE_SPANS["metasgd"] = BASELINE_SPANS["maml"]
+# card against CPU from one set of draws, held on what training changed
+# (params - init) by relative norm: FedAvg under Adam (two rounds, each
+# of two local steps from a fresh Adam, so each round's second step
+# weighs the gradients' sizes, not only their signs), MAML and MetaSGD
+# under SGD (the change is the meta-gradient itself, size and all; the
+# grid's inner rate 1e-2 and 3 inner steps).  Autograd sums in another
+# order on each side (TF32 off): losses within 1e-4 under Adam and 1e-5
+# under SGD, as tests/test_torch_gpu.py; changes within a relative norm
+# of 1e-4.  A first-order MAML run on the card is read against the CPU's
+# second-order one and must fall outside that limit
+BASELINE_VS_CPU = {"fedavg": ("adam", 2e-3, 2), "maml": ("sgd", 2e-2, 2),
+                   "metasgd": ("sgd", 2e-2, 2)}
+VS_CPU_LOSS_TOL = {"adam": 1e-4, "sgd": 1e-5}
+VS_CPU_CHANGE_REL = 1e-4
+POOLED_EVAL = (1, 71_317, 12, 1, 128)  # REPLACE-BG's pooled val windows, one population
+TABLE4_DATASETS = ["ohiot1dm", "abc4d"]
+TABLE4_SCALE = dict(hidden=128, rounds=16, sup_steps=64, max_patients=None)
 
 
 def require(cond, what) -> None:
@@ -677,7 +736,7 @@ def span_breakdown(prof, spans=SPANS) -> tuple[dict[str, float], dict[str, float
     ranges = [(e.name, e.time_range.start, e.time_range.end) for e in on_device if e.name in spans]
     busy = dict.fromkeys(spans + ("other",), 0.0)
     gemm = dict.fromkeys(spans + ("other",), 0.0)
-    work = [e for e in on_device if e.name not in SPANS + MASK_SPANS]
+    work = [e for e in on_device if e.name not in SPANS + MASK_SPANS + tuple(spans)]
     for e in work:
         start = e.time_range.start
         owner = next((name for name, lo, hi in ranges if lo <= start < hi), "other")
@@ -935,6 +994,271 @@ def sweep_phase(feds, card: str, flush: torch.Tensor, errs: list) -> dict:
                 sweep_eval_bound_ms=bound_ms, sweep_eval_bound_share=timing["bound_share"],
                 sweep_eval_plain_ms=timing["plain_ms"],
                 sweep_eval_library_ms=timing["library_ms"])
+
+
+def baselines_phase(feds, card: str, flush: torch.Tensor, errs: list) -> dict:
+    """Phase 20, the paper's baselines; returns the ``lstm_forward``
+    row's fields for them (the grid's evaluation launches, the pooled
+    val set's shape timed)."""
+    import repro_torch.core.chunked as chunked
+    from repro_torch.config import FLConfig
+    from repro_torch.core import MAML, FedAvg, MetaSGD, train_supervised
+    from repro_torch.kernels import lstm_cell
+    from repro_torch.kernels.ref import lstm_forward_plain
+    from repro_torch.metrics import all_metrics
+    from repro_torch.models import LSTMModel
+    from repro_torch.core.chunked import initial_row
+    from repro_torch.core.gluadfl import FedTensors
+    from repro_torch.optim import adam, get_optimizer
+    from repro_torch.paper import common, fig3_personalization, table4_baselines
+    from repro_torch.utils.pytree import tree_to_vector
+    from repro_torch.utils.rng import draw_meta, draw_round
+
+    fed = feds["replace-bg"]
+    n = fed.num_nodes
+    for data in feds.values():  # the experiments read the phases' datasets
+        common.preload(data)
+    model = LSTMModel(hidden=128).as_model()
+    counts = torch.as_tensor(fed.counts)
+
+    def trainer(method, dev, opt=None):
+        if method == "fedavg":
+            return FedAvg(model, opt or adam(2e-3), FLConfig(num_nodes=n, inactive_ratio=0.3,
+                                                             local_steps=2), device=dev)
+        return {"maml": MAML, "metasgd": MetaSGD}[method](model, opt or adam(1e-3), inner_lr=1e-2,
+                                                          inner_steps=3, device=dev)
+
+    # (1) card against CPU from one set of draws ------------------------------
+    init = LSTMModel(hidden=128).init(torch.Generator().manual_seed(20))
+    start = tree_to_vector(init)
+
+    def first_order_change(meta, draws, lr):
+        """MAML's steps under SGD ``lr`` with the inner gradients taken
+        without a graph, so the meta-gradient drops the second-order
+        term: the params' change, on the card."""
+        data = FedTensors.of(fed.x, fed.y, fed.counts, DEV)
+        row = theta = initial_row(model, meta.layout, None, init, DEV)
+        for d in draws:
+            th = theta.detach().requires_grad_(True)
+            with torch.enable_grad():
+                rows = th.expand(n, -1)
+                for s in range(meta.inner_steps):
+                    losses = meta._task_losses(rows, data, d.support[:, s].to(DEV))
+                    (g,) = torch.autograd.grad(losses.sum(), rows)
+                    rows = rows - meta.inner_lr * g
+                (meta_g,) = torch.autograd.grad(
+                    meta._task_losses(rows, data, d.query.to(DEV)).mean(), th)
+            theta = th.detach() - lr * meta_g
+        return tree_to_vector(meta.layout.row(theta - row)).cpu()
+
+    vs_cpu = {}
+    for method, (opt, lr, rounds) in BASELINE_VS_CPU.items():
+        if method == "fedavg":
+            draws = [draw_round(torch.Generator().manual_seed(200 + r), counts, local_steps=2,
+                                batch_size=64, random_topology=False) for r in range(rounds)]
+        else:
+            draws = [draw_meta(torch.Generator().manual_seed(210 + r), counts, inner_steps=3,
+                               batch_size=64) for r in range(rounds)]
+        runs = {}
+        for dev in (DEV, "cpu"):
+            tr = trainer(method, dev, get_optimizer(opt, lr))
+            t0 = time.perf_counter()
+            if method == "fedavg":
+                params, hist = tr.train(None, fed.x, fed.y, fed.counts, batch_size=64,
+                                        rounds=rounds, params=init, draws=draws)
+                lrs = None
+            else:
+                params, lrs, hist = tr.train(None, fed.x, fed.y, fed.counts, batch_size=64,
+                                             steps=rounds, params=init, draws=draws)
+            learn_lr = getattr(tr, "learn_inner_lr", False)
+            runs[dev] = (tree_to_vector(params).cpu() - start, tree_to_vector(lrs).cpu()
+                         - tr.inner_lr if learn_lr else None, [h["loss"] for h in hist],
+                         time.perf_counter() - t0)
+        (ca, la, ha, sa), (cb, lb, hb, sb) = runs[DEV], runs["cpu"]
+        loss_diff = max(abs(a - b) for a, b in zip(ha, hb))
+        rel = float((ca - cb).norm() / cb.norm())
+        lrs_rel = None if la is None else float((la - lb).norm() / lb.norm())
+        vs_cpu[method] = dict(optimizer=opt, lr=lr, rounds=rounds, loss_max_abs_diff=loss_diff,
+                              change_rel_norm=rel, lrs_change_rel_norm=lrs_rel,
+                              change_over_params_norm=float(cb.norm() / (start + cb).norm()),
+                              seconds_card=sa, seconds_cpu=sb)
+        if method == "maml":
+            fo = first_order_change(trainer(method, DEV), draws, lr)
+            vs_cpu[method]["first_order_change_rel_norm"] = float((fo - cb).norm() / cb.norm())
+        require(all(math.isfinite(v) for v in ha) and loss_diff <= VS_CPU_LOSS_TOL[opt]
+                and rel <= VS_CPU_CHANGE_REL
+                and (lrs_rel is None or lrs_rel <= VS_CPU_CHANGE_REL),
+                f"{method} on the card vs the CPU: {vs_cpu[method]}")
+    require(vs_cpu["maml"]["first_order_change_rel_norm"] > VS_CPU_CHANGE_REL,
+            f"a first-order MAML run passes the card-vs-CPU limit: {vs_cpu['maml']}")
+    emit("baselines_vs_cpu", dataset=fed.name, nodes=n, hidden=128, batch=64, inner_lr=1e-2,
+         inner_steps=3, loss_tol=VS_CPU_LOSS_TOL, change_rel_tol=VS_CPU_CHANGE_REL, **vs_cpu)
+
+    # (2) the Table-4 grid, then every population's evaluation (the main path)
+    scale = common.Scale(rounds=BASELINE_ROUNDS, sup_steps=BASELINE_ROUNDS, max_patients=None,
+                         hidden=128, device=DEV)
+    dispatched = []
+    dispatch = chunked.dispatch_chunk
+
+    def counting(fn, *args, **kwargs):
+        dispatched.append(fn)
+        return dispatch(fn, *args, **kwargs)
+
+    chunked.dispatch_chunk = counting
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        grid = table4_baselines.run_baseline_grid("replace-bg", scale)
+        metrics = {m: common.eval_population(d["model"], d["params"], fed)
+                   for m, d in grid.items()}
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+        grid_counts = launches()
+    finally:
+        chunked.dispatch_chunk = dispatch
+    tested = sum(len(p.test_x) > 0 for p in fed.patients)
+    require(len(dispatched) <= 4, f"the Table-4 grid took {len(dispatched)} chunks")
+    require(grid_counts["lstm_forward"] == tested * len(grid)
+            and sum(grid_counts.values()) == grid_counts["lstm_forward"],
+            f"Table-4 grid: launches {grid_counts}, want {tested} lstm_forward per population")
+    grid_rows = {}
+    for method, d in grid.items():
+        losses = [h["loss"] for h in d["history"]]
+        require(len(losses) == BASELINE_ROUNDS and all(math.isfinite(v) for v in losses),
+                f"Table-4 grid: {method}'s history")
+        params = d["params"]
+        preds, plain_preds, ys = [], [], []
+        err = 0.0
+        for p in fed.patients:
+            x = torch.as_tensor(p.test_x, device=DEV)
+            got = model.apply(params, x)
+            want = lstm_forward_plain(x[None, :, :, None], *(params[k][None] for k in
+                                                             ("wx", "wh", "b", "w_out", "b_out")))[0]
+            err = max(err, float((got - want).abs().max()))
+            preds.append(got.cpu().numpy() * fed.sd + fed.mean)
+            plain_preds.append(want.cpu().numpy() * fed.sd + fed.mean)
+            ys.append(p.test_y_raw)
+        require(err <= TOL, f"Table-4 grid: {method}'s test forecasts vs the plain twin: {err}")
+        errs.append(err)
+        plain = all_metrics(np.concatenate(ys), np.concatenate(plain_preds))
+        again = all_metrics(np.concatenate(ys), np.concatenate(preds))
+        require(again == metrics[method] and all(math.isfinite(v) for v in plain.values()),
+                f"Table-4 grid: {method}'s metrics")
+        grid_rows[method] = dict(loss_first=losses[0], loss_last=losses[-1],
+                                 metrics=metrics[method],
+                                 rmse_plain_minus_kernel=plain["rmse"] - metrics[method]["rmse"],
+                                 max_abs_err_vs_plain=err)
+    emit("baselines_grid", dataset=fed.name, nodes=n, hidden=128, rounds=BASELINE_ROUNDS,
+         dispatches=len(dispatched), launches=grid_counts, patients_evaluated=tested,
+         seconds=grid_s, methods=grid_rows, tol=TOL, nvidia_smi=card)
+
+    # (3) each method's chunk in turns, its profile and its peak memory -------
+    pooled_x, pooled_y = common.pooled(fed, "train")
+    state = {m: d["params"] for m, d in grid.items()}
+    trainers = {m: trainer(m, DEV) for m in ("fedavg", "maml", "metasgd")}
+
+    def chunk(method, rounds):
+        """``rounds`` of ``method`` from its last params, ending in the
+        chunk's one host sync (the data's upload included)."""
+        gen = torch.Generator(device=DEV).manual_seed(300)
+        if method == "lstm":
+            state[method] = train_supervised(model, adam(2e-3), gen, pooled_x, pooled_y,
+                                             steps=rounds, batch_size=64, chunk=rounds,
+                                             params=state[method], device=DEV)[0]
+        elif method == "fedavg":
+            state[method] = trainers[method].train(gen, fed.x, fed.y, fed.counts, batch_size=64,
+                                                   rounds=rounds, chunk=rounds,
+                                                   params=state[method])[0]
+        else:
+            state[method] = trainers[method].train(gen, fed.x, fed.y, fed.counts, batch_size=64,
+                                                   steps=rounds, chunk=rounds,
+                                                   params=state[method])[0]
+
+    for method in grid:  # warm: the first call of each path builds cuBLAS handles
+        chunk(method, 1)
+    walls = {m: [] for m in grid}
+    order = list(grid) + list(reversed(grid))
+    for method in order:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        chunk(method, BASELINE_TIMED[method])
+        torch.cuda.synchronize()
+        walls[method].append((time.perf_counter() - t0,
+                              (torch.cuda.max_memory_allocated() - held) / 1e9))
+    timing = {}
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for method in grid:
+        rounds = BASELINE_PROFILED[method]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            chunk(method, rounds)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        by_span, gemm_by_span, busy_ms, items = span_breakdown(prof, BASELINE_SPANS[method])
+        require(busy_ms > 0, f"the profile saw no device work for {method}")
+        per_round_ms = statistics.median(w for w, _ in walls[method]) * 1e3 / BASELINE_TIMED[method]
+        timing[method] = dict(
+            rounds=BASELINE_TIMED[method],
+            per_s=[BASELINE_TIMED[method] / w for w, _ in walls[method]],
+            wall_ms_per_round=per_round_ms,
+            peak_gb_added=[g for _, g in walls[method]],
+            device_ms_per_round=busy_ms / rounds,
+            device_busy_share=busy_ms / rounds / per_round_ms,
+            profiled_wall_ms_per_round=prof_wall * 1e3 / rounds,
+            device_ms_by_span_per_round={k: v / rounds for k, v in by_span.items()},
+            gemm_device_ms_per_round=sum(gemm_by_span.values()) / rounds,
+            device_items_per_round=items / rounds)
+    emit("baselines_timing", order=", ".join(order),
+         unit={"fedavg": "rounds", "maml": "meta-steps", "metasgd": "meta-steps",
+               "lstm": "steps"}, **timing, nvidia_smi=card)
+
+    # (4) all eleven methods, then Fig 3 ---------------------------------------
+    small = common.Scale(**TABLE4_SCALE, device=DEV)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        table4 = table4_baselines.run(small, datasets=TABLE4_DATASETS)
+    table4_s = time.perf_counter() - t0
+    for ds, rows in table4.items():
+        require(sorted(rows) == sorted(table4_baselines.METHODS), f"Table 4 {ds}: methods")
+        for method, row in rows.items():
+            require(all(math.isfinite(v) for part in ("seen", "unseen") for v in row[part].values()),
+                    f"Table 4 {ds}/{method}: a non-finite metric")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        fig3 = fig3_personalization.run(small, datasets=["ohiot1dm"])
+    fig3_s = time.perf_counter() - t0
+    require(all(math.isfinite(v["rmse"]) for v in fig3["ohiot1dm"].values()), "Fig 3: rmse")
+    emit("table4", datasets=TABLE4_DATASETS, scale=TABLE4_SCALE,
+         seen_rmse={ds: {m: r["seen"]["rmse"] for m, r in rows.items()} for ds, rows in table4.items()},
+         unseen_rmse={ds: {m: r["unseen"]["rmse"] for m, r in rows.items()}
+                      for ds, rows in table4.items()},
+         seconds=table4_s, fig3_rmse={k: v["rmse"] for k, v in fig3["ohiot1dm"].items()},
+         fig3_seconds=fig3_s)
+
+    # (5) lstm_forward at the pooled val set's shape, timed as phase 6 times the others
+    args = random_inputs(torch.Generator().manual_seed(20), *POOLED_EVAL)
+    library = cudnn_lstm(*(t[0] for t in args[1:]))
+    library_err = float((library(args[0][0]) - lstm_cell.lstm_forward(*args)[0]).abs().max())
+    nbytes, ops = lstm_forward_cost(*args)
+    bound_ms, bound_by = bound(nbytes, ops)
+    ms = time_ms(lambda: lstm_cell.lstm_forward(*args), 100)
+    pooled_err = float((lstm_cell.lstm_forward(*args) - lstm_forward_plain(*args)).abs().max())
+    require(pooled_err <= TOL, f"lstm_forward at {POOLED_EVAL} vs the plain twin: {pooled_err}")
+    errs.append(pooled_err)
+    row = dict(ms=ms, ms_l2_flushed=time_ms(lambda: lstm_cell.lstm_forward(*args), 100, flush),
+               bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+               plain_ms=time_ms(lambda: lstm_forward_plain(*args), 20),
+               library_ms=time_ms(lambda: library(args[0][0]), 50),
+               library="torch.nn.LSTM (cuDNN) + nn.Linear", library_max_abs_err=library_err,
+               max_abs_err=pooled_err, bytes=nbytes, ops=ops,
+               plan=lstm_cell._plan(*POOLED_EVAL)._asdict())
+    emit("timing", shape=dict(zip("GRLIH", POOLED_EVAL)), **row)
+    return dict(launches_baselines=grid_counts["lstm_forward"], pooled_eval_ms=ms,
+                pooled_eval_bound_ms=bound_ms, pooled_eval_bound_share=row["bound_share"],
+                pooled_eval_plain_ms=row["plain_ms"], pooled_eval_library_ms=row["library_ms"])
 
 
 def main() -> int:
@@ -1866,13 +2190,16 @@ def main() -> int:
     # 19. the scenario-sweep engine ----------------------------------------
     sweep_row = sweep_phase(feds, card, flush, errs)
 
+    # 20. the paper's baselines ----------------------------------------------
+    baselines_row = baselines_phase(feds, card, flush, errs)
+
     sources = "src/repro_torch/kernels/csrc/"
     rows = [{
         "name": "lstm_forward", "route": "cuda",
         "source": sources + "lstm_forward.cu",
         "replaces": "src/repro/kernels/lstm_cell.py:51",
         "launches": launches_serve, "launches_personalize": launches_personalize["lstm_forward"],
-        "max_abs_err": max(errs), **lstm_row, **sweep_row,
+        "max_abs_err": max(errs), **lstm_row, **sweep_row, **baselines_row,
     }]
     path_launches = {"gossip_mix": trained["ohiot1dm"][1]["gossip_mix"],
                      "gossip_mix_sparse": trained["replace-bg"][1]["gossip_mix_sparse"],

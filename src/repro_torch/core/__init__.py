@@ -2,8 +2,9 @@
 ``repro.core``): the trainer, participation schedules, topologies,
 gossip mixing, the resolved gossip plan (with pairwise-masked secure
 aggregation, ``core.secure_agg``), the scenario-sweep engine
-(``SweepGrid``, ``GluADFL.train_sweep``) and cold-start
-personalization."""
+(``SweepGrid``, ``GluADFL.train_sweep``), cold-start personalization,
+and the baselines it is compared against (FedAvg, MAML/MetaSGD, pooled
+supervised training) on their shared chunk engine (``core.chunked``)."""
 from repro_torch.config import SweepConfig
 from repro_torch.core.async_sched import sweep_active_masks
 from repro_torch.core.gluadfl import DEFAULT_CHUNK, FLState, GluADFL, SweepGrid
@@ -25,3 +26,6 @@ from repro_torch.core.personalize import (
     personalize_batch_fn,
     personalize_loop,
 )
+from repro_torch.core.fedavg import FedAvg
+from repro_torch.core.meta import MAML, MetaSGD
+from repro_torch.core.supervised import train_supervised

@@ -231,6 +231,20 @@ class FedTensors:
     y: torch.Tensor        # (N, M)
     counts: torch.Tensor   # (N,) int64
 
+    @classmethod
+    def of(cls, x, y, counts, device) -> "FedTensors":
+        """The padded arrays as tensors on ``device``."""
+        return cls(
+            x=torch.as_tensor(np.asarray(x, np.float32)).to(device),
+            y=torch.as_tensor(np.asarray(y, np.float32)).to(device),
+            counts=torch.as_tensor(np.asarray(counts, np.int64)).to(device),
+        )
+
+    def batches(self, idx: torch.Tensor):
+        """Node n's windows ``idx[n]`` (N, B): ``(bx (N, B, L), by (N, B))``."""
+        bx = torch.gather(self.x, 1, idx[:, :, None].expand(-1, -1, self.x.shape[2]))
+        return bx, torch.gather(self.y, 1, idx)
+
 
 def mse_value_and_grad(model: Model, layout: ParamLayout, params: torch.Tensor,
                        bx: torch.Tensor, by: torch.Tensor):
@@ -342,12 +356,7 @@ class GluADFL:
 
     def to_device(self, x, y, counts) -> FedTensors:
         """The federation's padded arrays as tensors on the device."""
-        dev = self.device
-        return FedTensors(
-            x=torch.as_tensor(np.asarray(x, np.float32)).to(dev),
-            y=torch.as_tensor(np.asarray(y, np.float32)).to(dev),
-            counts=torch.as_tensor(np.asarray(counts, np.int64)).to(dev),
-        )
+        return FedTensors.of(x, y, counts, self.device)
 
     def draw(self, generator: torch.Generator, data: FedTensors, batch_size: int) -> RoundDraws:
         """One round's draws from ``generator`` (on the trainer's device)."""

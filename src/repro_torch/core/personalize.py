@@ -72,7 +72,7 @@ def _fine_tune(model: Model, optimizer: Optimizer, layout: ParamLayout, p0: torc
         loss, grads = mse_value_and_grad(model, layout, params, bx, by)
         params, state = optimizer.update(grads, state, params)
         losses.append(loss)
-    return params, torch.stack(losses, dim=1)
+    return params, (torch.stack(losses, dim=1) if losses else params.new_zeros((n_pat, 0)))
 
 
 def personalize(model: Model, optimizer: Optimizer, population_params: Params,

@@ -112,5 +112,5 @@ class LSTMModel:
         )
 
     def as_model(self) -> Model:
-        return Model("lstm", self.init, self.apply, self.apply_rows, self.apply_nodes,
-                     self.apply_groups)
+        return Model("lstm", self.init, self.apply, self.apply_nodes,
+                     apply_rows=self.apply_rows, apply_groups=self.apply_groups)

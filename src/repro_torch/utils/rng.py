@@ -10,7 +10,12 @@ split order and hand it in.  The cold-start fine-tune
 (``core.personalize``) takes its minibatch indices the same way, from
 :func:`draw_personalize`.  The sweep engine draws G scenarios' rounds
 with :func:`draw_sweep`, one generator per scenario, each in the order
-a serial run draws, stacked along a leading G.
+a serial run draws, stacked along a leading G.  The baselines draw the
+same way: a FedAvg round is a :class:`RoundDraws` without scores
+(:func:`draw_round` on a static topology), a MAML/MetaSGD meta-step a
+:class:`MetaDraws`
+(:func:`draw_meta`), a pooled supervised step one (B,) index vector
+(:func:`draw_supervised`).
 """
 from __future__ import annotations
 
@@ -121,3 +126,33 @@ def draw_personalize(
     hi = torch.as_tensor(counts, device=generator.device).to(torch.int64)
     hi = hi.clamp(max=n_rows).clamp_min(1)
     return _uniform_indices(generator, hi, steps, clamped_batch(batch_size, n_rows))
+
+
+@dataclass
+class MetaDraws:
+    """The draws one MAML/MetaSGD meta-step consumes, the N patients
+    being its tasks:
+
+    * ``support`` (N, inner_steps, batch) int64: each inner step's
+      window indices;
+    * ``query``   (N, batch) int64: the query batch the adapted params
+      are scored on.
+    Both in ``[0, max(count_n, 1))``."""
+
+    support: torch.Tensor
+    query: torch.Tensor
+
+
+def draw_meta(generator: torch.Generator, counts: torch.Tensor, *, inner_steps: int,
+              batch_size: int) -> MetaDraws:
+    """One meta-step's support and query batches on ``generator``'s
+    device."""
+    hi = counts.to(generator.device, torch.int64).clamp_min(1)
+    support = _uniform_indices(generator, hi, inner_steps, batch_size)
+    return MetaDraws(support, _uniform_indices(generator, hi, 1, batch_size)[:, 0])
+
+
+def draw_supervised(generator: torch.Generator, n_rows: int, batch_size: int) -> torch.Tensor:
+    """One pooled step's (batch,) window indices in ``[0, n_rows)``."""
+    hi = torch.tensor([max(n_rows, 1)], device=generator.device)
+    return _uniform_indices(generator, hi, 1, batch_size)[0, 0]

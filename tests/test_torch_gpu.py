@@ -6,8 +6,11 @@ refusals, the servable's bitwise contract through ``lstm_forward`` (a
 personalized cohort's rows too), a few training rounds through the
 gossip kernels (masked rounds bitwise unmasked ones), a sweep's G-group
 eval through one ``lstm_forward`` launch and a small sweep on the card
-against the same sweep on the CPU, and the banded branch of
-``gqa_attention`` and a small LM prefill through ``swa_attention``.
+against the same sweep on the CPU, the baselines (FedAvg and
+MAML/MetaSGD on the card against the CPU from one set of draws, the
+Table-4 evaluation through ``lstm_forward``, at REPLACE-BG's pooled
+R=71,317 val windows too), and the banded branch of ``gqa_attention``
+and a small LM prefill through ``swa_attention``.
 
 These tests need a CUDA device and skip elsewhere (decided inside the
 ``cuda`` fixture).  They import neither ``jax`` nor ``repro``, so they
@@ -20,13 +23,13 @@ import pytest
 import torch
 
 from repro_torch.config import FLConfig
-from repro_torch.core import GluADFL
+from repro_torch.core import MAML, FedAvg, GluADFL, MetaSGD, train_supervised
 from repro_torch.core.topology import mixing_matrix, neighbor_table, random_adjacency
 from repro_torch.kernels import gossip_mix as gossip_kernels
 from repro_torch.kernels import lstm_cell, ref
 from repro_torch.kernels import swa_attention as swa_kernel
 from repro_torch.kernels.ref import lstm_forward_plain
-from repro_torch.optim import adam
+from repro_torch.optim import adam, get_optimizer
 from repro_torch.launch.serve import selfcheck
 from repro_torch.models import LSTMModel
 from repro_torch.serve import GlucoseServable, MicroBatcher, Request, replay
@@ -530,3 +533,117 @@ def test_lm_prefill_and_decode_through_the_kernel(cuda):
     step, _ = arch.decode_fn(params, caches, {"token": tokens[:, :1], "pos": 3072})
     want_step, _ = arch.decode_fn(cpu_params, want_caches, {"token": tokens[:, :1].cpu(), "pos": 3072})
     torch.testing.assert_close(step.cpu(), want_step, rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------------------ baselines
+
+def _baseline_data(n=6, m=40, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, m, L)).astype(np.float32)
+    y = (x @ rng.normal(size=L).astype(np.float32) * 0.3).astype(np.float32)
+    return x, y, rng.integers(m // 2, m + 1, size=n).astype(np.int32)
+
+
+def _assert_trained_alike(card, cpu, opt):
+    """Card against CPU from the same draws: autograd's matmuls sum in
+    another order on each (TF32 off), so as ``tests/test_torch_train.py``
+    holds the port to JAX: SGD within 1e-5; Adam's losses within 1e-4
+    and params within a relative norm of 1e-3."""
+    (pa, ha), (pb, hb) = card, cpu
+    la, lb = np.array([h["loss"] for h in ha]), np.array([h["loss"] for h in hb])
+    va = np.concatenate([pa[k].cpu().numpy().ravel() for k in sorted(pa)])
+    vb = np.concatenate([pb[k].numpy().ravel() for k in sorted(pb)])
+    assert np.isfinite(la).all() and len(la) == len(lb)
+    if opt == "sgd":
+        np.testing.assert_allclose(la, lb, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(va, vb, rtol=0, atol=1e-5)
+    else:
+        np.testing.assert_allclose(la, lb, rtol=0, atol=1e-4)
+        assert np.linalg.norm(va - vb) <= 1e-3 * np.linalg.norm(vb)
+
+
+@pytest.mark.parametrize("opt,lr", [("sgd", 1e-2), ("adam", 2e-3)])
+def test_fedavg_on_the_card_matches_the_cpu(cuda, opt, lr):
+    from repro_torch.utils.rng import draw_round
+
+    x, y, counts = _baseline_data()
+    init = LSTMModel(hidden=16).init(torch.Generator().manual_seed(0))
+    draws = [draw_round(torch.Generator().manual_seed(r), torch.as_tensor(counts),
+                        local_steps=2, batch_size=8, random_topology=False) for r in range(3)]
+    runs = []
+    for dev in (cuda, "cpu"):
+        fa = FedAvg(LSTMModel(hidden=16).as_model(), get_optimizer(opt, lr),
+                    FLConfig(num_nodes=6, inactive_ratio=0.3, local_steps=2), device=dev)
+        runs.append(fa.train(None, x, y, counts, batch_size=8, rounds=3, params=init,
+                             draws=draws))
+    _assert_trained_alike(*runs, opt)
+
+
+@pytest.mark.parametrize("cls", [MAML, MetaSGD], ids=["maml", "metasgd"])
+def test_meta_step_on_the_card_matches_the_cpu(cuda, cls):
+    from repro_torch.utils.rng import draw_meta
+
+    x, y, counts = _baseline_data()
+    init = LSTMModel(hidden=16).init(torch.Generator().manual_seed(1))
+    draws = [draw_meta(torch.Generator().manual_seed(s), torch.as_tensor(counts),
+                       inner_steps=3, batch_size=8) for s in range(2)]
+    runs = []
+    for dev in (cuda, "cpu"):
+        meta = cls(LSTMModel(hidden=16).as_model(), get_optimizer("sgd", 0.5), inner_lr=5e-2,
+                   inner_steps=3, device=dev)
+        params, _, hist = meta.train(None, x, y, counts, batch_size=8, steps=2, params=init,
+                                     draws=draws)
+        runs.append((params, hist))
+    _assert_trained_alike(*runs, "sgd")
+
+
+def test_baseline_eval_goes_through_the_kernel(cuda):
+    """The Table-4 evaluation of an LSTM baseline: one ``lstm_forward``
+    launch per patient (``paper.common.eval_population``) and a pooled
+    supervised val eval at REPLACE-BG's R=71,317 windows in one launch,
+    within 1e-5 of the plain twin."""
+    from repro_torch.data import load_federated_dataset
+    from repro_torch.paper.common import Scale, eval_population, load, pooled
+
+    fed = load_federated_dataset("replace-bg", fast=True)
+    vx, vy = pooled(fed, "val")
+    assert vx.shape == (71_317, L)
+    model = LSTMModel(hidden=128)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    x = torch.as_tensor(vx, device=cuda)
+    before = lstm_cell.LAUNCHES
+    got = model.apply(params, x)
+    torch.cuda.synchronize()
+    assert lstm_cell.LAUNCHES == before + 1
+    want = lstm_forward_plain(x[None, :, :, None], *(params[k][None] for k in
+                                                     ("wx", "wh", "b", "w_out", "b_out")))[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+    ohio = load("ohiot1dm", Scale(max_patients=None))
+    small = LSTMModel(hidden=16)
+    sp = small.init(torch.Generator(device=cuda).manual_seed(0))
+    before = lstm_cell.LAUNCHES
+    on_card = eval_population(small.as_model(), sp, ohio)
+    assert lstm_cell.LAUNCHES == before + ohio.num_nodes
+    on_cpu = eval_population(small.as_model(), {k: v.cpu() for k, v in sp.items()}, ohio)
+    # forecasts within 1e-5 (normalized) move the mg/dL metrics by < 1e-4 of themselves
+    for k in on_card:
+        assert on_card[k] == pytest.approx(on_cpu[k], rel=1e-4), (k, on_card[k], on_cpu[k])
+    # the supervised trainer's val eval on the card, through the kernel
+    before = lstm_cell.LAUNCHES
+    _, hist = train_supervised(small.as_model(), adam(2e-3), torch.Generator(device=cuda),
+                               vx[:4096], vy[:4096], steps=4, batch_size=64,
+                               val=(vx[:2048], vy[:2048]), eval_every=2, device=cuda)
+    assert lstm_cell.LAUNCHES == before + 2 and "val_loss" in hist[-1]
+
+
+def test_baseline_trainers_need_a_device_unless_the_cpu_is_asked_for(cuda, monkeypatch):
+    x, y, counts = _baseline_data()
+    model = LSTMModel(hidden=8).as_model()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: FedAvg(model, adam(1e-3), FLConfig(num_nodes=6), **kw),
+                 lambda **kw: MAML(model, adam(1e-3), **kw),
+                 lambda **kw: train_supervised(model, adam(1e-3), torch.Generator(), x[0], y[0],
+                                               steps=1, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        make(device="cpu")
