@@ -223,6 +223,25 @@ Phases, each printing one JSON line:
                 windows), every seen/unseen metric finite, and Fig 3 on
                 OhioT1DM; (5) ``lstm_forward`` at the pooled val set's
                 (G=1, R=71,317) timed as phase 6 times the others;
+ 21. figures  — the paper's Figs 4 and 5 (``repro_torch.paper``) on the
+                REPLACE-BG fast twin (N=226) at H=128, batch 64, B=7:
+                (a) Fig 4 (ring, cluster, random: G=3) for 32 rounds,
+                its mg/dL val RMSE ``eval_fn`` every 8 rounds over the
+                71,317 pooled val windows: 3 ``lstm_forward`` launches
+                an eval round and no gossip kernel, on the sweep path
+                (the counted main path) and on ``--serial``; every
+                record within 1e-4 relative of the plain twin's eval of
+                the same population and of the serial curve; the swept
+                chunk timed with and without the eval in turns; (b) Fig
+                5 (the G=15 grid) for 16 rounds, then ``eval_population``
+                per scenario: 226 launches each, 3,390 in all, three
+                scenarios' forecasts within 1e-5 of the plain twin and
+                their metrics those forecasts', the wall split into
+                training and eval; (c) the paper driver
+                (``repro_torch.paper.run``) at ``--quick``: its eight
+                CSV lines and finite results; (d) the four examples
+                (``repro_torch.examples``) at their own sizes, each
+                with finite results and its wall time;
 
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -371,6 +390,23 @@ VS_CPU_CHANGE_REL = 1e-4
 POOLED_EVAL = (1, 71_317, 12, 1, 128)  # REPLACE-BG's pooled val windows, one population
 TABLE4_DATASETS = ["ohiot1dm", "abc4d"]
 TABLE4_SCALE = dict(hidden=128, rounds=16, sup_steps=64, max_patients=None)
+# phase 21: Figs 4 and 5 at REPLACE-BG fast (N=226), H=128, batch 64,
+# B=7, through the experiments' own ``run``; Fig 4's curves (mg/dL val
+# RMSE) held against the plain twin's eval of the same populations and
+# against the serial path by relative difference (the batched and serial
+# rows differ by ~2.4e-7 on the card, PR 19); Fig 5's sampled scenarios'
+# forecasts as phase 20 holds them; the sweep timed with and without
+# the eval in turns; the driver at --quick and the four examples
+FIG_SCALE = dict(hidden=128, batch_size=64, max_patients=None)
+FIG4_ROUNDS, FIG4_EVAL_EVERY, FIG4_TIMED = 32, 8, 16
+FIG4_REL_TOL = 1e-4
+FIG5_ROUNDS = 16
+FIG5_SAMPLE = (0, 7, 14)  # ring@0, cluster@0.5, random@0.9
+DRIVER_LINES = ["fl.gluadfl_round.ring", "fl.gluadfl_round.random", "table2.generalization",
+                "table3.supervised", "table4.baselines", "fig3.personalization",
+                "fig4.topology", "fig5.async"]
+EXAMPLES = {"quickstart": [], "topology_async_ablation": [], "cross_patient": [],
+            "serve_arch": []}
 
 
 def require(cond, what) -> None:
@@ -1259,6 +1295,235 @@ def baselines_phase(feds, card: str, flush: torch.Tensor, errs: list) -> dict:
     return dict(launches_baselines=grid_counts["lstm_forward"], pooled_eval_ms=ms,
                 pooled_eval_bound_ms=bound_ms, pooled_eval_bound_share=row["bound_share"],
                 pooled_eval_plain_ms=row["plain_ms"], pooled_eval_library_ms=row["library_ms"])
+
+
+def finite_leaves(tree) -> bool:
+    """Every number in a nested result (dicts, lists, tuples) is finite,
+    and there is at least one."""
+    seen = []
+
+    def walk(v):
+        if isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            seen.append(math.isfinite(v))
+    walk(tree)
+    return bool(seen) and all(seen)
+
+
+def figures_phase(feds, card: str, errs: list) -> dict:
+    """Phase 21, Figs 4 and 5, the paper driver and the examples; returns
+    the ``lstm_forward`` row's launches on the two figures' paths."""
+    from repro_torch.config import FLConfig
+    from repro_torch.core import GluADFL, SweepGrid
+    from repro_torch.examples import cross_patient, quickstart, serve_arch
+    from repro_torch.examples import topology_async_ablation
+    from repro_torch.kernels.ref import lstm_forward_plain
+    from repro_torch.metrics import all_metrics
+    from repro_torch.models import LSTMModel
+    from repro_torch.optim import adam
+    from repro_torch.paper import common, fig4_topology, fig5_async
+    from repro_torch.paper import run as driver
+
+    fed = feds["replace-bg"]
+    common.preload(fed)
+    weights = ("wx", "wh", "b", "w_out", "b_out")
+
+    def sync():
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+
+    # (a) Fig 4: the sweep (the main path), each eval's population kept -----
+    scale4 = common.Scale(rounds=FIG4_ROUNDS, device=DEV, **FIG_SCALE)
+    make_eval = fig4_topology._val_rmse_fn
+    evaluated = []
+
+    def keeping(model, data):
+        fn = make_eval(model, data)
+
+        def val_rmse(params, vx, vy):
+            evaluated.append({k: v.clone() for k, v in params.items()})
+            return fn(params, vx, vy)
+        return val_rmse
+
+    fig4_topology._val_rmse_fn = keeping
+    try:
+        curves = {}
+        for serial in (False, True):
+            evaluated.clear()
+            sync()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                curves[serial] = fig4_topology.run(scale4, datasets=[fed.name],
+                                                   eval_every=FIG4_EVAL_EVERY,
+                                                   serial=serial)[fed.name]
+            sync()
+            seconds = time.perf_counter() - t0
+            counts = launches()
+            if not serial:
+                fig4_counts, fig4_s, fig4_pops = counts, seconds, list(evaluated)
+            else:
+                serial_counts, serial_s = counts, seconds
+    finally:
+        fig4_topology._val_rmse_fn = make_eval
+    evals = FIG4_ROUNDS // FIG4_EVAL_EVERY
+    topos = fig4_topology.TOPOLOGIES
+    for name, counts in (("sweep", fig4_counts), ("serial", serial_counts)):
+        require(counts["lstm_forward"] == len(topos) * evals
+                and sum(counts.values()) == counts["lstm_forward"],
+                f"Fig 4 {name}: launches {counts}, want {len(topos)} lstm_forward an eval round")
+    vx = torch.as_tensor(np.concatenate([p.val_x for p in fed.patients]), device=DEV)
+    vy = torch.as_tensor(np.concatenate([p.val_y * fed.sd + fed.mean for p in fed.patients]),
+                         dtype=torch.float32, device=DEV)
+    plain_rel, serial_rel = 0.0, 0.0
+    for j in range(evals):
+        for g, topo in enumerate(topos):
+            params = fig4_pops[j * len(topos) + g]
+            pred = lstm_forward_plain(vx[None, :, :, None], *(params[k][None] for k in weights))[0]
+            plain = float(torch.sqrt(torch.mean(torch.square(pred * fed.sd + fed.mean - vy))))
+            got = curves[False][topo][j][1]
+            require(curves[False][topo][j][0] == (j + 1) * FIG4_EVAL_EVERY - 1 and
+                    math.isfinite(got), f"Fig 4 {topo}: record {j}")
+            plain_rel = max(plain_rel, abs(got - plain) / plain)
+            other = curves[True][topo][j][1]
+            serial_rel = max(serial_rel, abs(got - other) / abs(other))
+    require(plain_rel <= FIG4_REL_TOL, f"Fig 4: val RMSE vs the plain twin: {plain_rel}")
+    require(serial_rel <= FIG4_REL_TOL, f"Fig 4: the sweep vs the serial curves: {serial_rel}")
+
+    # the swept chunk with and without the eval, in turns
+    model = LSTMModel(hidden=FIG_SCALE["hidden"]).as_model()
+    trainer = GluADFL(model, adam(2e-3), FLConfig(num_nodes=fed.num_nodes, comm_batch=7),
+                      device=DEV)
+    grid3 = SweepGrid.build(topos, [0.0], [0], num_nodes=fed.num_nodes)
+    gens = [torch.Generator(device=DEV).manual_seed(400 + g) for g in range(grid3.size)]
+    val = (vx.cpu().numpy(), vy.cpu().numpy())
+    eval_fn = make_eval(model, fed)
+    state = None
+
+    def chunk(rounds, with_eval):
+        nonlocal state
+        kw = dict(eval_every=FIG4_EVAL_EVERY, eval_fn=eval_fn, val_data=val) if with_eval else {}
+        _, _, state = trainer.train_sweep(fed.x, fed.y, fed.counts, grid=grid3, generators=gens,
+                                          batch_size=FIG_SCALE["batch_size"], rounds=rounds,
+                                          chunk=rounds, states=state, **kw)
+
+    chunk(FIG4_EVAL_EVERY, True)  # warm: cuBLAS handles, the first eval
+    walls = {True: [], False: []}
+    for with_eval in (True, False, False, True):
+        sync()
+        t0 = time.perf_counter()
+        chunk(FIG4_TIMED, with_eval)
+        sync()
+        walls[with_eval].append(time.perf_counter() - t0)
+    per_eval_ms = ((statistics.mean(walls[True]) - statistics.mean(walls[False])) * 1e3
+                   / (FIG4_TIMED // FIG4_EVAL_EVERY))
+    emit("fig4", dataset=fed.name, nodes=fed.num_nodes, hidden=FIG_SCALE["hidden"],
+         batch=FIG_SCALE["batch_size"], comm_batch=7,
+         scenarios=len(topos), rounds=FIG4_ROUNDS, eval_every=FIG4_EVAL_EVERY,
+         launches=fig4_counts, launches_serial=serial_counts,
+         val_rows=int(vx.shape[0]), seconds=fig4_s, seconds_serial=serial_s,
+         final_val_rmse={t: curves[False][t][-1][1] for t in topos},
+         val_rmse_vs_plain_max_rel=plain_rel, sweep_vs_serial_max_rel=serial_rel,
+         rel_tol=FIG4_REL_TOL, timed_rounds=FIG4_TIMED, order="eval, none, none, eval",
+         scenario_rounds_per_s_with_eval=[grid3.size * FIG4_TIMED / w for w in walls[True]],
+         scenario_rounds_per_s_without_eval=[grid3.size * FIG4_TIMED / w for w in walls[False]],
+         eval_ms_per_eval_round=per_eval_ms, nvidia_smi=card)
+
+    # (b) Fig 5: the G=15 grid, then every scenario's eval_population -------
+    scale5 = common.Scale(rounds=FIG5_ROUNDS, device=DEV, **FIG_SCALE)
+    eval_population = fig5_async.eval_population
+    kept, eval_s = [], []
+
+    def timed_eval(model, params, data):
+        t0 = time.perf_counter()
+        out = eval_population(model, params, data)
+        eval_s.append(time.perf_counter() - t0)
+        kept.append((model, params, out))
+        return out
+
+    fig5_async.eval_population = timed_eval
+    try:
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            fig5 = fig5_async.run(scale5, datasets=[fed.name])[fed.name]
+        sync()
+        fig5_s = time.perf_counter() - t0
+        fig5_counts = launches()
+    finally:
+        fig5_async.eval_population = eval_population
+    tested = sum(len(p.test_x) > 0 for p in fed.patients)
+    g5 = len(kept)
+    require(g5 == len(topos) * len(fig5_async.RATIOS), f"Fig 5: {g5} scenarios evaluated")
+    require(fig5_counts["lstm_forward"] == tested * g5
+            and sum(fig5_counts.values()) == fig5_counts["lstm_forward"],
+            f"Fig 5: launches {fig5_counts}, want {tested} lstm_forward a scenario")
+    require(finite_leaves(fig5), f"Fig 5: a non-finite curve: {fig5}")
+    fig5_err = 0.0
+    for g in FIG5_SAMPLE:
+        model5, params, metrics = kept[g]
+        preds, ys = [], []
+        for p in fed.patients:
+            x = torch.as_tensor(p.test_x, device=DEV)
+            with torch.no_grad():
+                got = model5.apply(params, x)
+            want = lstm_forward_plain(x[None, :, :, None], *(params[k][None] for k in weights))[0]
+            fig5_err = max(fig5_err, float((got - want).abs().max()))
+            preds.append(got.cpu().numpy() * fed.sd + fed.mean)
+            ys.append(p.test_y_raw)
+        require(all_metrics(np.concatenate(ys), np.concatenate(preds)) == metrics,
+                f"Fig 5: scenario {g}'s metrics are not its forecasts'")
+    require(fig5_err <= TOL, f"Fig 5: sampled forecasts vs the plain twin: {fig5_err}")
+    errs.append(fig5_err)
+    emit("fig5", dataset=fed.name, nodes=fed.num_nodes, hidden=FIG_SCALE["hidden"],
+         batch=FIG_SCALE["batch_size"],
+         scenarios=g5, rounds=FIG5_ROUNDS, launches=fig5_counts, patients_evaluated=tested,
+         seconds=fig5_s, seconds_eval=sum(eval_s), seconds_train=fig5_s - sum(eval_s),
+         eval_ms_per_launch=sum(eval_s) * 1e3 / fig5_counts["lstm_forward"],
+         rmse=fig5, sampled=list(FIG5_SAMPLE), max_abs_err_vs_plain=fig5_err, tol=TOL,
+         nvidia_smi=card)
+
+    # (c) the paper driver at --quick -----------------------------------------
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = driver.drive(["--quick", "--device", DEV])
+    driver_s = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    csv = [ln.split(",") for ln in lines[lines.index("name,us_per_call,derived") + 1:]
+           if "," in ln and not ln.startswith(("[", " ", "-", "#"))]
+    names = [c[0] for c in csv if c[0] in DRIVER_LINES]
+    require(names == DRIVER_LINES, f"the driver's lines: {names}")
+    require(finite_leaves(results), "the driver: a non-finite metric")
+    emit("driver", argv=["--quick"], seconds=driver_s,
+         lines={c[0]: c[1:] for c in csv if c[0] in DRIVER_LINES}, nvidia_smi=card)
+
+    # (d) the four examples at their own sizes ----------------------------------
+    examples = {}
+    for name, mod in (("quickstart", quickstart), ("topology_async_ablation",
+                                                    topology_async_ablation),
+                      ("cross_patient", cross_patient)):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = mod.run([*EXAMPLES[name], "--device", DEV])
+        examples[name] = dict(seconds=time.perf_counter() - t0, result=got)
+        require(finite_leaves(got), f"example {name}: a non-finite metric: {got}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = serve_arch.main([*EXAMPLES["serve_arch"], "--device", DEV])
+    require(rc == 0, f"example serve_arch exited {rc}")
+    examples["serve_arch"] = dict(seconds=time.perf_counter() - t0, exit=rc)
+    ablation = examples["topology_async_ablation"]["result"]
+    ablation["val_rmse"] = {f"{t}@{r}": v for (t, r), v in ablation["val_rmse"].items()}
+    emit("examples", argv=EXAMPLES, **examples, nvidia_smi=card)
+    return dict(launches_fig4=fig4_counts["lstm_forward"],
+                launches_fig5=fig5_counts["lstm_forward"])
 
 
 def main() -> int:
@@ -2193,13 +2458,16 @@ def main() -> int:
     # 20. the paper's baselines ----------------------------------------------
     baselines_row = baselines_phase(feds, card, flush, errs)
 
+    # 21. Figs 4 and 5, the paper driver and the examples ----------------------
+    figures_row = figures_phase(feds, card, errs)
+
     sources = "src/repro_torch/kernels/csrc/"
     rows = [{
         "name": "lstm_forward", "route": "cuda",
         "source": sources + "lstm_forward.cu",
         "replaces": "src/repro/kernels/lstm_cell.py:51",
         "launches": launches_serve, "launches_personalize": launches_personalize["lstm_forward"],
-        "max_abs_err": max(errs), **lstm_row, **sweep_row, **baselines_row,
+        "max_abs_err": max(errs), **lstm_row, **sweep_row, **baselines_row, **figures_row,
     }]
     path_launches = {"gossip_mix": trained["ohiot1dm"][1]["gossip_mix"],
                      "gossip_mix_sparse": trained["replace-bg"][1]["gossip_mix_sparse"],

@@ -26,8 +26,9 @@ supervised training -- run through it:
     method grid in <= 4).
 
 It also holds what the three trainers share around their chunks: the
-engine choice (``"loop"`` is the scan engine at one round a chunk, so a
-sync every round and bitwise the same numbers), the initial flat param
+engine choice (``"loop"`` is the scan engine at one round a chunk and
+no early stop, so a sync every round and, without patience, bitwise the
+same numbers), the initial flat param
 row, the draw stream, the validation MSE and the refusal of a custom
 loss.
 """
@@ -51,13 +52,15 @@ LOSS_FN_REFUSAL = "a custom loss_fn is not ported; the baselines train on the MS
 ENGINES = ("scan", "loop")
 
 
-def engine_chunk(engine: str, chunk: int | None) -> int | None:
-    """The chunk size ``engine`` runs at: ``chunk`` for ``"scan"``, 1
-    for ``"loop"`` (the JAX package's per-round oracle; eager here, so
-    the scan engine with a sync every round is the same program)."""
+def engine_chunk(engine: str, chunk: int | None, patience: int) -> tuple[int | None, int]:
+    """The chunk size and early-stop patience ``engine`` runs at:
+    ``(chunk, patience)`` for ``"scan"``, ``(1, 0)`` for ``"loop"`` (the
+    JAX package's per-round oracle, eager here, so the scan engine with
+    a sync every round is the same program; like the oracle it trains
+    and records every round whatever the patience)."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
-    return 1 if engine == "loop" else chunk
+    return (1, 0) if engine == "loop" else (chunk, patience)
 
 
 def initial_row(model: Model, layout: ParamLayout, generator, params: Params | None,

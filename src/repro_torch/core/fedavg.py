@@ -34,7 +34,8 @@ through ``chunked.dispatch_chunk`` with one host sync per chunk, with
 optional streaming eval (``val_data`` + ``eval_every``, NaN-sentinel
 off-boundary) and early stopping (``early_stop_patience``);
 ``engine="loop"`` is the same engine at one round a chunk, so it syncs
-every round with the same numbers.  Spans:
+every round with the same numbers; like the JAX package's loop it
+ignores ``early_stop_patience`` and trains every round.  Spans:
 ``fedavg.draws``, ``fedavg.local_step``, ``fedavg.aggregate``,
 ``fedavg.eval``.  A custom ``loss_fn`` is not ported (it raises).
 """
@@ -160,9 +161,9 @@ class FedAvg:
         ``draws`` yields them.  ``engine="scan"`` (default) syncs once
         per ``chunk`` rounds; ``engine="loop"`` every round, with the
         same numbers.  ``val_data=(vx, vy)`` + ``eval_every=k`` records
-        ``val_loss`` every k rounds; ``early_stop_patience=p`` stops after
-        p consecutive non-improving evals."""
-        chunk = engine_chunk(engine, chunk)
+        ``val_loss`` every k rounds; ``early_stop_patience=p`` (scan engine)
+        stops after p consecutive non-improving evals."""
+        chunk, patience = engine_chunk(engine, chunk, early_stop_patience)
         rounds = rounds if rounds is not None else self.cfg.rounds
         local_steps = self.resolve_local_steps(np.asarray(counts), batch_size)
         dev = self.device
@@ -185,8 +186,8 @@ class FedAvg:
 
         def chunk_fn(carry, stop, t0, c):
             return chunked.scan_rounds(body, carry, range(t0, t0 + c), stop,
-                                       patience=early_stop_patience)
+                                       patience=patience)
 
         row = chunked.run_chunks(chunk_fn, row, total=rounds, chunk=chunk, device=dev,
-                                 eval_every=ee, patience=early_stop_patience, history=history)
+                                 eval_every=ee, patience=patience, history=history)
         return self.layout.row(row), history

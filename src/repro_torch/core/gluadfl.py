@@ -31,8 +31,13 @@ in (the parity tests draw them with ``jax.random`` in the JAX trainer's
 order and get the JAX trainer's rounds).
 
 ``train`` keeps each round's loss and eval record on the device and
-syncs with the host once per ``chunk`` rounds (``chunk=1`` is the JAX
-package's loop engine); the numbers do not depend on ``chunk``.
+syncs with the host once per ``chunk`` rounds (``engine="loop"`` is
+``chunk=1``, the JAX package's per-round engine); the numbers do not
+depend on ``chunk``.  The streaming eval is the built-in population val
+RMSE or a caller's ``eval_fn(pop_params, val_x, val_y) -> dict`` of
+float scalars (a 1-argument ``eval_fn(pop_params)`` is resolved by its
+signature, as in the JAX package); it runs eagerly, so any callable
+will do, and its values join the chunk's one host sync.
 Each stage of a round runs inside a ``torch.profiler.record_function``
 span (``round.draws``, ``round.mixing_operator``, ``round.gossip``,
 ``round.local_step``, ``round.mask``, ``round.eval``, ``chunk.sync``;
@@ -60,19 +65,20 @@ seeded with its seed, in the order a serial :meth:`GluADFL.train` with
 that seed draws, so it reproduces that serial run.
 
 Not ported yet: the sharded mixer and multi-host runs
-(``core.gossip_plan`` refuses their knobs), custom loss and eval
-functions.
+(``core.gossip_plan`` refuses their knobs) and a custom loss function.
 """
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
-from typing import Iterable, Iterator, Sequence
+from typing import Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from repro_torch.config import FLConfig
+from repro_torch.core.chunked import engine_chunk
 from repro_torch.core.async_sched import bernoulli_active, markov_active, staleness_update
 from repro_torch.core.gossip_plan import resolve_gossip_plan
 from repro_torch.core.secure_agg import (
@@ -91,7 +97,7 @@ from repro_torch.data.synth import node_skew_offsets
 from repro_torch.device import resolve_device
 from repro_torch.models.base import Model
 from repro_torch.optim import Optimizer
-from repro_torch.utils.pytree import ParamLayout
+from repro_torch.utils.pytree import ParamLayout, tree_index
 from repro_torch.utils.rng import RoundDraws, draw_round, draw_sweep
 
 # rounds between host syncs of the scan engine's losses and eval records
@@ -244,6 +250,53 @@ class FedTensors:
         """Node n's windows ``idx[n]`` (N, B): ``(bx (N, B, L), by (N, B))``."""
         bx = torch.gather(self.x, 1, idx[:, :, None].expand(-1, -1, self.x.shape[2]))
         return bx, torch.gather(self.y, 1, idx)
+
+
+def _eval_scalar(key, value) -> torch.Tensor:
+    """One streaming-eval value as a 0-d floating tensor (a Python float
+    becomes a float64 CPU tensor); anything else raises the JAX
+    package's ``TypeError``."""
+    if isinstance(value, (np.ndarray, np.generic)):
+        value = torch.from_numpy(np.asarray(value))
+    if isinstance(value, float):
+        return torch.tensor(value, dtype=torch.float64)
+    if isinstance(value, torch.Tensor) and value.is_floating_point() and value.dim() == 0:
+        return value
+    if isinstance(value, torch.Tensor):
+        kind = f"{str(value.dtype).removeprefix('torch.')}{tuple(value.shape)}"
+    else:
+        kind = f"{type(value).__name__}()"
+    raise TypeError(
+        f"streaming eval_fn output {key!r} must be a floating SCALAR (NaN is the "
+        f"off-boundary sentinel and the history records floats), got {kind}")
+
+
+def eval_record(out) -> dict[str, torch.Tensor]:
+    """Check one ``eval_fn`` result, a dict of float scalars, and return
+    its values as 0-d tensors (left on their device until the chunk's
+    sync)."""
+    if not isinstance(out, dict):
+        raise TypeError(f"streaming eval_fn must return a dict of float scalars, "
+                        f"got {type(out).__name__}")
+    return {k: _eval_scalar(k, v) for k, v in out.items()}
+
+
+def read_host(parts: Sequence[torch.Tensor]) -> list[list[float]]:
+    """A chunk's one host sync: each of ``parts`` (tensors of any shape)
+    as a flat list of Python floats.  The parts on a device go to the
+    host in one copy, as float64 (exact for the float32 losses); those
+    already on the CPU are read as they are."""
+    out: list = [None] * len(parts)
+    on_device = [i for i, t in enumerate(parts) if t.device.type != "cpu"]
+    if on_device:
+        flat = torch.cat([parts[i].reshape(-1).to(torch.float64) for i in on_device]).cpu().tolist()
+        at = 0
+        for i in on_device:
+            out[i], at = flat[at:at + parts[i].numel()], at + parts[i].numel()
+    for i, t in enumerate(parts):
+        if out[i] is None:
+            out[i] = t.reshape(-1).to(torch.float64).tolist()
+    return out
 
 
 def mse_value_and_grad(model: Model, layout: ParamLayout, params: torch.Tensor,
@@ -456,12 +509,27 @@ class GluADFL:
         param dict (views into one new (D,) vector)."""
         return self.layout.row(state.params.mean(dim=0))
 
-    def val_rmse(self, state: FLState, val_x: torch.Tensor, val_y: torch.Tensor) -> torch.Tensor:
-        """The population model's validation RMSE (0-d, on the device);
-        on CUDA the forward is the ``lstm_forward`` kernel."""
+    def _default_eval_metrics(self, pop_params, val_x, val_y) -> dict[str, torch.Tensor]:
+        """The built-in streaming eval: the population's validation RMSE
+        (0-d, on the device); on CUDA the forward is the
+        ``lstm_forward`` kernel."""
         with torch.no_grad():
-            pred = self.model.apply(self.population(state), val_x)
-            return torch.sqrt(torch.mean(torch.square(pred - val_y)))
+            pred = self.model.apply(pop_params, val_x)
+            return {"val_rmse": torch.sqrt(torch.mean(torch.square(pred - val_y)))}
+
+    def resolve_eval_fn(self, eval_fn: Callable | None) -> Callable:
+        """``eval_fn`` as ``f(pop_params, val_x, val_y) -> dict``: None is
+        the built-in val RMSE, and a 1-argument ``f(pop_params)`` is
+        wrapped (the JAX package's ``_resolve_eval_fn``)."""
+        if eval_fn is None:
+            return self._default_eval_metrics
+        try:
+            n_params = len(inspect.signature(eval_fn).parameters)
+        except (TypeError, ValueError):
+            n_params = 3
+        if n_params != 1:
+            return eval_fn
+        return lambda pop, vx, vy: eval_fn(pop)
 
     def train(
         self,
@@ -473,8 +541,10 @@ class GluADFL:
         batch_size: int = 64,
         rounds: int | None = None,
         eval_every: int = 0,
+        eval_fn: Callable | None = None,
         val_data: tuple | None = None,
         chunk: int | None = None,
+        engine: str = "scan",
         state: FLState | None = None,
         draws: Iterable[RoundDraws] | None = None,
     ):
@@ -482,20 +552,24 @@ class GluADFL:
 
         ``generator`` (on the trainer's device) draws the initial params
         unless ``state`` is given, and each round's draws unless
-        ``draws`` yields them.  With ``eval_every > 0`` and ``val_data``,
-        the population's val RMSE joins the history record of every
-        round t with ``(t + 1) % eval_every == 0``.  The host syncs once
-        per ``chunk`` rounds (default :data:`DEFAULT_CHUNK`); the history
-        does not depend on it."""
+        ``draws`` yields them.  The eval is armed by ``eval_every > 0``
+        and ``eval_fn`` or ``val_data``: ``eval_fn(pop_params, val_x,
+        val_y)`` (or ``eval_fn(pop_params)``; default: the population's
+        val RMSE as ``val_rmse``) runs after every round t with ``(t + 1)
+        % eval_every == 0`` on the val tensors (None without
+        ``val_data``), and its dict joins that round's history record.
+        ``engine="scan"`` syncs with the host once per ``chunk`` rounds
+        (default :data:`DEFAULT_CHUNK`), ``"loop"`` once a round; the
+        history does not depend on either."""
+        chunk = engine_chunk(engine, chunk, 0)[0]
         rounds = self.cfg.rounds if rounds is None else rounds
         data = self.to_device(x, y, counts)
         if state is None:
             state = self.init(generator)
         stream: Iterator[RoundDraws] | None = None if draws is None else iter(draws)
-        do_eval = bool(eval_every) and val_data is not None
-        if do_eval:
-            val_x, val_y = (torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
-                            for v in val_data)
+        val_x, val_y = self._val_tensors(val_data)
+        do_eval = bool(eval_every) and (eval_fn is not None or val_data is not None)
+        resolved = self.resolve_eval_fn(eval_fn) if do_eval else None
         chunk = max(1, min(chunk or DEFAULT_CHUNK, rounds))
         history: list[dict] = []
         t = 0
@@ -509,16 +583,22 @@ class GluADFL:
                 losses.append(loss)
                 if do_eval and (t + i + 1) % eval_every == 0:
                     with record_function("round.eval"):
-                        evals[i] = self.val_rmse(state, val_x, val_y)
+                        evals[i] = eval_record(resolved(self.population(state), val_x, val_y))
             # one host sync per chunk: losses and eval records together
             with record_function("chunk.sync"):
-                host = torch.stack(losses + list(evals.values())).cpu().tolist()
-            for i in range(c):
-                history.append({"round": t + i, "loss": host[i]})
-            for j, i in enumerate(evals):
-                history[t + i]["val_rmse"] = host[c + j]
+                host = iter(read_host([torch.stack(losses)]
+                                      + [v for rec in evals.values() for v in rec.values()]))
+            history += [{"round": t + i, "loss": v} for i, v in enumerate(next(host))]
+            for i, rec in evals.items():
+                history[t + i].update({k: next(host)[0] for k in rec})
             t += c
         return self.population(state), history, state
+
+    def _val_tensors(self, val_data):
+        """``val_data`` as float32 tensors on the device, or (None, None)."""
+        if val_data is None:
+            return None, None
+        return tuple(torch.as_tensor(np.asarray(v, np.float32)).to(self.device) for v in val_data)
 
     # ------------------------------------------------------------------
     def _scenarios(self, grid: SweepGrid) -> _Scenarios:
@@ -610,6 +690,19 @@ class GluADFL:
             pred = self.model.apply_groups(self.layout.views(pops), val_x)
             return torch.sqrt(torch.mean(torch.square(pred - val_y), dim=1))
 
+    def _sweep_eval(self, state: FLState, g: int, eval_fn: Callable | None, val_x,
+                    val_y) -> dict[str, torch.Tensor]:
+        """One eval round of every scenario: each key's (G,) values, from
+        the resolved ``eval_fn`` once a scenario, or (None) the built-in
+        val RMSE of all G populations in one forward."""
+        pops = self.populations(state, g)
+        if eval_fn is None:
+            return {"val_rmse": self.sweep_val_rmse(pops, val_x, val_y)}
+        views = self.layout.views(pops)
+        recs = [eval_record(eval_fn(tree_index(views, s), val_x, val_y)) for s in range(g)]
+        return {k: torch.stack([rec[k].to(recs[0][k].device, torch.float64) for rec in recs])
+                for k in recs[0]}
+
     def train_sweep(
         self,
         x,
@@ -622,6 +715,7 @@ class GluADFL:
         rounds: int | None = None,
         chunk: int | None = None,
         eval_every: int = 0,
+        eval_fn: Callable | None = None,
         val_data: tuple | None = None,
         states: FLState | None = None,
         draws: Iterable[RoundDraws] | None = None,
@@ -639,9 +733,13 @@ class GluADFL:
         :meth:`state_from_params`) is given, then its rounds unless
         ``draws`` yields them stacked, one :class:`RoundDraws` with a
         leading G a round.  So scenario g equals :meth:`train` of its
-        config from a generator seeded ``grid.seeds[g]``.  The host
-        syncs once per ``chunk`` rounds for the whole grid.  The kernel
-        mixer is refused (``GossipPlan.require_sweep``)."""
+        config from a generator seeded ``grid.seeds[g]``.  The eval is
+        :meth:`train`'s, per scenario: a caller's ``eval_fn`` is called
+        once a scenario on its population (``tree_index(pops, g)``),
+        while the built-in val RMSE evaluates all G populations in one
+        forward (:meth:`sweep_val_rmse`).  The host syncs once per
+        ``chunk`` rounds for the whole grid.  The kernel mixer is
+        refused (``GossipPlan.require_sweep``)."""
         self.plan.require_sweep()
         n = self.cfg.num_nodes
         if grid.adjacency.shape[-1] != n:
@@ -661,10 +759,9 @@ class GluADFL:
         stream: Iterator[RoundDraws] | None = None if draws is None else iter(draws)
         resample = [bool(v) for v in grid.resample.tolist()]
         dp_dim = self.layout.dim if sc.sigma is not None else 0
-        do_eval = bool(eval_every) and val_data is not None
-        if do_eval:
-            val_x, val_y = (torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
-                            for v in val_data)
+        val_x, val_y = self._val_tensors(val_data)
+        do_eval = bool(eval_every) and (eval_fn is not None or val_data is not None)
+        resolved = None if eval_fn is None else self.resolve_eval_fn(eval_fn)
         chunk = max(1, min(chunk or DEFAULT_CHUNK, rounds))
         histories: list[list[dict]] = [[] for _ in range(g)]
         t = 0
@@ -680,14 +777,19 @@ class GluADFL:
                 losses.append(loss)
                 if do_eval and (t + i + 1) % eval_every == 0:
                     with record_function("round.eval"):
-                        evals[i] = self.sweep_val_rmse(self.populations(state, g), val_x, val_y)
+                        evals[i] = self._sweep_eval(state, g, resolved, val_x, val_y)
             # one host sync per chunk for the whole grid
             with record_function("chunk.sync"):
-                host = torch.stack(losses + list(evals.values())).cpu().tolist()
+                host = iter(read_host([torch.stack(losses, dim=1)]
+                                      + [v for rec in evals.values() for v in rec.values()]))
+            losses_host = next(host)  # scenario-major: (G, c)
             for s in range(g):
-                histories[s] += [{"round": t + i, "loss": host[i][s]} for i in range(c)]
-                for j, i in enumerate(evals):
-                    histories[s][t + i]["val_rmse"] = host[c + j][s]
+                histories[s] += [{"round": t + i, "loss": losses_host[s * c + i]}
+                                 for i in range(c)]
+            for i, rec in evals.items():
+                for k in rec:
+                    for s, v in enumerate(next(host)):
+                        histories[s][t + i][k] = v
             t += c
         pops = self.layout.views(self.populations(state, g))
         return pops, histories, state.reshaped((g, n))

@@ -24,7 +24,7 @@ are a :class:`~repro_torch.utils.rng.MetaDraws`, drawn by
 ``jax.random`` in ``MAML.train``'s split order).  Engines as in
 ``core.fedavg``: ``"scan"`` syncs once per chunk through
 ``chunked.dispatch_chunk``, ``"loop"`` is that engine at one step a
-chunk.
+chunk, without early stop.
 Spans: ``meta.draws``, ``meta.inner``, ``meta.outer``, ``meta.eval``.
 A custom ``loss_fn`` is not ported (it raises).
 """
@@ -132,7 +132,7 @@ class MAML:
         unless ``params`` is given, and each step's draws unless
         ``draws`` yields them.  Engines, eval and early stopping as in
         :meth:`repro_torch.core.fedavg.FedAvg.train`."""
-        chunk = engine_chunk(engine, chunk)
+        chunk, patience = engine_chunk(engine, chunk, early_stop_patience)
         dev = self.device
         data = FedTensors.of(x, y, counts, dev)
         val_x, val_y = val_tensors(val_data, dev)
@@ -156,10 +156,10 @@ class MAML:
 
         def chunk_fn(c, stop, t0, size):
             return chunked.scan_rounds(body, c, range(t0, t0 + size), stop,
-                                       patience=early_stop_patience)
+                                       patience=patience)
 
         carry = chunked.run_chunks(chunk_fn, (row, lrs, meta_state), total=steps, chunk=chunk,
-                                   device=dev, eval_every=ee, patience=early_stop_patience,
+                                   device=dev, eval_every=ee, patience=patience,
                                    history=history)
         row, lrs, _ = carry
         return self.layout.row(row), self.layout.row(lrs), history

@@ -8,7 +8,8 @@ Engines: ``engine="scan"`` (default) runs chunks of steps through
 checkpoint is tracked on the device by where-selects, with optional
 early stopping (``early_stop_patience``).  ``engine="loop"`` is the same
 engine at one step a chunk, so it syncs every step with the same
-numbers.  The JAX package caches its compiled step, val and chunk
+numbers; like the JAX package's loop it ignores ``early_stop_patience``
+and keeps the best-val checkpoint.  The JAX package caches its compiled step, val and chunk
 functions per (model, optimizer, loss, batch) in an ``lru_cache``; with
 nothing compiled here there is nothing to cache, so there is no
 counterpart.
@@ -73,7 +74,7 @@ def train_supervised(
     seen)."""
     if loss_fn is not None:
         raise NotImplementedError(LOSS_FN_REFUSAL)
-    chunk = engine_chunk(engine, chunk)
+    chunk, patience = engine_chunk(engine, chunk, early_stop_patience)
     dev = resolve_device(device)
     x = torch.as_tensor(np.asarray(x, np.float32)).to(dev)
     y = torch.as_tensor(np.asarray(y, np.float32)).to(dev)
@@ -112,11 +113,11 @@ def train_supervised(
 
     def chunk_fn(c, stop, t0, size):
         return chunked.scan_rounds(body, c, range(t0, t0 + size), stop,
-                                   patience=early_stop_patience)
+                                   patience=patience)
 
     carry = (row, state, torch.full((), float("inf"), device=dev), row.clone())
     row, _, best_v, best = chunked.run_chunks(
         chunk_fn, carry, total=steps, chunk=chunk, device=dev, eval_every=ee,
-        patience=early_stop_patience, history=history, round_key="step")
+        patience=patience, history=history, round_key="step")
     use_best = val is not None and bool(torch.isfinite(best_v))
     return layout.row((best if use_best else row)[0]), history

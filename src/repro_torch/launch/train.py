@@ -69,6 +69,7 @@ from repro_torch.utils.pytree import tree_to_vector
 
 # flags of the JAX launcher whose paths are not ported: any use exits 2
 NOT_PORTED_FLAGS = ("--coordinator", "--num-processes", "--process-id", "--use-kernel")
+NOT_PORTED_REASON = "multi-host runs and the deprecated --use-kernel"
 
 
 def save_checkpoint(path: Path, params: dict[str, torch.Tensor]) -> None:
@@ -172,7 +173,7 @@ def run(argv: list[str] | None = None) -> TrainRun:
     for arg in argv:
         if arg.split("=")[0] in NOT_PORTED_FLAGS:
             raise Refused(f"{arg.split('=')[0]} is not ported to PyTorch yet "
-                          f"(scenario sweeps, multi-host and --use-kernel; use --mixer kernel)")
+                          f"({NOT_PORTED_REASON}; use --mixer kernel)")
     args = build_parser().parse_args(argv)
     if args.mixer == "sharded":
         raise Refused("--mixer sharded is not ported to PyTorch yet; use tree or kernel")

@@ -171,14 +171,22 @@ def print_metric_table(title: str, rows: dict[str, dict[str, dict[str, float]]])
             print(line)
 
 
-def parse_scale(argv: list[str] | None, description: str) -> Scale:
+def scale_parser(description: str) -> argparse.ArgumentParser:
     """The experiments' command line: ``--device`` (default CUDA) and
-    ``--full`` (the paper's scale)."""
+    ``--full`` (the paper's scale); a figure adds its own flags."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--full", action="store_true", help="the paper's rounds and patients")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def scale_of(args: argparse.Namespace) -> Scale:
+    """The :class:`Scale` that parsed ``--device``/``--full`` ask for."""
     return replace(Scale.full() if args.full else Scale(), device=args.device)
+
+
+def parse_scale(argv: list[str] | None, description: str) -> Scale:
+    return scale_of(scale_parser(description).parse_args(argv))
 
 
 def main(run: Callable, argv: list[str] | None, description: str) -> int:

@@ -475,3 +475,95 @@ def test_trainers_need_a_gpu_unless_the_cpu_is_asked_for(monkeypatch):
                                           torch.Generator(), x[0], y[0], steps=1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+# ------------------------------------------ loop ignores early stopping
+
+def _anti_val(x, y):
+    """Val windows whose targets are the negated training targets: as a
+    run fits y, every eval gets worse, so patience 1 trips at once."""
+    return x.reshape(-1, L)[:32], -y.reshape(-1)[:32]
+
+
+def _assert_scan_stops(run_scan, total):
+    """The guard against a vacuous check: with the same draws the scan
+    engine does stop early here, so the loop's full history is the
+    engine's doing and not the data's."""
+    assert len(run_scan()) < total
+
+
+def test_fedavg_loop_trains_every_round_as_jax_loop():
+    x, y, counts = _fed()
+    val = _anti_val(x, y)
+    rounds, cfg = 6, dict(num_nodes=5, rounds=6, inactive_ratio=0.3, local_steps=2)
+    kw = dict(batch_size=BATCH, val_data=val, eval_every=1, early_stop_patience=1)
+    key = jax.random.PRNGKey(11)
+    jp, jhist = JaxFedAvg(JaxLSTM(hidden=H).as_model(), jax_get_optimizer("sgd", LR["sgd"]),
+                          JaxFLConfig(**cfg)).train(key, x, y, counts, engine="loop", **kw)
+    k_init, draws = jax_fedavg_draws(key, counts, rounds, 2)
+
+    def run(engine):
+        fa = FedAvg(_model(), get_optimizer("sgd", LR["sgd"]), FLConfig(**cfg), device="cpu")
+        return fa.train(None, x, y, counts, engine=engine, draws=draws,
+                        params=params_from_numpy(_jax_params(k_init), "cpu"), **kw)
+
+    params, hist = run("loop")
+    assert len(jhist) == rounds and [h["round"] for h in hist] == list(range(rounds))
+    (losses, vals), (jlosses, jvals) = _losses(hist), _losses(jhist)
+    np.testing.assert_allclose(losses, jlosses, rtol=0, atol=1e-5)
+    np.testing.assert_allclose([v for _, v in vals], [v for _, v in jvals], rtol=0, atol=1e-5)
+    _close(_vec(params), _vec(jp), "sgd")
+    _assert_scan_stops(lambda: run("scan")[1], rounds)
+
+
+def test_maml_loop_trains_every_step_as_jax_loop():
+    x, y, counts = _fed(n=4, m=24)
+    val = _anti_val(x, y)
+    steps, opt = 6, META_OPTS[0]
+    kw = dict(batch_size=BATCH, steps=steps, val_data=val, eval_every=1, early_stop_patience=1)
+    mkw = dict(inner_lr=5e-2, inner_steps=2)
+    key = jax.random.PRNGKey(3)
+    jp, jlrs, jhist = JaxMAML(JaxLSTM(hidden=H).as_model(), jax_get_optimizer(*opt),
+                              **mkw).train(key, x, y, counts, engine="loop", **kw)
+    k_init, draws = jax_meta_draws(key, counts, steps, 2)
+
+    def run(engine):
+        meta = MAML(_model(), get_optimizer(*opt), device="cpu", **mkw)
+        return meta.train(None, x, y, counts, engine=engine, draws=draws,
+                          params=params_from_numpy(_jax_params(k_init), "cpu"), **kw)
+
+    params, _, hist = run("loop")
+    assert len(jhist) == steps and [h["round"] for h in hist] == list(range(steps))
+    (losses, vals), (jlosses, jvals) = _losses(hist), _losses(jhist)
+    np.testing.assert_allclose(losses, jlosses, rtol=0, atol=1e-5)
+    np.testing.assert_allclose([v for _, v in vals], [v for _, v in jvals], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(_vec(params), _vec(jp), rtol=0, atol=1e-5)
+    _assert_scan_stops(lambda: run("scan")[2], steps)
+
+
+def test_supervised_loop_trains_every_step_as_jax_loop():
+    """Every step runs and the best-val checkpoint comes back, as JAX's
+    loop returns it (here the first eval's params)."""
+    x, y, _ = _fed(n=1, m=120)
+    x, y = x[0], y[0]
+    steps = 12
+    kw = dict(batch_size=BATCH, steps=steps, val=_anti_val(x, y), eval_every=1,
+              early_stop_patience=1)
+    key = jax.random.PRNGKey(5)
+    jp, jhist = jax_train_supervised(JaxLSTM(hidden=H).as_model(),
+                                     jax_get_optimizer("sgd", LR["sgd"]), key, x, y,
+                                     engine="loop", **kw)
+    k_init, draws = jax_supervised_draws(key, len(x), steps)
+
+    def run(engine):
+        return train_supervised(_model(), get_optimizer("sgd", LR["sgd"]), None, x, y,
+                                engine=engine, draws=draws, device="cpu",
+                                params=params_from_numpy(_jax_params(k_init), "cpu"), **kw)
+
+    params, hist = run("loop")
+    assert len(jhist) == steps and [h["step"] for h in hist] == list(range(steps))
+    (losses, vals), (jlosses, jvals) = _losses(hist), _losses(jhist)
+    np.testing.assert_allclose(losses, jlosses, rtol=0, atol=1e-5)
+    np.testing.assert_allclose([v for _, v in vals], [v for _, v in jvals], rtol=0, atol=1e-5)
+    _close(_vec(params), _vec(jp), "sgd")
+    _assert_scan_stops(lambda: run("scan")[1], steps)

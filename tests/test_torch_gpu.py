@@ -6,7 +6,8 @@ refusals, the servable's bitwise contract through ``lstm_forward`` (a
 personalized cohort's rows too), a few training rounds through the
 gossip kernels (masked rounds bitwise unmasked ones), a sweep's G-group
 eval through one ``lstm_forward`` launch and a small sweep on the card
-against the same sweep on the CPU, the baselines (FedAvg and
+against the same sweep on the CPU, a streaming ``eval_fn`` on the card
+against the CPU and Fig 4's eval launches, the baselines (FedAvg and
 MAML/MetaSGD on the card against the CPU from one set of draws, the
 Table-4 evaluation through ``lstm_forward``, at REPLACE-BG's pooled
 R=71,317 val windows too), and the banded branch of ``gqa_attention``
@@ -397,6 +398,83 @@ def test_sweep_on_the_card_matches_the_cpu(cuda, repr_):
                                    atol=ATOL)
     torch.testing.assert_close(sg.params.cpu(), sc.params, rtol=0, atol=ATOL)
     assert torch.equal(sg.staleness.cpu(), sc.staleness)
+
+
+@pytest.mark.parametrize("form", ["three_args", "one_arg"])
+def test_train_eval_fn_on_the_card_matches_the_cpu(cuda, form):
+    """``GluADFL.train`` with a streaming ``eval_fn`` from the same
+    initial params and (CPU-drawn) draws on the card and on the CPU:
+    losses and eval records within ATOL; the 3-argument form's forward
+    is one ``lstm_forward`` launch an eval round."""
+    from repro_torch.utils.rng import draw_round
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, rounds = 8, 6
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(n, 32, L)).astype(np.float32)
+    y = x[:, :, -1].copy()
+    counts = np.full(n, 32, np.int32)
+    val = (x[0, :20], y[0, :20] * 50.0 + 100.0)
+    model = LSTMModel(hidden=16).as_model()
+
+    def mgdl(p, vx, vy):
+        with torch.no_grad():
+            pred = model.apply(p, vx) * 50.0 + 100.0
+            return {"val_rmse": torch.sqrt(torch.mean(torch.square(pred - vy)))}
+
+    def norm(p):
+        return {"wh_norm": torch.linalg.vector_norm(p["wh"])}
+
+    eval_fn = mgdl if form == "three_args" else norm
+    gen = torch.Generator().manual_seed(2)
+    draws = [draw_round(gen, torch.as_tensor(counts), local_steps=1, batch_size=8,
+                        random_topology=True) for _ in range(rounds)]
+    init = None
+    runs = {}
+    for device in ("cpu", cuda):
+        trainer = GluADFL(model, adam(1e-3), FLConfig(num_nodes=n, comm_batch=3), device=device)
+        if init is None:
+            init = trainer.layout.views(trainer.init(torch.Generator().manual_seed(0)).params)
+        moved = [type(d)(*(None if t is None else t.to(device) for t in
+                           (d.u_act, d.scores, d.batch_idx, d.dp_noise))) for d in draws]
+        before = lstm_cell.LAUNCHES
+        runs[str(device)] = trainer.train(
+            None, x, y, counts, batch_size=8, rounds=rounds, eval_every=2, eval_fn=eval_fn,
+            val_data=val if form == "three_args" else None, chunk=4,
+            state=trainer.state_from_params(init), draws=moved)[1]
+        if device == cuda:
+            assert lstm_cell.LAUNCHES == before + (rounds // 2 if form == "three_args" else 0)
+    key = "val_rmse" if form == "three_args" else "wh_norm"
+    hc, hg = runs["cpu"], runs[str(cuda)]
+    assert [sorted(h) for h in hc] == [sorted(h) for h in hg]
+    np.testing.assert_allclose([h["loss"] for h in hg], [h["loss"] for h in hc], rtol=0,
+                               atol=ATOL)
+    got, want = ([h[key] for h in hist if key in h] for hist in (hg, hc))
+    assert len(got) == rounds // 2
+    np.testing.assert_allclose(got, want, rtol=1e-5 if key == "val_rmse" else 0,
+                               atol=ATOL)
+
+
+def test_fig4_evals_through_lstm_forward_three_launches_an_eval_round(cuda):
+    """Fig 4 on the card: its sweep path calls the mg/dL ``eval_fn`` once
+    a scenario, so 3 ``lstm_forward`` launches an eval round, and no
+    gossip kernel; its serial path the same launches and curves."""
+    from repro_torch.paper import fig4_topology
+    from repro_torch.paper.common import Scale
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scale = Scale(rounds=4, max_patients=6, hidden=16, batch_size=8, device="cuda")
+    curves = {}
+    for serial in (False, True):
+        before = (lstm_cell.LAUNCHES, dict(gossip_kernels.LAUNCHES))
+        curves[serial] = fig4_topology.run(scale, datasets=["ohiot1dm"], eval_every=2,
+                                           serial=serial)["ohiot1dm"]
+        assert lstm_cell.LAUNCHES == before[0] + 3 * 2
+        assert gossip_kernels.LAUNCHES == before[1]
+    for topo, curve in curves[False].items():
+        assert [r for r, _ in curve] == [1, 3]
+        np.testing.assert_allclose([v for _, v in curve], [v for _, v in curves[True][topo]],
+                                   rtol=1e-4, atol=0)
 
 
 def test_personalized_cohort_is_served_with_a_bitwise_selfcheck(cuda):

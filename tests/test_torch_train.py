@@ -384,6 +384,17 @@ def test_cli_gossip_impl_masked_trains_bitwise_like_allgather(tmp_path, capsys):
         assert a.tobytes() == b.tobytes()
 
 
+@pytest.mark.parametrize("flag", train_cli.NOT_PORTED_FLAGS)
+def test_cli_refusal_names_only_what_is_refused(flag, capsys):
+    """The refusal names the flag and the paths it belongs to (multi-host,
+    the deprecated ``--use-kernel``), and no path that is ported."""
+    assert train_cli.main(["--device", "cpu", flag]) == 2
+    err = capsys.readouterr().err
+    assert (f"{flag} is not ported to PyTorch yet "
+            "(multi-host runs and the deprecated --use-kernel; use --mixer kernel)") in err
+    assert "sweep" not in err
+
+
 def test_no_gpu_means_cpu_must_be_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
