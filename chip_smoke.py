@@ -242,6 +242,29 @@ Phases, each printing one JSON line:
                 CSV lines and finite results; (d) the four examples
                 (``repro_torch.examples``) at their own sizes, each
                 with finite results and its wall time;
+ 22. sharded  — the sharded mixer (``core.distributed``) over a one-rank
+                NCCL process group on ``cuda:0`` (a free localhost port;
+                the card has no second rank, so the multi-rank
+                arithmetic is held on the CPU over gloo by the tests) on
+                the REPLACE-BG fast twin (N=226, D=66,689) at H=128,
+                batch 64, 30% inactive, random topology, B=7, Adam 1e-3,
+                8 rounds with an eval every 4: ``allgather`` on sparse,
+                ``allgather``, ``psum`` on dense, ``masked`` and
+                ``gather`` on sparse, and ``allgather`` on sparse at DP
+                sigma=0.05, each against ``mixer="tree"`` from the same
+                generator seed: the node params and optimizer rows
+                bitwise (``torch.equal``), the population, losses and
+                val records within 1e-6 relative; masked bitwise
+                allgather; no gossip kernel and two ``lstm_forward``
+                launches (the evals) a run; then rounds/s of each
+                schedule beside the tree and kernel mixers, in turns;
+                the peak memory of each; a profiled 4-round chunk of
+                allgather (sparse) and psum (dense): the ``round.gossip``
+                span's device time a round, the kernels in it (the NCCL
+                ones named) and the card's busy share; then the CLI,
+                ``--mixer sharded --gossip-impl gather --num-processes
+                1`` for 4 rounds at H=128 (226 ``lstm_forward`` launches
+                for the test forecasts, no gossip kernel);
 
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -407,6 +430,17 @@ DRIVER_LINES = ["fl.gluadfl_round.ring", "fl.gluadfl_round.random", "table2.gene
                 "fig4.topology", "fig5.async"]
 EXAMPLES = {"quickstart": [], "topology_async_ablation": [], "cross_patient": [],
             "serve_arch": []}
+SHARDED_ROUNDS = 8
+SHARDED_EVAL = 4
+# (gossip_impl, gossip_repr, DP sigma) of phase 22; "auto" picks allgather on sparse at N=226
+SHARDED_RUNS = (("allgather", "sparse", 0.0), ("allgather", "dense", 0.0), ("psum", "dense", 0.0),
+                ("masked", "sparse", 0.0), ("gather", "sparse", 0.0), ("allgather", "sparse", 0.05))
+SHARDED_PROFILED = (("allgather", "sparse", 0.0), ("psum", "dense", 0.0))
+SHARDED_PROFILED_ROUNDS = 4
+# the population (an all_reduce of the row sums over N against the tree
+# path's mean), losses and val records: relative, norm-wise
+SHARDED_TOL = 1e-6
+SHARDED_CLI_ROUNDS = 4
 
 
 def require(cond, what) -> None:
@@ -780,6 +814,32 @@ def span_breakdown(prof, spans=SPANS) -> tuple[dict[str, float], dict[str, float
         if "gemm" in e.name.lower():
             gemm[owner] += (e.time_range.end - start) / 1e3
     return busy, gemm, sum(busy.values()), len(work)
+
+
+def span_items(prof, span: str) -> dict[str, float]:
+    """Device time (ms) by kernel or copy name of the items whose start
+    lies inside ``span``'s ranges on the device timeline (the rule of
+    :func:`span_breakdown`)."""
+    from torch.autograd import DeviceType
+
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = [(e.time_range.start, e.time_range.end) for e in on_device if e.name == span]
+    items: dict[str, float] = {}
+    for e in on_device:
+        if e.name in SPANS + MASK_SPANS:
+            continue
+        if any(lo <= e.time_range.start < hi for lo, hi in ranges):
+            items[e.name] = items.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return items
+
+
+def rel_diff(a, b) -> float:
+    """``||a - b|| / ||b||`` of two sequences or tensors (0 when both are 0)."""
+    a = torch.as_tensor(a, dtype=torch.float64).reshape(-1)
+    b = torch.as_tensor(b, dtype=torch.float64).reshape(-1)
+    den = float(torch.linalg.vector_norm(b))
+    num = float(torch.linalg.vector_norm(a - b))
+    return num / den if den else num
 
 
 def sweep_phase(feds, card: str, flush: torch.Tensor, errs: list) -> dict:
@@ -1524,6 +1584,150 @@ def figures_phase(feds, card: str, errs: list) -> dict:
     emit("examples", argv=EXAMPLES, **examples, nvidia_smi=card)
     return dict(launches_fig4=fig4_counts["lstm_forward"],
                 launches_fig5=fig5_counts["lstm_forward"])
+
+
+def sharded_phase(feds, card: str) -> dict:
+    """Phase 22, the sharded mixer over a one-rank NCCL group and the
+    CLI's multi-process flags; returns the ``lstm_forward`` row's
+    launches on the phase's paths."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.config import FLConfig
+    from repro_torch.core import GluADFL
+    from repro_torch.launch.train import run as train_run
+    from repro_torch.launch.train import val_windows
+    from repro_torch.models import LSTMModel
+    from repro_torch.optim import get_optimizer
+
+    fed = feds["replace-bg"]
+    n = fed.num_nodes
+    val = val_windows(fed)
+
+    def trainer(mixer, impl, repr_, sigma):
+        return GluADFL(LSTMModel(hidden=128).as_model(), get_optimizer("adam", 1e-3),
+                       FLConfig(num_nodes=n, topology="random", inactive_ratio=0.3),
+                       mixer=mixer, gossip_impl=impl, gossip_repr=repr_, dp_noise_sigma=sigma)
+
+    def train(t, state=None, rounds=SHARDED_ROUNDS, evals=True):
+        out = t.train(torch.Generator(device="cuda").manual_seed(22), fed.x, fed.y, fed.counts,
+                      batch_size=64, rounds=rounds, chunk=rounds,
+                      eval_every=SHARDED_EVAL if evals else 0, val_data=val if evals else None,
+                      state=state)
+        torch.cuda.synchronize()
+        return out
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                            timeout=timedelta(seconds=300))
+    try:
+        require(dist.get_backend() == "nccl", f"the group's backend is {dist.get_backend()}")
+        trees = {(r, s): train(trainer("tree", "allgather", r, s))
+                 for r, s in {(r, s) for _, r, s in SHARDED_RUNS}}
+        runs, peaks, lstm_launches, checks = {}, {}, 0, {}
+        for impl, repr_, sigma in SHARDED_RUNS:
+            key = f"{impl}-{repr_}" + (f"-dp{sigma}" if sigma else "")
+            t = trainer("sharded", impl, repr_, sigma)
+            require(t.mesh.group is not None and t.mesh.width == 1 and t.mesh.rows == slice(0, n),
+                    f"{key}: the trainer's mesh {t.mesh}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            reset_launches()
+            pop, hist, state = train(t)
+            counts = launches()
+            peaks[key] = dict(peak=torch.cuda.max_memory_allocated() / 1e9,
+                              added=(torch.cuda.max_memory_allocated() - start) / 1e9)
+            require(counts["lstm_forward"] == SHARDED_ROUNDS // SHARDED_EVAL and
+                    sum(counts.values()) == counts["lstm_forward"],
+                    f"{key}: launches {counts}, want the evals' lstm_forward alone")
+            lstm_launches += counts["lstm_forward"]
+            tpop, thist, tstate = trees[(repr_, sigma)]
+            require(torch.equal(state.params, tstate.params) and
+                    all(torch.equal(state.opt_state[k], tstate.opt_state[k])
+                        for k in state.opt_state if state.opt_state[k] is not None),
+                    f"{key}: the node params after {SHARDED_ROUNDS} rounds are not bitwise "
+                    f"the tree mixer's")
+            diffs = dict(population=rel_diff(torch.cat([pop[k].reshape(-1) for k in sorted(pop)]),
+                                             torch.cat([tpop[k].reshape(-1) for k in sorted(tpop)])),
+                         losses=rel_diff([h["loss"] for h in hist], [h["loss"] for h in thist]),
+                         val_rmse=rel_diff([h["val_rmse"] for h in hist if "val_rmse" in h],
+                                           [h["val_rmse"] for h in thist if "val_rmse" in h]))
+            require(len(hist) == SHARDED_ROUNDS and np.isfinite([h["loss"] for h in hist]).all(),
+                    f"{key}: losses")
+            require(max(diffs.values()) <= SHARDED_TOL, f"{key} against the tree mixer: {diffs}")
+            checks[key] = dict(backend=t.plan.backend, bitwise_params_opt_state=True,
+                               rel_diff_vs_tree=diffs, launches=counts)
+            runs[key] = (t, hist, state)
+        _, ha, a = runs["allgather-sparse"]
+        _, hm, m = runs["masked-sparse"]
+        require(ha == hm and torch.equal(a.params, m.params), "masked is not bitwise allgather")
+
+        # rounds/s in turns (forward, then back), each from its run's state, no eval
+        timed = {"tree-sparse": (trainer("tree", "allgather", "sparse", 0.0),
+                                 trees[("sparse", 0.0)][2]),
+                 "kernel-sparse": (trainer("kernel", "allgather", "sparse", 0.0),
+                                   trees[("sparse", 0.0)][2]),
+                 **{k: (t, st) for k, (t, _, st) in runs.items()}}
+        rates = {k: [] for k in timed}
+        for k in list(timed) + list(reversed(timed)):
+            t, st = timed[k]
+            t0 = time.perf_counter()
+            train(t, st, evals=False)
+            rates[k].append(SHARDED_ROUNDS / (time.perf_counter() - t0))
+
+        # a profiled chunk: the gossip span's device time and the kernels in it
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        profiles = {}
+        for impl, repr_, sigma in SHARDED_PROFILED:
+            t, _, st = runs[f"{impl}-{repr_}"]
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=activities) as prof:
+                train(t, st, rounds=SHARDED_PROFILED_ROUNDS, evals=False)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            by_span, _, busy_ms, _ = span_breakdown(prof)
+            items = span_items(prof, "round.gossip")
+            require(by_span["round.gossip"] > 0, f"{impl}-{repr_}: no device work in round.gossip")
+            anywhere = {e.name for e in prof.events() if "nccl" in e.name.lower()}
+            profiles[f"{impl}-{repr_}"] = dict(
+                gossip_device_ms_per_round=by_span["round.gossip"] / SHARDED_PROFILED_ROUNDS,
+                gossip_items_ms=items,
+                nccl_kernels=sorted(k for k in items if "nccl" in k.lower()),
+                nccl_events_anywhere=sorted(anywhere),
+                device_ms_by_span=by_span, device_busy_ms=busy_ms, wall_ms=wall_ms,
+                device_busy_share=busy_ms / wall_ms)
+    finally:
+        dist.destroy_process_group()
+
+    # the CLI, one process: the sharded mixer on the one-process mesh
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        run = train_run(["--dataset", "replace-bg", "--fast-data", "--topology", "random",
+                         "--rounds", str(SHARDED_CLI_ROUNDS), "--hidden", "128",
+                         "--inactive-ratio", "0.3", "--mixer", "sharded", "--gossip-impl", "gather",
+                         "--num-processes", "1", "--out", str(ROOT / "build" / "chip_smoke")])
+    torch.cuda.synchronize()
+    cli_counts = launches()
+    require(run.trainer.plan.backend == "sharded_gather_tables" and run.trainer.mesh.width == 1
+            and run.trainer.mesh.group is None, f"the CLI's plan {run.trainer.plan.backend}")
+    require(cli_counts["lstm_forward"] == n and sum(cli_counts.values()) == n,
+            f"the CLI's launches {cli_counts}, want {n} lstm_forward (the test forecasts)")
+    require(len(run.history) == SHARDED_CLI_ROUNDS and
+            np.isfinite([h["loss"] for h in run.history]).all() and run.checkpoint.exists(),
+            "the CLI's history or checkpoint")
+    emit("sharded", dataset="replace-bg", nodes=n, hidden=128, dim=runs["allgather-sparse"][0]
+         .layout.dim, rounds=SHARDED_ROUNDS, eval_every=SHARDED_EVAL, world_size=1,
+         backend="nccl", runs=checks, masked_bitwise_allgather=True,
+         rounds_per_s=rates, peak_memory_gb=peaks, profiles=profiles,
+         cli=dict(rounds=SHARDED_CLI_ROUNDS, seconds=run.seconds, launches=cli_counts,
+                  gossip_repr=run.trainer.plan.gossip_repr, final_loss=run.history[-1]["loss"],
+                  printed_lines=len(printed.getvalue().splitlines())),
+         nvidia_smi=card)
+    return dict(launches_sharded=lstm_launches, launches_sharded_cli=cli_counts["lstm_forward"])
 
 
 def main() -> int:
@@ -2461,6 +2665,9 @@ def main() -> int:
     # 21. Figs 4 and 5, the paper driver and the examples ----------------------
     figures_row = figures_phase(feds, card, errs)
 
+    # 22. the sharded mixer over a one-rank NCCL group, and its CLI ------------
+    sharded_row = sharded_phase(feds, card)
+
     sources = "src/repro_torch/kernels/csrc/"
     rows = [{
         "name": "lstm_forward", "route": "cuda",
@@ -2468,6 +2675,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/lstm_cell.py:51",
         "launches": launches_serve, "launches_personalize": launches_personalize["lstm_forward"],
         "max_abs_err": max(errs), **lstm_row, **sweep_row, **baselines_row, **figures_row,
+        **sharded_row,
     }]
     path_launches = {"gossip_mix": trained["ohiot1dm"][1]["gossip_mix"],
                      "gossip_mix_sparse": trained["replace-bg"][1]["gossip_mix_sparse"],

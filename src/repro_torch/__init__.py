@@ -7,12 +7,14 @@ its JAX-free modules (those are copied here).  Every kernel that the
 JAX package writes in Pallas is a hand-written CUDA kernel here, under
 ``kernels/csrc/``, with a plain PyTorch twin in ``kernels/ref.py``.
 
-Three slices are ported: population-model serving (``data`` ->
+Among the slices ported: population-model serving (``data`` ->
 ``models.lstm`` -> ``kernels`` (``lstm_forward``) -> ``serve`` ->
-``launch.serve``); single-process training (``config``, ``optim``,
-``core`` (topology, schedules, gossip and its plan, the trainer) ->
-``kernels`` (``gossip_mix*``, ``lstm_forward`` for evaluation) ->
-``metrics`` -> ``launch.train``); and the LM zoo's dense and VLM
+``launch.serve``); training (``config``, ``optim``, ``core``
+(topology, schedules, gossip and its plan, the trainer) -> ``kernels``
+(``gossip_mix*``, ``lstm_forward`` for evaluation) -> ``metrics`` ->
+``launch.train``), over several processes with the sharded mixer
+(``core.distributed``, ``launch.mesh``, ``launch.multihost``); and the
+LM zoo's dense and VLM
 prefill and decode (``config`` registry, ``configs`` -> ``arch``
 (``build_arch``, ``lm``) -> ``nn`` (layers, attention) -> ``kernels``
 (``swa_attention`` on the banded branch) -> ``launch.arch_demo``).

@@ -1,16 +1,16 @@
-"""GluADFL's federated core (the single-process counterpart of
-``repro.core``): the trainer, participation schedules, topologies,
-gossip mixing, the resolved gossip plan (with pairwise-masked secure
-aggregation, ``core.secure_agg``), the scenario-sweep engine
-(``SweepGrid``, ``GluADFL.train_sweep``), cold-start personalization,
-and the baselines it is compared against (FedAvg, MAML/MetaSGD, pooled
+"""GluADFL's federated core (the counterpart of ``repro.core``): the
+trainer, participation schedules, topologies, gossip mixing, the
+resolved gossip plan and its backend registry (tree, kernel, sharded),
+the sharded mixer over ``torch.distributed`` ranks
+(``core.distributed``), pairwise-masked secure aggregation
+(``core.secure_agg``), the scenario-sweep engine (``SweepGrid``,
+``GluADFL.train_sweep``), cold-start personalization, and the
+baselines it is compared against (FedAvg, MAML/MetaSGD, pooled
 supervised training) on their shared chunk engine (``core.chunked``).
 
-It exports what ``repro.core`` exports and the port has.  Not here: the
-sharded mixers (``sharded_gossip_mix``, ``sharded_gossip_mix_gather``),
-the Pallas-era ``gossip_mix_kernel``/``gossip_mix_dp_kernel`` entry
-points (the kernels are ``kernels.ops``) and the mix-backend registry
-(``MixBackend``, ``mix_backends``, ``register_mix_backend``)."""
+It exports what ``repro.core`` exports, except the Pallas-era
+``gossip_mix_kernel``/``gossip_mix_dp_kernel`` entry points (the
+kernels are ``kernels.ops``)."""
 from repro_torch.config import SweepConfig
 from repro_torch.core.async_sched import (
     bernoulli_active,
@@ -19,12 +19,17 @@ from repro_torch.core.async_sched import (
     sweep_active_masks,
 )
 from repro_torch.core.gluadfl import DEFAULT_CHUNK, FLState, GluADFL, SweepGrid
+from repro_torch.core.distributed import sharded_gossip_mix, sharded_gossip_mix_gather
 from repro_torch.core.gossip import gossip_mix_tree
 from repro_torch.core.gossip_plan import (
+    BackendCaps,
     GossipPlan,
     GossipPlanError,
+    MixBackend,
     choose_gossip_impl,
     choose_gossip_repr,
+    mix_backends,
+    register_mix_backend,
     resolve_gossip_plan,
 )
 from repro_torch.core.topology import (

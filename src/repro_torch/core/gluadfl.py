@@ -64,8 +64,22 @@ G groups (``apply_groups``).  Scenario g draws from its own generator,
 seeded with its seed, in the order a serial :meth:`GluADFL.train` with
 that seed draws, so it reproduces that serial run.
 
-Not ported yet: the sharded mixer and multi-host runs
-(``core.gossip_plan`` refuses their knobs) and a custom loss function.
+``mixer="sharded"`` splits the federation's rows over the ranks of a
+``torch.distributed`` process group (``core.distributed``,
+``launch.multihost``): rank r holds the contiguous block ``mesh.rows``
+of ``k = N / W`` rows of the params, the optimizer state and the
+staleness, and only those rows of the training windows.  Every rank
+draws the round's whole :class:`RoundDraws` (and the initial params)
+from the same seeded generator and keeps its rows
+(:meth:`RoundDraws.rows`), so the draws are a one-process run's; every
+rank builds the round's global mixing operator, mixes its rows through
+the collectives of the resolved schedule, and steps its rows.  The
+round's loss is an ``all_reduce`` of ``[sum(loss * act), sum(act)]``
+and the population an ``all_reduce`` of the row sums over N, so every
+rank's history is the same.  At W = 1 a sharded run is bitwise the tree
+mixer's.  The swept-sharded engine is not ported yet
+(``train_sweep`` refuses the sharded mixer), nor is a custom loss
+function.
 """
 from __future__ import annotations
 
@@ -75,11 +89,13 @@ from typing import Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.config import FLConfig
 from repro_torch.core.chunked import engine_chunk
 from repro_torch.core.async_sched import bernoulli_active, markov_active, staleness_update
+from repro_torch.core.distributed import all_gather_rows, all_reduce_sum
 from repro_torch.core.gossip_plan import resolve_gossip_plan
 from repro_torch.core.secure_agg import (
     MaskSource,
@@ -353,6 +369,8 @@ class GluADFL:
             comm_batch=cfg.comm_batch, topology=cfg.topology,
             cluster_size=cfg.cluster_size, device=self.device,
         )
+        # the sharded mixer's FederationMesh (this rank's rows), else None
+        self.mesh = self.plan.mesh
         self.layout = ParamLayout.of(model.init(torch.Generator().manual_seed(0)))
         if mask_source is not None and not self.plan.masked:
             raise ValueError("mask_source is for gossip_impl='masked'")
@@ -407,9 +425,32 @@ class GluADFL:
         JAX package's scales; not its numbers)."""
         return self._fresh_state(self._draw_params(generator))
 
+    def shard_state(self, state: FLState) -> FLState:
+        """This process's rows of a whole-federation state: the rank's
+        block on the sharded mixer, every row otherwise."""
+        rows = self.plan.rows
+
+        def cut(t):
+            return None if t is None else t[rows]
+        return FLState(cut(state.params), {k: cut(v) for k, v in state.opt_state.items()},
+                       cut(state.staleness), state.round)
+
+    def init_sharded(self, generator: torch.Generator) -> FLState:
+        """:meth:`init`'s state, this process's rows of it: every rank
+        draws the whole federation from the same generator, so its rows
+        are a one-process run's."""
+        return self.shard_state(self.init(generator))
+
     def to_device(self, x, y, counts) -> FedTensors:
-        """The federation's padded arrays as tensors on the device."""
-        return FedTensors.of(x, y, counts, self.device)
+        """The federation's padded arrays as tensors on the device: on
+        the sharded mixer this rank's rows of the windows, with the
+        counts whole (every rank draws the whole round)."""
+        if self.mesh is None:
+            return FedTensors.of(x, y, counts, self.device)
+        from repro_torch.launch.multihost import place_federation
+
+        x, y, counts, _ = place_federation(self.mesh, x, y, counts, device=self.device)
+        return FedTensors(x, y, counts)
 
     def draw(self, generator: torch.Generator, data: FedTensors, batch_size: int) -> RoundDraws:
         """One round's draws from ``generator`` (on the trainer's device)."""
@@ -449,36 +490,42 @@ class GluADFL:
     def round(self, state: FLState, data: FedTensors, draws: RoundDraws):
         """One FL round: returns ``(new_state, loss)``, the loss the
         active-weighted mean of the nodes' losses, as a 0-d tensor on the
-        device (no host sync)."""
-        cfg = self.cfg
-        n = cfg.num_nodes
+        device (no host sync).  ``draws`` are the whole federation's; on
+        the sharded mixer ``state`` and ``data`` hold this rank's rows."""
+        rows = self.plan.rows
         with record_function("round.mixing_operator"):
             active, operand, adj = self.mixing_operator(state, draws)
+        mine = draws.rows(rows.start, rows.stop)
+        act = active[rows]
         premix = state.params
         noise = None
         if self.dp_noise_sigma > 0.0:
             if draws.dp_noise is None:
                 raise ValueError("dp_noise_sigma > 0 needs RoundDraws.dp_noise")
-            noise = self.dp_noise_sigma * draws.dp_noise
+            noise = self.dp_noise_sigma * mine.dp_noise
         with record_function("round.gossip"):
             mask_ctx = (self.mask_source, adj) if self.plan.masked else None
             mixed = self.plan.gossip(premix, operand, active, noise, mask_ctx)
         with record_function("round.local_step"):
             new_params, new_opt, losses = self._local_step(
-                premix, mixed, state.opt_state, data, draws.batch_idx, self._shift)
+                premix, mixed, state.opt_state, data, mine.batch_idx,
+                None if self._shift is None else self._shift[rows])
 
         # inactive nodes keep their params and optimizer rows: a
         # where-select, so they are bitwise copies and int32 leaves stay int32
         def keep_inactive(new, old):
             if new is None:
                 return None
-            return torch.where(active.reshape((n,) + (1,) * (new.dim() - 1)) > 0, new, old)
+            return torch.where(act.reshape((-1,) + (1,) * (new.dim() - 1)) > 0, new, old)
 
         with record_function("round.mask"):
             params = keep_inactive(new_params, premix)
             opt_state = {k: keep_inactive(v, state.opt_state[k]) for k, v in new_opt.items()}
-            loss = torch.sum(losses * active) / torch.clamp_min(torch.sum(active), 1.0)
-            staleness = staleness_update(state.staleness, active)
+            num, den = torch.sum(losses * act), torch.sum(act)
+            if self.mesh is not None:
+                num, den = all_reduce_sum(torch.stack([num, den]), self.mesh)
+            loss = num / torch.clamp_min(den, 1.0)
+            staleness = staleness_update(state.staleness, act)
         return FLState(params, opt_state, staleness, state.round + 1), loss
 
     def mixing_operator(self, state: FLState, draws: RoundDraws):
@@ -489,7 +536,9 @@ class GluADFL:
         n = cfg.num_nodes
         if cfg.schedule == "markov":
             # a node with staleness 0 took part in the last round
-            prev_active = (state.staleness == 0).to(torch.float32)
+            staleness = state.staleness if self.mesh is None else all_gather_rows(
+                state.staleness, self.mesh)
+            prev_active = (staleness == 0).to(torch.float32)
             active = markov_active(draws.u_act, prev_active, cfg.p_stay_active,
                                    cfg.p_stay_inactive)
         else:
@@ -506,8 +555,13 @@ class GluADFL:
     # ------------------------------------------------------------------
     def population(self, state: FLState) -> dict[str, torch.Tensor]:
         """Algorithm 1 lines 15-16: the mean of all node models, as a
-        param dict (views into one new (D,) vector)."""
-        return self.layout.row(state.params.mean(dim=0))
+        param dict (views into one new (D,) vector); over a process
+        group, an ``all_reduce`` of the ranks' row sums over N, the same
+        on every rank."""
+        if self.mesh is None or self.mesh.group is None:
+            return self.layout.row(state.params.mean(dim=0))
+        total = all_reduce_sum(state.params.sum(dim=0), self.mesh)
+        return self.layout.row(total / self.cfg.num_nodes)
 
     def _default_eval_metrics(self, pop_params, val_x, val_y) -> dict[str, torch.Tensor]:
         """The built-in streaming eval: the population's validation RMSE
@@ -560,12 +614,26 @@ class GluADFL:
         ``val_data``), and its dict joins that round's history record.
         ``engine="scan"`` syncs with the host once per ``chunk`` rounds
         (default :data:`DEFAULT_CHUNK`), ``"loop"`` once a round; the
-        history does not depend on either."""
+        history does not depend on either.
+
+        Over several processes (``launch.multihost.initialize``) every
+        rank calls this with the same arguments: the sharded mixer is
+        required, ``engine="loop"`` is refused as in the JAX package,
+        ``state`` holds the rank's rows (:meth:`shard_state`) and every
+        rank returns the same population and history."""
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            if engine == "loop":
+                raise NotImplementedError("engine='loop' is the single-process debug "
+                                          "fallback; multi-process runs use the scan engine")
+            self.plan.require_multihost()
         chunk = engine_chunk(engine, chunk, 0)[0]
         rounds = self.cfg.rounds if rounds is None else rounds
         data = self.to_device(x, y, counts)
         if state is None:
-            state = self.init(generator)
+            state = self.init_sharded(generator)
+        if state.params.shape[0] != data.x.shape[0]:
+            raise ValueError(f"state holds {state.params.shape[0]} rows, this process trains "
+                             f"{data.x.shape[0]} (pass shard_state(state) on the sharded mixer)")
         stream: Iterator[RoundDraws] | None = None if draws is None else iter(draws)
         val_x, val_y = self._val_tensors(val_data)
         do_eval = bool(eval_every) and (eval_fn is not None or val_data is not None)

@@ -39,7 +39,7 @@ def gossip_mix_sparse_tree(w: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor
 
 
 def gossip_dp_composed(mix_fn: Callable, premix: torch.Tensor, noise: torch.Tensor,
-                       operand, active: torch.Tensor) -> torch.Tensor:
+                       operand, active: torch.Tensor, rows: slice = slice(None)) -> torch.Tensor:
     """Local DP composed from a plain mix: neighbours mix the noised
     view ``premix + noise``, then each node re-adds its own clean
     self-contribution (``noise`` is already scaled by sigma).
@@ -49,12 +49,14 @@ def gossip_dp_composed(mix_fn: Callable, premix: torch.Tensor, noise: torch.Tens
     trainer's where-mask, as in the JAX package.  Sparse (``operand``
     the ``(idx, wgt)`` table, slot 0 self, so ``wgt[:, 0]`` is the
     diagonal): the same, and since the plain mix selected inactive rows
-    back to the noised view, they are restored to the clean premix."""
+    back to the noised view, they are restored to the clean premix.
+    ``premix`` and ``noise`` hold the global ``rows`` of a global
+    ``operand`` and ``active`` (a rank's block on the sharded mixer)."""
     mixed_noisy = mix_fn(premix + noise, operand, active)
     if isinstance(operand, tuple):
-        out = mixed_noisy - operand[1][:, :1] * noise
-        return torch.where(active[:, None] > 0, out, premix)
-    return mixed_noisy - torch.diagonal(operand, dim1=-2, dim2=-1).reshape(-1, 1) * noise
+        out = mixed_noisy - operand[1][rows, :1] * noise
+        return torch.where(active[rows, None] > 0, out, premix)
+    return mixed_noisy - torch.diagonal(operand, dim1=-2, dim2=-1).reshape(-1, 1)[rows] * noise
 
 
 def gossip_mix_masked(mixed: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,

@@ -1,34 +1,40 @@
-"""The gossip pipeline, resolved once per trainer: the single-process
-subset of ``repro.core.gossip_plan``.
+"""The gossip pipeline, resolved once per trainer (the counterpart of
+``repro.core.gossip_plan``).
 
 A :class:`GossipPlan` holds every knob decision:
 
   * the representation of the round's mixing operator, ``"dense"``
     (the (N, N) ``mixing_matrix``) or ``"sparse"`` (the (N, B+1)
-    neighbor table); ``"auto"`` picks sparse once ``N >= 4 (B + 1)``;
-  * the mixer: ``"tree"`` (the plain PyTorch reference contractions) or
-    ``"kernel"`` (the hand-written CUDA kernels on the card);
-  * the local-DP stage: the kernel mixer fuses noise, mix and the clean
-    self-restore into one pass; the tree mixer composes them
-    (noise-add -> mix -> self-restore), as the JAX package does;
-  * the gossip schedule, ``gossip_impl``: on one process every mix is
-    the JAX package's ``"allgather"`` schedule, and ``"masked"`` adds
-    the pairwise-mask cancellation term of ``core.secure_agg`` to the
-    final mixed state, after the DP stage, so a masked run is the
-    bitwise twin of its unmasked one on every mixer, representation
-    and DP setting.  ``"auto"`` resolves to ``"allgather"``
-    (:func:`choose_gossip_impl`).
+    neighbor table); ``"auto"`` picks sparse once ``N >= 4 (B + 1)``
+    (:func:`choose_gossip_repr`);
+  * the mix backend, from the registry below (:func:`mix_backends`):
+    ``"tree"`` (the plain PyTorch reference contractions), ``"kernel"``
+    (the hand-written CUDA kernels on the card), ``"sharded"`` (the
+    federation's rows split over ``torch.distributed`` ranks,
+    ``core.distributed``: the ``allgather``, ``psum`` and ``masked``
+    schedules) and ``"sharded_gather_tables"`` (the sharded mixer's
+    ``gather`` schedule, sparse only).  Each backend declares its
+    capabilities (:class:`BackendCaps`), and every refusal is raised
+    here, at resolution, from them;
+  * the local-DP stage: the kernel backend fuses noise, mix and the
+    clean self-restore into one pass; every other backend composes them
+    (noise-add -> mix -> self-restore), the sharded ones on the rank's
+    rows;
+  * the gossip schedule, ``gossip_impl``: the tree and kernel mixers
+    accept and ignore ``allgather``/``psum``; ``"masked"`` adds the
+    pairwise-mask cancellation term of ``core.secure_agg`` to the final
+    mixed state, after the DP stage, so a masked run is the bitwise twin
+    of its unmasked one on every backend, representation and DP
+    setting.  ``"auto"`` is resolved before the plan by
+    :func:`choose_gossip_impl`.
 
 The sweep engine (``GluADFL.train_sweep``) runs G scenarios' stacked
 ``(G·N, D)`` rows through :meth:`GossipPlan.sweep_gossip` on the tree
-mixer only, as the JAX package does (:meth:`GossipPlan.require_sweep`
-refuses the kernel mixer): the dense operator is a batched
-``(G, N, N) @ (G, N, D)``, the sparse one a single gather over the
-``(G·N, B+1)`` table with scenario g's indices offset by ``g·N``.
-
-The sharded mixer and the schedules that need it (``"psum"``,
-``"gather"``) are not ported yet and raise here, at construction;
-multi-host runs are refused by the training CLI.
+backend only (:meth:`GossipPlan.require_sweep` refuses the others): the
+dense operator is a batched ``(G, N, N) @ (G, N, D)``, the sparse one a
+single gather over the ``(G·N, B+1)`` table with scenario g's indices
+offset by ``g·N``.  The JAX package also batches the sharded backend
+over a ``(grid, node)`` mesh; the port's does not yet.
 """
 from __future__ import annotations
 
@@ -39,6 +45,14 @@ import torch
 
 from torch.profiler import record_function
 
+from repro_torch.core.distributed import (
+    GOSSIP_IMPLS,
+    GOSSIP_REPRS,
+    _default_federation_mesh,
+    sharded_gossip_mix,
+    sharded_gossip_mix_gather,
+    sharded_gossip_mix_sparse,
+)
 from repro_torch.core.gossip import (
     gossip_dp_composed,
     gossip_mix_masked,
@@ -48,53 +62,239 @@ from repro_torch.core.gossip import (
 from repro_torch.core.topology import mixing_matrix, neighbor_candidates, neighbor_table
 from repro_torch.kernels import ops
 
-MIXERS = ("tree", "kernel")
-GOSSIP_REPRS = ("dense", "sparse")
-NOT_PORTED_MIXERS = ("sharded",)
-GOSSIP_IMPLS = ("allgather", "masked")
-# the JAX package's schedules that only its sharded mixer runs
-SHARDED_IMPLS = ("psum", "gather")
+# the mixer knob's legal values (``gossip_impl="gather"`` reroutes the
+# sharded mixer to the sharded_gather_tables backend)
+MIXERS = ("tree", "kernel", "sharded")
 
-# the JAX package's refusal of a swept kernel mixer, in the port's terms
-SWEEP_REFUSAL = ("train_sweep batches the tree mixer; mixer='kernel' (the CUDA kernels) "
-                 "is a per-scenario program -- use serial train() for it")
+# the swept-sharded engine (the JAX package's (grid, node) mesh) is not ported yet
+SHARDED_SWEEP_REFUSAL = (
+    "train_sweep batches the tree mixer; the sharded mixer's swept engine (grid x node "
+    "process groups) is not ported to PyTorch yet -- use mixer='tree' for sweeps")
+
+
+class GossipPlanError(ValueError):
+    """A knob value or combination the registry does not resolve."""
+
+
+@dataclass(frozen=True)
+class BackendCaps:
+    """Declared capabilities of one registered mix backend."""
+
+    supports_sparse: bool
+    supports_dense: bool
+    supports_sweep_grid: bool
+    supports_multihost: bool
+    memory_class: str        # per-device working set of the contraction
+    fused_dp: bool           # noise + mix + self-restore in one pass
+    uses_mesh: bool          # runs over a FederationMesh's ranks
+
+
+@dataclass(frozen=True)
+class MixBackend:
+    """One registered mix backend: ``build(impl, sparse, mesh)`` returns
+    the plain mix ``mix(w, operand, active)`` with the schedule and the
+    mesh bound, so the round holds a plain closure."""
+
+    name: str
+    mixer: str                   # the mixer knob value this backend serves
+    impls: tuple[str, ...]       # wire schedules it accepts
+    caps: BackendCaps
+    build: Callable
+    summary: str
+    sweep_refusal: str | None = None   # message when supports_sweep_grid=False
+
+
+_REGISTRY: dict[str, MixBackend] = {}
+
+
+def register_mix_backend(backend: MixBackend) -> MixBackend:
+    """Register a mix backend (the latest registration of a name wins)."""
+    _REGISTRY[backend.name] = backend
+    return backend
+
+
+def mix_backends() -> dict[str, MixBackend]:
+    """A copy of the backend registry, keyed by backend name."""
+    return dict(_REGISTRY)
+
+
+def _build_tree(impl, sparse, mesh):
+    if sparse:
+        return lambda w, op, active: gossip_mix_sparse_tree(w, op[0], op[1], active)
+    # dense identity rows already encode inactivity, as in the JAX tree path
+    return lambda w, op, active: gossip_mix_tree(w, op)
+
+
+def _build_kernel(impl, sparse, mesh):
+    if sparse:
+        return lambda w, op, active: ops.gossip_mix_sparse(op[0], op[1], w, active)
+    return lambda w, op, active: ops.gossip_mix(op, w, active)
+
+
+def _build_sharded(impl, sparse, mesh):
+    if sparse:
+        return lambda w, op, active: sharded_gossip_mix_sparse(w, op[0], op[1], active,
+                                                               mesh=mesh)
+    # dense identity rows already encode inactivity: no active mask
+    return lambda w, op, active: sharded_gossip_mix(w, op, mesh=mesh, impl=impl)
+
+
+def _build_gather_tables(impl, sparse, mesh):
+    return lambda w, op, active: sharded_gossip_mix_gather(w, op[0], op[1], active, mesh=mesh)
+
+
+register_mix_backend(MixBackend(
+    name="tree",
+    mixer="tree",
+    # the schedule only matters to the sharded mixer; tree and kernel
+    # accept every schedule but gather and ignore it (masked composes
+    # through the cancellation term either way)
+    impls=("allgather", "psum", "masked"),
+    caps=BackendCaps(
+        supports_sparse=True, supports_dense=True,
+        supports_sweep_grid=True, supports_multihost=False,
+        memory_class="one process, O(N·D)", fused_dp=False, uses_mesh=False,
+    ),
+    build=_build_tree,
+    summary="plain PyTorch contraction of the (N, D) matrix (the CPU path)",
+))
+
+register_mix_backend(MixBackend(
+    name="kernel",
+    mixer="kernel",
+    impls=("allgather", "psum", "masked"),
+    caps=BackendCaps(
+        supports_sparse=True, supports_dense=True,
+        supports_sweep_grid=False, supports_multihost=False,
+        memory_class="one device, O(N·D), column tiles in shared memory", fused_dp=True,
+        uses_mesh=False,
+    ),
+    build=_build_kernel,
+    summary="hand-written CUDA kernels (kernels.ops); fuse the local-DP pass",
+    sweep_refusal=("train_sweep batches the tree mixer; mixer='kernel' (the CUDA kernels) "
+                   "is a per-scenario program -- use serial train() for it"),
+))
+
+register_mix_backend(MixBackend(
+    name="sharded",
+    mixer="sharded",
+    impls=("allgather", "psum", "masked"),
+    caps=BackendCaps(
+        supports_sparse=True, supports_dense=True,
+        supports_sweep_grid=False, supports_multihost=True,
+        memory_class="allgather O(N·D) / psum O(N/W·D) per rank",
+        fused_dp=False, uses_mesh=True,
+    ),
+    build=_build_sharded,
+    summary="torch.distributed collectives over the ranks' row blocks",
+    sweep_refusal=SHARDED_SWEEP_REFUSAL,
+))
+
+register_mix_backend(MixBackend(
+    name="sharded_gather_tables",
+    mixer="sharded",
+    impls=("gather",),
+    caps=BackendCaps(
+        supports_sparse=True, supports_dense=False,
+        supports_sweep_grid=False, supports_multihost=True,
+        memory_class="two row blocks O(N/W·D) per rank, no gathered (N·D)",
+        fused_dp=False, uses_mesh=True,
+    ),
+    build=_build_gather_tables,
+    summary="ranks' (N/W, B+1) table rows + send/recv ring rotation of the row blocks",
+    sweep_refusal=SHARDED_SWEEP_REFUSAL,
+))
+
+
+def _backend_for(mixer: str, gossip_impl: str) -> MixBackend:
+    """Route (mixer, impl) to a registered backend, or raise."""
+    for backend in _REGISTRY.values():
+        if backend.mixer == mixer and gossip_impl in backend.impls:
+            return backend
+    takers = sorted(b.mixer for b in _REGISTRY.values() if gossip_impl in b.impls)
+    raise GossipPlanError(
+        f"gossip_impl {gossip_impl!r} has no backend for mixer={mixer!r}"
+        + (f" (it needs mixer in {takers})" if takers else ""))
+
+
+# per-rank budget for the gathered (N, D) federation before the
+# allgather schedule's memory outweighs its one dense collective
+DEFAULT_GATHER_BUDGET_BYTES = 1 << 30
+
+
+def choose_gossip_impl(num_nodes: int, param_bytes_per_node: int, *, shards: int | None = None,
+                       budget_bytes: int = DEFAULT_GATHER_BUDGET_BYTES,
+                       secure: bool = False) -> str:
+    """``--gossip-impl auto``: ``"allgather"`` while the gathered
+    federation, ``num_nodes * param_bytes_per_node`` bytes on every
+    rank, fits ``budget_bytes`` (or there is one shard), else ``"psum"``
+    (O(N/shards · D) a rank).  ``shards`` defaults to the federation
+    mesh's width.  ``secure=True`` gives ``"masked"``, which rides the
+    allgather schedule, and raises rather than drop the privacy layer
+    when the gathered federation exceeds the budget over several
+    shards."""
+    if shards is None:
+        shards = _default_federation_mesh(num_nodes).width
+    gathered = num_nodes * param_bytes_per_node
+    if secure:
+        if shards > 1 and gathered > budget_bytes:
+            raise GossipPlanError(
+                f"secure (masked) gossip rides the allgather schedule, but the gathered "
+                f"federation ({gathered} bytes) exceeds the per-rank budget ({budget_bytes}); "
+                f"shrink the model or raise budget_bytes")
+        return "masked"
+    if shards <= 1:
+        return "allgather"
+    return "allgather" if gathered <= budget_bytes else "psum"
+
 
 # sparse tables win once the kept row (B+1 entries) is a small fraction
 # of N; 4x covers the gather bookkeeping the dense matmul doesn't pay
 SPARSE_GOSSIP_FACTOR = 4
 
 
-class GossipPlanError(ValueError):
-    """A knob value or combination this port does not run."""
-
-
-def choose_gossip_repr(num_nodes: int, comm_batch: int, *,
-                       factor: int = SPARSE_GOSSIP_FACTOR) -> str:
+def choose_gossip_repr(num_nodes: int, comm_batch: int, *, factor: int = SPARSE_GOSSIP_FACTOR,
+                       mesh=None, budget_bytes: int = DEFAULT_GATHER_BUDGET_BYTES) -> str:
     """``--gossip-repr auto``: the sparse table once
     ``num_nodes >= factor * (comm_batch + 1)`` (sparse at the paper's
-    N=226, B=7; dense at ohiot1dm's N=12)."""
-    return "sparse" if num_nodes >= factor * (comm_batch + 1) else "dense"
-
-
-def choose_gossip_impl(*, secure: bool = False) -> str:
-    """``--gossip-impl auto`` on one process: ``"masked"`` when secure
-    aggregation is asked for, else ``"allgather"`` (the JAX package's
-    answer with one shard, where the gathered federation always fits)."""
-    return "masked" if secure else "allgather"
+    N=226, B=7; dense at ohiot1dm's N=12).  With a federation ``mesh``,
+    sparse is also forced once a rank's (N/W, N) fp32 block of the
+    dense matrix alone outgrows ``budget_bytes``."""
+    if num_nodes >= factor * (comm_batch + 1):
+        return "sparse"
+    if mesh is not None and (num_nodes // mesh.width) * num_nodes * 4 > budget_bytes:
+        return "sparse"
+    return "dense"
 
 
 @dataclass(frozen=True, eq=False)
 class GossipPlan:
     """One resolved mixing pipeline; the round calls :meth:`build_repr`
-    and :meth:`gossip`."""
+    and :meth:`gossip`.  On a sharded backend the params handed to
+    :meth:`gossip` are the rank's rows ``mesh.rows`` and the operator
+    and activity are global."""
 
     mixer: str
+    backend: str                     # registered backend name
     gossip_repr: str                 # "dense" | "sparse", never "auto"
-    gossip_impl: str                 # "allgather" | "masked", never "auto"
+    gossip_impl: str                 # never "auto"
     comm_batch: int
+    caps: BackendCaps
+    mesh: Any = None                 # FederationMesh of a sharded backend
     neighbor_cand: Any = None        # static-topology candidates (sparse)
     _mix: Callable = None
     _dp: Callable = None
+    _sweep_refusal: str | None = None
+
+    @property
+    def masked(self) -> bool:
+        return self.gossip_impl == "masked"
+
+    @property
+    def rows(self) -> slice:
+        """The global rows this process's params hold (all of them off
+        the sharded backends)."""
+        return slice(None) if self.mesh is None else self.mesh.rows
 
     def build_repr(self, adj: torch.Tensor, active: torch.Tensor):
         """The round's operator: the (N, N) matrix or the ``(idx, wgt)``
@@ -103,15 +303,18 @@ class GossipPlan:
             return neighbor_table(adj, active, self.comm_batch)
         return mixing_matrix(adj, active, self.comm_batch)
 
-    @property
-    def masked(self) -> bool:
-        return self.gossip_impl == "masked"
-
     def require_sweep(self) -> None:
-        """Raise the JAX package's refusal unless the plan's mixer can
-        batch a sweep grid (the tree mixer)."""
-        if self.mixer != "tree":
-            raise NotImplementedError(SWEEP_REFUSAL)
+        """Raise the backend's refusal unless it can batch a sweep grid."""
+        if not self.caps.supports_sweep_grid:
+            raise NotImplementedError(self._sweep_refusal
+                                      or f"backend {self.backend!r} does not support train_sweep")
+
+    def require_multihost(self) -> None:
+        """Raise unless the backend spans processes (a run over several
+        ranks needs the node axis split over them)."""
+        if not self.caps.supports_multihost:
+            raise ValueError(f"multi-process training needs mixer='sharded' (the node axis "
+                             f"must span the ranks), got mixer={self.mixer!r}")
 
     def mask_table(self, operand, adj: torch.Tensor | None, active: torch.Tensor):
         """The (N, B+1) neighbor table the masks are drawn over: the
@@ -125,11 +328,13 @@ class GossipPlan:
 
     def gossip(self, premix: torch.Tensor, operand, active: torch.Tensor,
                noise: torch.Tensor | None = None, mask_ctx=None) -> torch.Tensor:
-        """One round's mixing step; ``noise`` is the (N, D) DP noise
-        already scaled by sigma, or None when DP is off.  ``mask_ctx``,
-        ``(mask source, adjacency)`` on a masked plan, adds the
-        cancellation term after the mix and the DP stage, inside a
-        ``round.secure_mask`` span (the table, the masks and the term)."""
+        """One round's mixing step; ``noise`` is the DP noise of
+        ``premix``'s rows already scaled by sigma, or None when DP is
+        off.  ``mask_ctx``, ``(mask source, adjacency)`` on a masked
+        plan, adds the cancellation term of this process's rows after
+        the mix and the DP stage, inside a ``round.secure_mask`` span
+        (the table, the masks and the term); the source draws the whole
+        round's masks, so every rank's masks are those of one process."""
         if noise is None:
             out = self._mix(premix, operand, active)
         else:
@@ -138,7 +343,8 @@ class GossipPlan:
             source, adj = mask_ctx
             with record_function("round.secure_mask"):
                 idx, wgt = self.mask_table(operand, adj, active)
-                out = gossip_mix_masked(out, idx, wgt, source(idx, wgt))
+                rows = self.rows
+                out = gossip_mix_masked(out, idx[rows], wgt[rows], source(idx, wgt)[rows])
         return out
 
     def sweep_gossip(self, premix: torch.Tensor, operand, active: torch.Tensor,
@@ -171,29 +377,19 @@ class GossipPlan:
         return out
 
 
-def _tree_stages(sparse: bool) -> tuple[Callable, Callable]:
-    """The tree mixer: the reference contractions, DP composed."""
-    if sparse:
-        def mix(w, op, active):
-            return gossip_mix_sparse_tree(w, op[0], op[1], active)
-    else:
-        def mix(w, op, active):
-            # dense identity rows already encode inactivity, as in the JAX tree path
-            return gossip_mix_tree(w, op)
+def _resolve_dp_stage(backend: MixBackend, sparse: bool, mix_fn: Callable, rows: slice):
+    """The DP stage: the kernel backend's fused kernels; every other
+    backend composes noise-add -> mix -> self-restore
+    (``core.gossip.gossip_dp_composed``) on the ``rows`` its params hold."""
+    if backend.caps.fused_dp:
+        if sparse:
+            return lambda premix, noise, op, active: ops.gossip_mix_sparse_dp(
+                op[0], op[1], premix, noise, active)
+        return lambda premix, noise, op, active: ops.gossip_mix_dp(op, premix, noise, active)
 
     def dp(premix, noise, op, active):
-        return gossip_dp_composed(mix, premix, noise, op, active)
-    return mix, dp
-
-
-def _kernel_stages(sparse: bool) -> tuple[Callable, Callable]:
-    """The kernel mixer: ``kernels.ops``, DP fused into the kernel."""
-    if sparse:
-        return (lambda w, op, active: ops.gossip_mix_sparse(op[0], op[1], w, active),
-                lambda premix, noise, op, active: ops.gossip_mix_sparse_dp(
-                    op[0], op[1], premix, noise, active))
-    return (lambda w, op, active: ops.gossip_mix(op, w, active),
-            lambda premix, noise, op, active: ops.gossip_mix_dp(op, premix, noise, active))
+        return gossip_dp_composed(mix_fn, premix, noise, op, active, rows)
+    return dp
 
 
 def resolve_gossip_plan(
@@ -205,35 +401,66 @@ def resolve_gossip_plan(
     comm_batch: int,
     topology: str | None = None,
     cluster_size: int = 4,
+    mesh=None,
     device=None,
 ) -> GossipPlan:
     """Resolve the knobs into a :class:`GossipPlan`, or raise
-    :class:`GossipPlanError` naming the knob.  For a static topology
-    under the sparse representation, the neighbor candidates are built
-    here once (on ``device``), so no (N, N) array is built per round."""
+    :class:`GossipPlanError` naming the knob.  A sharded backend runs
+    over ``mesh`` (default: the federation mesh of the default process
+    group).  For a static topology under the sparse representation, the
+    neighbor candidates are built here once (on ``device``), so no
+    (N, N) array is built per round."""
     mixer = "tree" if mixer is None else mixer
-    if mixer in NOT_PORTED_MIXERS:
-        raise GossipPlanError(f"mixer={mixer!r} is not ported to PyTorch yet; this port "
-                              f"runs mixer in {MIXERS} on one process")
     if mixer not in MIXERS:
         raise GossipPlanError(f"mixer {mixer!r} not in {MIXERS}")
-    if gossip_impl == "auto":
-        gossip_impl = choose_gossip_impl()
-    if gossip_impl in SHARDED_IMPLS:
-        raise GossipPlanError(f"gossip_impl={gossip_impl!r} needs the sharded mixer, which is "
-                              f"not ported to PyTorch yet; this port runs gossip_impl in "
-                              f"{GOSSIP_IMPLS} on one process")
     if gossip_impl not in GOSSIP_IMPLS:
-        raise GossipPlanError(f"gossip_impl {gossip_impl!r} not in {GOSSIP_IMPLS} or 'auto'")
+        raise GossipPlanError(f"gossip_impl {gossip_impl!r} not in {GOSSIP_IMPLS}; 'auto' "
+                              f"resolves through choose_gossip_impl before the plan")
     if gossip_repr == "auto":
-        gossip_repr = choose_gossip_repr(num_nodes, comm_batch)
+        gossip_repr = choose_gossip_repr(num_nodes, comm_batch, mesh=mesh)
     if gossip_repr not in GOSSIP_REPRS:
         raise GossipPlanError(f"gossip_repr {gossip_repr!r} not in {GOSSIP_REPRS} or 'auto'")
+    backend = _backend_for(mixer, gossip_impl)
     sparse = gossip_repr == "sparse"
-    mix_fn, dp_fn = (_kernel_stages if mixer == "kernel" else _tree_stages)(sparse)
+    if not (backend.caps.supports_sparse if sparse else backend.caps.supports_dense):
+        raise GossipPlanError(
+            f"gossip_impl {gossip_impl!r} (backend {backend.name!r}) needs gossip_repr='sparse': "
+            f"the gather-table schedule shards the (N, B+1) neighbor tables -- there is no "
+            f"dense (N, N) variant")
+    if backend.caps.uses_mesh:
+        mesh = mesh or _default_federation_mesh(num_nodes, device)
+    else:
+        mesh = None
+    mix_fn = backend.build(gossip_impl, sparse, mesh)
+    dp_fn = _resolve_dp_stage(backend, sparse, mix_fn, slice(None) if mesh is None else mesh.rows)
     cand = None
     if sparse and topology is not None:
         cand = neighbor_candidates(topology, num_nodes, cluster_size)
         if cand is not None and device is not None:
             cand = tuple(t.to(device) for t in cand)
-    return GossipPlan(mixer, gossip_repr, gossip_impl, comm_batch, cand, mix_fn, dp_fn)
+    return GossipPlan(mixer, backend.name, gossip_repr, gossip_impl, comm_batch, backend.caps,
+                      mesh, cand, mix_fn, dp_fn, backend.sweep_refusal)
+
+
+def supported_cells() -> list[dict]:
+    """Every (mixer, gossip_impl, gossip_repr) cell the registry
+    resolves, with its backend name and capabilities."""
+    cells = []
+    for mixer in MIXERS:
+        for impl in GOSSIP_IMPLS:
+            for repr_ in GOSSIP_REPRS:
+                try:
+                    plan = resolve_gossip_plan(mixer=mixer, gossip_impl=impl, gossip_repr=repr_,
+                                               num_nodes=8, comm_batch=2)
+                except GossipPlanError:
+                    continue
+                cells.append({
+                    "mixer": mixer,
+                    "gossip_impl": impl,
+                    "gossip_repr": repr_,
+                    "backend": plan.backend,
+                    "sweep": plan.caps.supports_sweep_grid,
+                    "multihost": plan.caps.supports_multihost,
+                    "memory_class": plan.caps.memory_class,
+                })
+    return cells

@@ -39,7 +39,10 @@ vector for it:
 
 A sweep gives each scenario a source of its own
 (:func:`sweep_mask_sources`), seeded as a serial run with the
-scenario's seed would seed it.
+scenario's seed would seed it.  On the sharded mixer every rank's
+source draws the whole round's masks from the same seed, and each rank
+adds the cancellation term of its own rows (``GossipPlan.gossip``), so
+a masked sharded run is bitwise its unmasked twin as on one process.
 
 The trainer never materializes wires: it mixes plainly and adds
 :func:`masked_mix_zero`, computed term by term so that each pair

@@ -1,9 +1,10 @@
-"""Federated training launcher, the paper's experiment end to end, on
-one process (the counterpart of ``repro.launch.train``).
+"""Federated training launcher, the paper's experiment end to end (the
+counterpart of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --dataset replace-bg --topology random --rounds 200 \\
-        [--mixer kernel] [--eval-every 16] [--device cpu] \\
+        [--mixer kernel|sharded] [--eval-every 16] [--device cpu] \\
+        [--num-processes W --process-id r --coordinator host:port] \\
         [fl.comm_batch=7 train.lr=1e-3 ...]
 
 Loads the synthetic-twin dataset, trains GluADFL, prints the population
@@ -14,13 +15,19 @@ packages' ``load_population`` read.
 
   * ``--device`` (default ``cuda``) raises without a GPU unless ``cpu``;
   * ``--mixer tree`` mixes with plain PyTorch, ``--mixer kernel`` with
-    the hand-written CUDA kernels (their plain twins on the CPU);
+    the hand-written CUDA kernels (their plain twins on the CPU),
+    ``--mixer sharded`` over the ranks of a process group
+    (``core.distributed``; on one process, bitwise the tree mixer);
   * ``--gossip-repr auto`` (default) picks the sparse neighbor table
     once N >= 4 (B+1): sparse at replace-bg's N=226, dense at
     ohiot1dm's N=12;
-  * ``--gossip-impl masked`` adds pairwise-masked secure aggregation
-    (``core.secure_agg``; bitwise the unmasked run from the same seed);
-    ``allgather`` (default) and ``auto`` mix plainly;
+  * ``--gossip-impl`` picks the sharded mixer's schedule: ``allgather``
+    (default), ``psum`` (reduce-scatter), ``gather`` (ring rotations of
+    the row blocks; sparse only) or ``auto`` (allgather while the
+    gathered federation fits 1 GiB a rank, else psum); tree and kernel
+    ignore it.  ``masked`` adds pairwise-masked secure aggregation
+    (``core.secure_agg``; bitwise the unmasked run from the same seed)
+    on any mixer;
   * ``--chunk K`` rounds between host syncs (0 = every round, as
     ``--engine loop``); ``--eval-every K`` adds the population's val
     RMSE every K rounds.
@@ -36,9 +43,17 @@ of the G population models per patient; instead of a checkpoint, the
 launcher writes the per-scenario summary
 ``<out>/sweep_<dataset>_<topology>.json``, the JAX launcher's records.
 
-Not ported yet, and refused with exit code 2: multi-host runs,
-``--mixer sharded``, the sharded schedules ``--gossip-impl psum`` and
-``gather``, and the deprecated ``--use-kernel``.
+Multi-process runs: ``--num-processes W --process-id r --coordinator
+host:port`` (or the ``REPRO_NUM_PROCESSES`` / ``REPRO_PROCESS_ID`` /
+``REPRO_COORDINATOR`` environment), one process a rank, started W times
+with the same flags (``launch.multihost.initialize``: NCCL, one card a
+rank, on CUDA; gloo with ``--device cpu``).  The mixer becomes
+``sharded`` (with a note if another was asked for), each rank trains its
+N / W rows, and rank 0 alone prints the per-patient report and writes
+the checkpoint.  They refuse ``--engine loop``/``--chunk 0`` and sweeps
+(scenario sweeps are single-process), and N must divide by W.  A sweep
+with ``--mixer sharded`` is refused too: the swept-sharded engine is not
+ported yet.  The deprecated ``--use-kernel`` is refused, exit code 2.
 """
 from __future__ import annotations
 
@@ -62,14 +77,15 @@ from repro_torch.core import (
 )
 from repro_torch.data import load_federated_dataset
 from repro_torch.device import resolve_device
+from repro_torch.launch import multihost
 from repro_torch.metrics import all_metrics
 from repro_torch.models import LSTMModel
 from repro_torch.optim import get_optimizer
 from repro_torch.utils.pytree import tree_to_vector
 
 # flags of the JAX launcher whose paths are not ported: any use exits 2
-NOT_PORTED_FLAGS = ("--coordinator", "--num-processes", "--process-id", "--use-kernel")
-NOT_PORTED_REASON = "multi-host runs and the deprecated --use-kernel"
+NOT_PORTED_FLAGS = ("--use-kernel",)
+NOT_PORTED_REASON = "the deprecated --use-kernel"
 
 
 def save_checkpoint(path: Path, params: dict[str, torch.Tensor]) -> None:
@@ -111,7 +127,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hidden", type=int, default=128)
     ap.add_argument("--fast-data", action="store_true", help="6-day synthetic series (CI scale)")
     ap.add_argument("--mixer", default="tree", choices=["tree", "kernel", "sharded"],
-                    help="gossip mixer: tree (plain PyTorch) or kernel (CUDA kernels)")
+                    help="gossip mixer: tree (plain PyTorch), kernel (CUDA kernels) or "
+                         "sharded (the rows split over the process group's ranks)")
     ap.add_argument("--chunk", type=int, default=None,
                     help="rounds between host syncs; 0 = every round (the loop engine)")
     ap.add_argument("--engine", default="scan", choices=["scan", "loop"],
@@ -134,6 +151,12 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["allgather", "psum", "masked", "gather", "auto"])
     ap.add_argument("--gossip-repr", default="auto", choices=["dense", "sparse", "auto"])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0's rendezvous (or REPRO_COORDINATOR)")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="processes in the run, one rank each (or REPRO_NUM_PROCESSES)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank (or REPRO_PROCESS_ID)")
     ap.add_argument("--out", default="experiments/checkpoints")
     ap.add_argument("overrides", nargs="*", help="cfg overrides a.b=c")
     return ap
@@ -149,7 +172,7 @@ class TrainRun:
     trainer: GluADFL
     population: dict
     history: list
-    checkpoint: Path
+    checkpoint: Path | None    # None on a rank other than 0
     seconds: float
     summary: list | None = None
 
@@ -164,6 +187,8 @@ def main(argv: list[str] | None = None) -> int:
     except Refused as e:
         print(f"repro_torch.launch.train: {e}", file=sys.stderr)
         return 2
+    finally:
+        multihost.shutdown()
     return 0
 
 
@@ -175,10 +200,20 @@ def run(argv: list[str] | None = None) -> TrainRun:
             raise Refused(f"{arg.split('=')[0]} is not ported to PyTorch yet "
                           f"({NOT_PORTED_REASON}; use --mixer kernel)")
     args = build_parser().parse_args(argv)
-    if args.mixer == "sharded":
-        raise Refused("--mixer sharded is not ported to PyTorch yet; use tree or kernel")
-    sweep_ratios, sweep_axes = parse_sweep(args)
     device = resolve_device(args.device)
+    # before anything reads the world: the mesh, the auto gossip-impl
+    distributed = multihost.initialize(args.coordinator, args.num_processes, args.process_id,
+                                       device=device)
+    sweep_ratios, sweep_axes = parse_sweep(args, distributed)
+    if distributed:
+        print(f"multihost: process {torch.distributed.get_rank()}/"
+              f"{torch.distributed.get_world_size()} on {device}")
+        if args.mixer != "sharded":
+            print(f"multihost: overriding --mixer {args.mixer} -> sharded "
+                  f"(the node axis must span the processes)")
+        args.mixer = "sharded"
+        if args.engine == "loop" or args.chunk == 0:
+            raise Refused("multihost runs need the scan engine (drop --engine loop / --chunk 0)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -195,7 +230,9 @@ def run(argv: list[str] | None = None) -> TrainRun:
         print(f"gossip-repr auto -> {gossip_repr}")
     gossip_impl = args.gossip_impl
     if gossip_impl == "auto":
-        gossip_impl = choose_gossip_impl()
+        p0 = lstm.init(torch.Generator().manual_seed(0))
+        node_bytes = sum(v.numel() * v.element_size() for v in p0.values())
+        gossip_impl = choose_gossip_impl(fed.num_nodes, node_bytes)
         print(f"gossip-impl auto -> {gossip_impl}")
     try:
         trainer = GluADFL(lstm.as_model(), get_optimizer(cfg.train.optimizer, cfg.train.lr),
@@ -225,6 +262,9 @@ def run(argv: list[str] | None = None) -> TrainRun:
         eval_every=args.eval_every, val_data=val_data,
     )
     seconds = time.perf_counter() - t0
+    if not multihost.is_primary():  # every rank holds the same history and population
+        multihost.barrier()
+        return TrainRun(trainer, pop, hist, None, seconds)
     print(f"round 0 loss {hist[0]['loss']:.4f} -> round {len(hist) - 1} "
           f"loss {hist[-1]['loss']:.4f}  ({len(hist) / seconds:.2f} rounds/s on {device})")
     evals = [h for h in hist if "val_rmse" in h]
@@ -248,12 +288,14 @@ def run(argv: list[str] | None = None) -> TrainRun:
     ckpt = out / f"gluadfl_{args.dataset}_{args.topology}.npz"
     save_checkpoint(ckpt, pop)
     print(f"checkpoint -> {ckpt}")
+    multihost.barrier()
     return TrainRun(trainer, pop, hist, ckpt, seconds)
 
 
-def parse_sweep(args) -> tuple[list[float] | None, dict]:
+def parse_sweep(args, distributed: bool = False) -> tuple[list[float] | None, dict]:
     """The sweep flags: the ratios (None when no sweep is asked for) and
-    the armed optional axes; the JAX launcher's refusals, exit 2."""
+    the armed optional axes; the JAX launcher's refusals, and the
+    sharded mixer's (not ported for sweeps yet), exit 2."""
     if args.sweep_ratios is None:
         if args.sweep_schedules or args.sweep_skews or args.sweep_dp_sigmas:
             raise Refused("--sweep-schedules/--sweep-skews/--sweep-dp-sigmas extend the "
@@ -271,9 +313,15 @@ def parse_sweep(args) -> tuple[list[float] | None, dict]:
         axes["skews"] = tuple(float(v) for v in args.sweep_skews.split(",") if v)
     if args.sweep_dp_sigmas:
         axes["dp_sigmas"] = tuple(float(v) for v in args.sweep_dp_sigmas.split(",") if v)
+    if distributed:
+        raise Refused("scenario sweeps are single-process (drop --num-processes or "
+                      "--sweep-ratios)")
     if args.mixer == "kernel":
         raise Refused("scenario sweeps batch the tree mixer; the kernel mixer is "
                       "per-scenario (drop --mixer kernel)")
+    if args.mixer == "sharded":
+        raise Refused("scenario sweeps batch the tree mixer; the swept-sharded engine (grid x "
+                      "node process groups) is not ported to PyTorch yet (drop --mixer sharded)")
     if args.engine == "loop" or args.chunk == 0:
         raise Refused("scenario sweeps need the scan engine (drop --engine loop / --chunk 0)")
     return ratios, axes

@@ -41,6 +41,14 @@ class RoundDraws:
     batch_idx: torch.Tensor
     dp_noise: torch.Tensor | None = None
 
+    def rows(self, lo: int, hi: int) -> "RoundDraws":
+        """The draws of nodes ``lo..hi-1``: each field's rows (a rank's
+        block of a round drawn for the whole federation)."""
+        def cut(t):
+            return None if t is None else t[lo:hi]
+        return RoundDraws(cut(self.u_act), cut(self.scores), cut(self.batch_idx),
+                          cut(self.dp_noise))
+
 
 def draw_round(
     generator: torch.Generator,

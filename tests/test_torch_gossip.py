@@ -215,6 +215,13 @@ def test_auto_repr_and_static_candidates():
     (dict(gossip_repr="csr"), "gossip_repr 'csr'"),
 ])
 def test_plan_refuses_what_is_not_ported(knobs, word):
+    """Unknown knob values are refused, naming the knob; the sharded
+    mixer, refused before it was ported, resolves to the sharded backend
+    on the one-process mesh."""
+    if knobs.get("mixer") == "sharded":
+        plan = gossip_plan.resolve_gossip_plan(num_nodes=8, comm_batch=2, **knobs)
+        assert (plan.backend, plan.mesh.width, plan.rows) == ("sharded", 1, slice(0, 8))
+        return
     with pytest.raises(gossip_plan.GossipPlanError, match=word):
         gossip_plan.resolve_gossip_plan(num_nodes=8, comm_batch=2, **knobs)
 

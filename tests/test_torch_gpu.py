@@ -10,8 +10,9 @@ against the same sweep on the CPU, a streaming ``eval_fn`` on the card
 against the CPU and Fig 4's eval launches, the baselines (FedAvg and
 MAML/MetaSGD on the card against the CPU from one set of draws, the
 Table-4 evaluation through ``lstm_forward``, at REPLACE-BG's pooled
-R=71,317 val windows too), and the banded branch of ``gqa_attention``
-and a small LM prefill through ``swa_attention``.
+R=71,317 val windows too), the banded branch of ``gqa_attention``
+and a small LM prefill through ``swa_attention``, and a round of the
+sharded mixer over a one-rank NCCL group bitwise the tree mixer's.
 
 These tests need a CUDA device and skip elsewhere (decided inside the
 ``cuda`` fixture).  They import neither ``jax`` nor ``repro``, so they
@@ -725,3 +726,45 @@ def test_baseline_trainers_need_a_device_unless_the_cpu_is_asked_for(cuda, monke
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
         make(device="cpu")
+
+
+@pytest.mark.parametrize("impl,repr_,sigma", [("allgather", "sparse", 0.0), ("psum", "dense", 0.0),
+                                              ("masked", "sparse", 0.01), ("gather", "sparse", 0.0)])
+def test_one_rank_nccl_sharded_round_is_bitwise_the_tree_round(cuda, impl, repr_, sigma):
+    """A round of ``mixer="sharded"`` over a one-rank NCCL group (its
+    all-gather and reduce-scatter copies on the card) from the tree
+    mixer's state and draws: params, optimizer rows and loss bitwise."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    n = 40
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(n, 64, L)).astype(np.float32)
+    y = x[:, :, -1].copy()
+    counts = np.full(n, 64, np.int32)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                            timeout=timedelta(seconds=120))
+    try:
+        def trainer(mixer, gossip_impl):
+            return GluADFL(LSTMModel(hidden=32).as_model(), adam(1e-3),
+                           FLConfig(num_nodes=n, inactive_ratio=0.3), mixer=mixer,
+                           gossip_impl=gossip_impl, gossip_repr=repr_, dp_noise_sigma=sigma)
+        tree, shard = trainer("tree", "allgather"), trainer("sharded", impl)
+        assert shard.mesh.group is not None and shard.mesh.width == 1
+        state = tree.init(torch.Generator(device=cuda).manual_seed(3))
+        data = tree.to_device(x, y, counts)
+        draws = tree.draw(torch.Generator(device=cuda).manual_seed(4), data, 16)
+        before = dict(gossip_kernels.LAUNCHES)
+        a, la = tree.round(state, data, draws)
+        b, lb = shard.round(shard.shard_state(state), shard.to_device(x, y, counts), draws)
+        assert gossip_kernels.LAUNCHES == before
+        assert torch.equal(a.params, b.params) and torch.equal(la, lb)
+        assert all(torch.equal(a.opt_state[k], b.opt_state[k]) for k in a.opt_state)
+        assert torch.equal(a.staleness, b.staleness)
+    finally:
+        dist.destroy_process_group()

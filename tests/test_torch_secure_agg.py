@@ -282,14 +282,31 @@ def test_masked_round_matches_jax_masked_round(repr_, topology):
 
 
 def test_choose_gossip_impl_and_the_sharded_schedules():
-    assert choose_gossip_impl(secure=True) == "masked"
-    assert choose_gossip_impl() == "allgather"
-    plan = resolve_gossip_plan(gossip_impl="auto", num_nodes=8, comm_batch=2)
+    """``choose_gossip_impl(N, bytes a node)`` as the JAX package's:
+    masked when secure, allgather on one shard or while the gathered
+    federation fits the budget, psum past it, and a secure request past
+    it refused.  The plan takes ``psum`` on any mixer and ``gather``
+    only on the sharded one."""
+    assert choose_gossip_impl(8, 1000, secure=True) == "masked"
+    assert choose_gossip_impl(8, 1000) == "allgather"  # the one-process mesh: one shard
+    assert choose_gossip_impl(8, 1 << 40, shards=1) == "allgather"
+    assert choose_gossip_impl(8, 1000, shards=2, budget_bytes=8000) == "allgather"
+    assert choose_gossip_impl(8, 1001, shards=2, budget_bytes=8000) == "psum"
+    with pytest.raises(GossipPlanError, match="budget"):
+        choose_gossip_impl(8, 1001, shards=2, budget_bytes=8000, secure=True)
+    plan = resolve_gossip_plan(gossip_impl="allgather", num_nodes=8, comm_batch=2)
     assert plan.gossip_impl == "allgather" and not plan.masked
     assert resolve_gossip_plan(gossip_impl="masked", num_nodes=8, comm_batch=2).masked
-    for impl in ("psum", "gather"):
-        with pytest.raises(GossipPlanError, match="sharded mixer"):
-            resolve_gossip_plan(gossip_impl=impl, num_nodes=8, comm_batch=2)
+    with pytest.raises(GossipPlanError, match="'auto' resolves through choose_gossip_impl"):
+        resolve_gossip_plan(gossip_impl="auto", num_nodes=8, comm_batch=2)
+    assert resolve_gossip_plan(gossip_impl="psum", num_nodes=8, comm_batch=2).backend == "tree"
+    with pytest.raises(GossipPlanError, match="needs mixer in \\['sharded'\\]"):
+        resolve_gossip_plan(gossip_impl="gather", num_nodes=8, comm_batch=2)
+    plan = resolve_gossip_plan(mixer="sharded", gossip_impl="gather", gossip_repr="sparse",
+                               num_nodes=8, comm_batch=2)
+    assert plan.backend == "sharded_gather_tables"
+    with pytest.raises(GossipPlanError, match="needs gossip_repr='sparse'"):
+        resolve_gossip_plan(mixer="sharded", gossip_impl="gather", num_nodes=8, comm_batch=2)
     cfg = FLConfig(num_nodes=4, comm_batch=2)
     with pytest.raises(GossipPlanError):
         GluADFL(LSTMModel(hidden=4).as_model(), adam(1e-3), cfg, gossip_impl="bogus",

@@ -361,9 +361,26 @@ def test_cli_engine_and_chunk_flags_set_the_sync_interval(argv, chunk, monkeypat
 @pytest.mark.parametrize("argv", [["--coordinator", "localhost:1234"], ["--num-processes=2"],
                                   ["--use-kernel"], ["--mixer", "sharded"],
                                   ["--gossip-impl", "psum"], ["--gossip-impl", "gather"]])
-def test_cli_refuses_what_is_not_ported(argv, capsys):
-    assert train_cli.main(["--device", "cpu", *argv]) == 2
-    assert "not ported" in capsys.readouterr().err
+def test_cli_refuses_what_is_not_ported(argv, tmp_path, capsys):
+    """Of the flags refused before the sharded mixer was ported, only
+    the deprecated ``--use-kernel`` still is (exit 2).  The others now
+    train a round of the sharded mixer on one process, or, for
+    ``--num-processes=2`` without a coordinator and a process id, reach
+    the multi-process bootstrap, which asks for them."""
+    base = ["--device", "cpu", "--fast-data", "--rounds", "1", "--hidden", "8", "--mixer",
+            "sharded", "--gossip-repr", "sparse", "--out", str(tmp_path)]
+    if argv == ["--use-kernel"]:
+        assert train_cli.main(["--device", "cpu", *argv]) == 2
+        assert "not ported" in capsys.readouterr().err
+    elif argv == ["--num-processes=2"]:
+        with pytest.raises(ValueError, match="coordinator \\+ process_id"):
+            train_cli.run(base + argv)
+    else:
+        run = train_cli.run(base + argv)
+        assert run.trainer.plan.mixer == "sharded" and run.trainer.mesh.width == 1
+        assert run.trainer.plan.gossip_impl == (argv[1] if argv[0] == "--gossip-impl"
+                                                else "allgather")
+        assert len(run.history) == 1 and np.isfinite(run.history[0]["loss"])
 
 
 def test_cli_gossip_impl_masked_trains_bitwise_like_allgather(tmp_path, capsys):
@@ -384,15 +401,23 @@ def test_cli_gossip_impl_masked_trains_bitwise_like_allgather(tmp_path, capsys):
         assert a.tobytes() == b.tobytes()
 
 
-@pytest.mark.parametrize("flag", train_cli.NOT_PORTED_FLAGS)
+@pytest.mark.parametrize("flag", ("--coordinator", "--num-processes", "--process-id",
+                                  "--use-kernel"))
 def test_cli_refusal_names_only_what_is_refused(flag, capsys):
-    """The refusal names the flag and the paths it belongs to (multi-host,
-    the deprecated ``--use-kernel``), and no path that is ported."""
-    assert train_cli.main(["--device", "cpu", flag]) == 2
-    err = capsys.readouterr().err
-    assert (f"{flag} is not ported to PyTorch yet "
-            "(multi-host runs and the deprecated --use-kernel; use --mixer kernel)") in err
-    assert "sweep" not in err
+    """The refusal names the flag and the path it belongs to (the
+    deprecated ``--use-kernel``), and no path that is ported: the
+    multi-process flags parse."""
+    if flag in train_cli.NOT_PORTED_FLAGS:
+        assert train_cli.main(["--device", "cpu", flag]) == 2
+        err = capsys.readouterr().err
+        assert (f"{flag} is not ported to PyTorch yet "
+                "(the deprecated --use-kernel; use --mixer kernel)") in err
+        assert "sweep" not in err and "multi" not in err
+    else:
+        args = train_cli.build_parser().parse_args([flag, "7"])
+        assert getattr(args, flag[2:].replace("-", "_")) == (
+            "7" if flag == "--coordinator" else 7)
+    assert train_cli.NOT_PORTED_FLAGS == ("--use-kernel",)
 
 
 def test_no_gpu_means_cpu_must_be_asked_for(monkeypatch):
