@@ -99,15 +99,19 @@ Phases, each printing one JSON line:
                 fp32 (max |diff| <= 3e-5) and bf16 (<= 5e-2, and
                 elementwise within ``ref.swa_bf16_bound`` of the fp32
                 twin: the rounding of P and of the output), TF32 off;
-                then hd 256 (the scalar kernel), 512 (it, in two
-                chunks of 256 columns), 96 and 288 (zero-padded to 128
-                and 512) at S in {1024, 3072} x window in {100, 2048},
-                with 0 bytes of spill in the four scalar kernels; at
+                then hd 256 (bf16 on the ``wgmma`` kernel's 64-key
+                tiles, fp32 on the scalar kernel), 512 (the scalar
+                kernel in two chunks of 256 columns), 96 and 288
+                (zero-padded to 128 and 512) at S in {1024, 3072} x
+                window in {100, 2048}, with 0 bytes of spill in the
+                three ``wgmma`` and the four scalar kernels; at
                 RecurrentGemma-9B's local attention (B=1, S=8,192, H=16,
-                K=1, window 2048) at its hd 256 and at hd 288 and 512
+                K=1, window 2048) at its hd 256 (bf16 launched on the
+                ``wgmma`` build, counted by build) and at hd 288 and 512
                 against the fp32 ``banded_flash_attention``: fp32 within
                 3e-5, bf16 elementwise within ``swa_bf16_bound``; at hd
-                256 and 512 in both dtypes its time, the banded path's,
+                256 and 512 in both dtypes its time (bf16 at hd 256 also
+                L2-flushed), the banded path's,
                 ``scaled_dot_product_attention``'s and its bound; at
                 the LM prefill's shape (B=1, S=32,768, H=96, K=8, hd=128,
                 window 4096) against the plain ``banded_flash_attention``
@@ -265,6 +269,27 @@ Phases, each printing one JSON line:
                 ``--mixer sharded --gossip-impl gather --num-processes
                 1`` for 4 rounds at H=128 (226 ``lstm_forward`` launches
                 for the test forecasts, no gossip kernel);
+ 23. hybrid   — RecurrentGemma-9B through ``repro_torch.arch.build_arch``
+                at full width and full depth (13 super-blocks of rglru,
+                rglru, attn: 39 layers; d_model and lru_width 4096, 16
+                heads, 1 KV head, hd 256, d_ff 12,288, vocab 256,000,
+                window 2048), bf16 weights (~21 GB) from a seeded
+                ``torch.Generator`` on the card, nothing cut: two
+                prefills of 8,192 tokens at batch 1, bitwise equal and
+                finite, each with 13 ``swa_attention`` launches, all on
+                the ``wgmma`` hd-256 build (0 on a scalar build), and 13
+                banded branches; 16 greedy ``decode_fn`` steps from
+                ``init_state``; the prefill's wall (median of 3) and
+                decode ms a step; a profiled prefill's device time split
+                into GEMMs, ``swa_attention``, the RG-LRU scan (the
+                ``rglru.scan`` span) and the rest, with the busy share;
+                one attention layer at full width (its weights on a
+                normed random input) against ``ref.swa_attention_plain``
+                within ``swa_bf16_bound``; and the model at one
+                super-block, full width, fp32, on the card against the
+                CPU from the same weights at S=4,096 (the banded branch
+                on both; logits of the prefill and two decode steps
+                within 1e-4);
 
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -363,13 +388,18 @@ WIRES_TOL = 1e-5
 SWA_TOL = {torch.float32: 3e-5, torch.bfloat16: 5e-2}
 SWA_SEQS = (128, 256, 1024, 3072)
 SWA_WINDOWS = (64, 100, 300, 1024, 4096)
-# the head dims beyond the wgmma kernel's: 256 on the scalar kernel, 512
-# on it in two chunks, 96 zero-padded to 128 and 288 to 512
+# the head dims beyond the hd 64/128 builds: 256 (bf16 on the wgmma
+# kernel's 64-key tiles, fp32 on the scalar kernel), 512 on the scalar
+# kernel in two chunks, 96 zero-padded to 128 and 288 to 512
 SWA_WIDE = {"seqs": (1024, 3072), "windows": (100, 2048), "hds": (256, 512, 96, 288)}
 HYBRID_ARCH = "recurrentgemma-9b"  # local attention at hd 256, one KV head
 HYBRID_SEQ = 8192
 HYBRID_HDS = (256, 288, 512)  # its own hd, one padded to 512, and 512 itself
 HYBRID_TIMED = (256, 512)
+HYBRID_DECODE_STEPS = 16
+HYBRID_TIMED_RUNS = 3
+HYBRID_SLICE_SEQ = 4096  # the least S % 1024 == 0 at which window 2048 takes the banded branch
+HYBRID_SCAN_SPAN = "rglru.scan"
 LM_ARCH = "mistral-large-123b"
 LM_LAYERS = 4           # of 88
 LM_DECODE_STEPS = 16
@@ -780,6 +810,7 @@ def reset_launches() -> None:
 
     lstm_cell.LAUNCHES = 0
     swa_attention.LAUNCHES = 0
+    swa_attention.BUILD_LAUNCHES.clear()
     for k in gk.LAUNCHES:
         gk.LAUNCHES[k] = 0
 
@@ -1730,6 +1761,237 @@ def sharded_phase(feds, card: str) -> dict:
     return dict(launches_sharded=lstm_launches, launches_sharded_cli=cli_counts["lstm_forward"])
 
 
+def hybrid_split(prof) -> tuple[dict[str, float], dict[str, float], int, int]:
+    """Device time (ms) of a profiled prefill split into the GEMMs
+    (``GEMM_NAMES``), ``swa_attention``, the RG-LRU scan (items whose start
+    lies in an ``rglru.scan`` span on the device timeline, the rule of
+    :func:`span_breakdown`) and the rest; the ten largest items by name;
+    the number of items and of scan spans seen."""
+    from torch.autograd import DeviceType
+
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = [(e.time_range.start, e.time_range.end) for e in on_device
+              if e.name == HYBRID_SCAN_SPAN]
+    split = dict.fromkeys(("gemm", "swa_attention", "rglru_scan", "other"), 0.0)
+    top: dict[str, float] = {}
+    work = [e for e in on_device if e.name != HYBRID_SCAN_SPAN]
+    for e in work:
+        name, start = e.name.lower(), e.time_range.start
+        kind = ("swa_attention" if "swa_attention_kernel" in name
+                else "gemm" if any(g in name for g in GEMM_NAMES)
+                else "rglru_scan" if any(lo <= start < hi for lo, hi in ranges) else "other")
+        ms = (e.time_range.end - start) / 1e3
+        split[kind] += ms
+        top[e.name[:90]] = top.get(e.name[:90], 0.0) + ms
+    return split, dict(sorted(top.items(), key=lambda kv: -kv[1])[:10]), len(work), len(ranges)
+
+
+def cpu_tree(tree):
+    """A copy on the CPU of nested dicts and lists of tensors."""
+    if isinstance(tree, dict):
+        return {k: cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cpu_tree(v) for v in tree]
+    return tree.cpu()
+
+
+def logits_run(arch, params, tokens, steps: int, vocab: int, *, state=None, feed=None) -> dict:
+    """A prefill of ``tokens`` (B, S), then ``steps`` decode steps: from
+    the prefill's state at positions S, S + 1, ..., or, given ``state``,
+    from it at 0, 1, ... with tokens[:, :1] first.  Each step decodes the
+    token of ``feed`` (on the CPU), or the greedy token of the step before.
+    Returns the logits of the prefill and of each step on the CPU, the
+    tokens decoded, and the prefill's and the last step's states."""
+    dev = tokens.device
+    logits, prefilled = arch.prefill_fn(params, {"tokens": tokens})
+    out = {"logits": [logits.cpu()], "fed": [], "prefilled": prefilled}
+    pos0, last = (tokens.shape[1], prefilled) if state is None else (0, state)
+    for t in range(steps):
+        if feed is not None:
+            tok = feed[t]
+        elif state is not None and t == 0:
+            tok = tokens[:, :1].cpu()
+        else:
+            tok = torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None].to(torch.int32).cpu()
+        out["fed"].append(tok)
+        logits, last = arch.decode_fn(params, last, {"token": tok.to(dev), "pos": pos0 + t})
+        out["logits"].append(logits.cpu())
+    out["last"] = last
+    return out
+
+
+def card_vs_cpu(card_run, cpu_run, tol: float, what: str) -> tuple[list[float], dict, dict]:
+    """``card_run()`` and then ``cpu_run(fed)`` (:func:`logits_run` on
+    each side, the CPU fed the card's tokens), and the largest |logits
+    difference| of the prefill and of each step.  Above ``tol`` the check
+    fails, having run both sides once more, so that the message says
+    which side gives the same logits twice and how the card's fp32
+    matmuls were set."""
+    card = card_run()
+    cpu = cpu_run(card["fed"])
+    errs = [float((g - c).abs().max()) for g, c in zip(card["logits"], cpu["logits"])]
+    if max(errs) > tol:
+        again = {"card": card_run()["logits"], "cpu": cpu_run(card["fed"])["logits"]}
+        repeats = {side: all(torch.equal(a, b) for a, b in zip(first["logits"], again[side]))
+                   for side, first in (("card", card), ("cpu", cpu))}
+        matmul = {"float32_matmul_precision": torch.get_float32_matmul_precision(),
+                  "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                  "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+        require(False, f"{what}, card vs CPU logits: {errs} > {tol}; bitwise the same when run "
+                       f"again: {repeats}; {matmul}")
+    return errs, card, cpu
+
+
+def hybrid_phase(card: str) -> dict:
+    """Phase 23: RecurrentGemma-9B at full width and depth through
+    ``build_arch`` (the module docstring).  Returns the phase's row for
+    the kernels line."""
+    import dataclasses
+
+    from repro_torch.arch import build_arch, hybrid_lm, lm
+    from repro_torch.config import get_arch_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as swa_kernel
+    from repro_torch.launch.arch_demo import leaf_count
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn.layers import rms_norm
+
+    t_phase = time.perf_counter()
+    cfg = get_arch_config(HYBRID_ARCH)
+    nsb, window = hybrid_lm.num_super_blocks(cfg), cfg.local_attn_window
+    arch = build_arch(cfg)
+    t0 = time.perf_counter()
+    params = arch.init_params(torch.Generator(device="cuda").manual_seed(23))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = leaf_count(params)
+    tokens = torch.randint(0, cfg.vocab_size, (1, HYBRID_SEQ), dtype=torch.int32, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(24))
+    prompt = {"tokens": tokens}
+
+    # the main path: two prefills, counted
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    branches_before = dict(attn.BRANCHES)
+    t0 = time.perf_counter()
+    logits, none = arch.prefill_fn(params, prompt)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = launches()
+    again, _ = arch.prefill_fn(params, prompt)
+    torch.cuda.synchronize()
+    counts, builds = launches(), dict(swa_kernel.BUILD_LAUNCHES)
+    taken = {name: attn.BRANCHES[name] - branches_before[name] for name in attn.BRANCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(none is None, "the hybrid's prefill returned a state")
+    require(first["swa_attention"] == nsb and counts["swa_attention"] == 2 * nsb,
+            f"swa_attention launches {first['swa_attention']}, {counts['swa_attention']} "
+            f"in two {nsb}-attention-layer prefills")
+    require(sum(counts.values()) == 2 * nsb, f"another kernel ran in the prefill: {counts}")
+    require(builds == {"wgmma-bf16-hd256": 2 * nsb}, f"swa_attention builds launched: {builds}")
+    require(taken == {"plain": 0, "flash": 0, "banded": 2 * nsb}, f"attention branches {taken}")
+    vocab_padded = params["lm_head"].shape[1]
+    require(tuple(logits.shape) == (1, 1, vocab_padded) and bool(torch.isfinite(logits).all()),
+            f"prefill logits {tuple(logits.shape)} or non-finite")
+    require(torch.equal(logits, again), "two prefills of the same prompt differ")
+
+    # decode from init_state: the ring holds the window
+    state = arch.init_decode_state(params, 1, HYBRID_SEQ)
+    require(tuple(state["kv2"].k.shape) == (nsb, 1, window, cfg.num_kv_heads, cfg.head_dim),
+            f"decode ring {tuple(state['kv2'].k.shape)}")
+    tok, decoded, step_walls = tokens[:, :1], [], []
+    for t in range(HYBRID_DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_logits, state = arch.decode_fn(params, state, {"token": tok, "pos": t})
+        torch.cuda.synchronize()
+        step_walls.append(time.perf_counter() - t0)
+        require(bool(torch.isfinite(step_logits).all()), f"decode step {t}: non-finite logits")
+        tok = torch.argmax(step_logits[:, -1, :cfg.vocab_size], dim=-1)[:, None].to(torch.int32)
+        decoded.append(int(tok))
+    require(launches()["swa_attention"] == 2 * nsb, "decode launched swa_attention")
+    require(bool((state["kv2"].pos == HYBRID_DECODE_STEPS).all()), "decode ring positions")
+
+    # the prefill timed (host clock around a synced call) and profiled
+    walls = []
+    for _ in range(HYBRID_TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arch.prefill_fn(params, prompt)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        arch.prefill_fn(params, prompt)
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    split, top, items, scan_spans = hybrid_split(prof)
+    require(split["swa_attention"] > 0 and split["gemm"] > 0,
+            f"the profiler saw no swa_attention or GEMM kernel: {split}")
+    del prof
+
+    # one attention layer at full width against the plain twin (bf16 bound)
+    mix = {name: t[0] for name, t in params["blocks"][2]["mix"].items()}
+    x = torch.randn((1, HYBRID_SEQ, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(26)).bfloat16()
+    h = rms_norm(x, params["blocks"][2]["ln1_scale"][0], cfg.norm_eps)
+    q, k, v = (t.contiguous() for t in lm.qkv(h, mix, cfg, torch.arange(HYBRID_SEQ,
+                                                                                device="cuda")))
+    out = swa_kernel.swa_attention(q, k, v, window=window)
+    o32 = ref.swa_attention_plain(q.float(), k.float(), v.float(), window=window)
+    diff = (out.float() - o32).abs()
+    del o32
+    layer = {"max_abs_err": float(diff.max()),
+             "max_err_over_bound": float((diff / ref.swa_bf16_bound(q, k, v, window=window)).max())}
+    require(layer["max_err_over_bound"] <= 1.0,
+            f"one attention layer at full width vs swa_attention_plain: {layer}")
+    del params, logits, again, state, x, h, q, k, v, out, diff
+    torch.cuda.empty_cache()
+
+    # the model at one super-block, full width, fp32: card against CPU
+    one = dataclasses.replace(cfg, num_layers=len(hybrid_lm._pattern(cfg)), dtype="float32")
+    one_arch = build_arch(one)
+    gpu_params = one_arch.init_params(torch.Generator(device="cuda").manual_seed(27))
+    cpu_params = cpu_tree(gpu_params)
+    toks = tokens[:, :HYBRID_SLICE_SEQ]
+    before = dict(attn.BRANCHES)
+
+    def one_run(params, toks):
+        return lambda feed=None: logits_run(
+            one_arch, params, toks, 2, one.vocab_size, feed=feed,
+            state=one_arch.init_decode_state(params, 1, HYBRID_SLICE_SEQ))
+
+    slice_err, _, _ = card_vs_cpu(one_run(gpu_params, toks), one_run(cpu_params, toks.cpu()),
+                                  LM_SLICE_TOL["logits"], "one super-block at full width")
+    require(attn.BRANCHES["banded"] - before["banded"] == 2, "the one-super-block slice missed "
+                                                             "the banded branch")
+    del gpu_params, cpu_params
+    torch.cuda.empty_cache()
+
+    prefill_s = statistics.median(walls)
+    busy_ms = sum(split.values())
+    emit("hybrid", arch=HYBRID_ARCH, d_model=cfg.d_model, lru_width=cfg.lru_width,
+         heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, window=window, super_blocks=nsb, layers=nsb * 3,
+         params=n_params, dtype=cfg.dtype, reduced={},
+         prompt=HYBRID_SEQ, batch=1, init_s=init_s, first_prefill_s=first_s,
+         launches_per_prefill=first, launches_two_prefills=counts, builds_two_prefills=builds,
+         branches_two_prefills=taken, prefill_bitwise_repeat=True, peak_memory_gb=peak_gb,
+         logits_shape=[1, 1, vocab_padded], decode_steps=HYBRID_DECODE_STEPS,
+         decoded_tokens=decoded, decode_step_ms_median=statistics.median(step_walls) * 1e3,
+         decode_step_ms=[w * 1e3 for w in step_walls], prefill_walls_s=walls,
+         prefill_wall_s=prefill_s, prefill_tokens_per_s=HYBRID_SEQ / prefill_s,
+         prefill_device_ms=split, prefill_top_device_ms=top, prefill_device_items=items,
+         scan_spans=scan_spans,
+         profiled_prefill_wall_s=profiled_s, prefill_device_busy_share=busy_ms / (profiled_s * 1e3),
+         attention_layer_vs_plain=layer, one_super_block_fp32_seq=HYBRID_SLICE_SEQ,
+         one_super_block_card_vs_cpu_logits=slice_err, tol=LM_SLICE_TOL["logits"],
+         seconds=time.perf_counter() - t_phase, nvidia_smi=card)
+    return {"launches_phase23": counts["swa_attention"], "builds_phase23": builds,
+            "launches_per_prefill_phase23": first["swa_attention"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1744,8 +2006,10 @@ def main() -> int:
     from repro_torch.serve import GlucoseServable, MicroBatcher, replay
     from repro_torch.utils.pytree import tree_to_vector
 
+    # fp32 matmuls in IEEE fp32, by the flags and by the precision setting
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
     # 1. card ------------------------------------------------------------
     card = subprocess.run(
@@ -2205,9 +2469,12 @@ def main() -> int:
 
     swa_log = _build.build_log("swa_attention")
     swa_ptxas = ptxas_report(swa_log, "wgmma")
-    require(swa_ptxas, "no ptxas report of the bf16 swa_attention kernel")
-    # the scalar builds: fp32 at hd 64 and 128, fp32 and bf16 at hd 256
-    # (also the chunked head dims above it)
+    # the bf16 builds at hd 64, 128 and 256
+    require(sum(k != "warnings" for k in swa_ptxas) == 3 and spill_free(swa_ptxas),
+            f"a wgmma swa_attention kernel spills or is missing: {swa_ptxas}")
+    # the scalar builds: fp32 at hd 64, 128 and 256, and bf16 at hd 256
+    # (which runs only the chunked head dims above 256; fp32's also runs
+    # them)
     scalar_ptxas = ptxas_report(swa_log, "swa_attention_kernelI")
     require(sum(k != "warnings" for k in scalar_ptxas) == 4 and spill_free(scalar_ptxas),
             f"a scalar swa_attention kernel spills or is missing: {scalar_ptxas}")
@@ -2271,7 +2538,12 @@ def main() -> int:
         rg_out = swa_kernel.swa_attention(q, k, v, window=rg_window)
         rg_err = {"fp32_max_abs_err": float((rg_out - banded).abs().max())}
         qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        builds_before = dict(swa_kernel.BUILD_LAUNCHES)
         rg_out = swa_kernel.swa_attention(qb, kb, vb, window=rg_window)
+        rg_err["bf16_build"] = next(b for b, n in swa_kernel.BUILD_LAUNCHES.items()
+                                    if n != builds_before.get(b, 0))
+        require(rg_err["bf16_build"] == ("wgmma-bf16-hd256" if hd == 256 else "scalar-bf16-hd256"),
+                f"swa_attention (bf16) at hd {hd} ran the build {rg_err['bf16_build']}")
         banded = attn.banded_flash_attention(qb.float(), kb.float(), vb.float(), window=rg_window)
         limit = ref.swa_bf16_bound(qb, kb, vb, window=rg_window,
                                    attention=attn.banded_flash_attention)
@@ -2287,6 +2559,8 @@ def main() -> int:
         if hd in HYBRID_TIMED:
             rg_err["fp32"] = swa_timing(q, k, v, rg_window, FP32_OPS_PER_S)
             rg_err["bf16"] = swa_timing(qb, kb, vb, rg_window, BF16_OPS_PER_S)
+            rg_err["bf16"]["ms_l2_flushed"] = time_ms(
+                lambda: swa_kernel.swa_attention(qb, kb, vb, window=rg_window), 20, flush)
         hybrid[str(hd)] = rg_err
         del q, k, v, qb, kb, vb
     lm_cfg = get_arch_config(LM_ARCH)
@@ -2387,21 +2661,20 @@ def main() -> int:
     small_tokens = torch.randint(0, small.vocab_size, (1, 3072), dtype=torch.int32,
                                  generator=torch.Generator().manual_seed(3))
     before = swa_kernel.LAUNCHES
-    g_logits, g_cache = small_arch.prefill_fn(gpu_params, {"tokens": small_tokens.cuda()})
+    steps_err, on_card, on_cpu = card_vs_cpu(  # both sides fed the card's greedy tokens
+        lambda feed=None: logits_run(small_arch, gpu_params, small_tokens.cuda(), 4,
+                                     small.vocab_size, feed=feed),
+        lambda feed=None: logits_run(small_arch, cpu_params, small_tokens, 4, small.vocab_size,
+                                     feed=feed),
+        LM_SLICE_TOL["logits"], "reduced slice")
     require(swa_kernel.LAUNCHES - before == small.num_layers, "the reduced prefill missed the kernel")
-    c_logits, c_cache = small_arch.prefill_fn(cpu_params, {"tokens": small_tokens})
-    slice_err = {"logits": float((g_logits.cpu() - c_logits).abs().max()),
-                 "caches": max(float((g_cache.k.cpu() - c_cache.k).abs().max()),
-                               float((g_cache.v.cpu() - c_cache.v).abs().max()))}
-    for t in range(4):  # both sides fed the card's greedy tokens
-        tok = torch.argmax(g_logits[:, -1, :small.vocab_size], dim=-1)[:, None].to(torch.int32)
-        g_logits, g_cache = small_arch.decode_fn(gpu_params, g_cache, {"token": tok, "pos": 3072 + t})
-        c_logits, c_cache = small_arch.decode_fn(cpu_params, c_cache, {"token": tok.cpu(), "pos": 3072 + t})
-        slice_err["logits"] = max(slice_err["logits"], float((g_logits.cpu() - c_logits).abs().max()))
-    slice_err["caches"] = max(slice_err["caches"], float((g_cache.k.cpu() - c_cache.k).abs().max()),
-                              float((g_cache.v.cpu() - c_cache.v).abs().max()))
-    for key, tol in LM_SLICE_TOL.items():
-        require(slice_err[key] <= tol, f"reduced slice, card vs CPU {key}: {slice_err[key]}")
+    slice_err = {"logits": max(steps_err),
+                 "caches": max(float((getattr(on_card[at], kv).cpu()
+                                      - getattr(on_cpu[at], kv)).abs().max())
+                               for at in ("prefilled", "last") for kv in ("k", "v"))}
+    require(slice_err["caches"] <= LM_SLICE_TOL["caches"],
+            f"reduced slice, card vs CPU caches: {slice_err['caches']}")
+    del on_card, on_cpu
     demo = subprocess.run([sys.executable, "-m", "repro_torch.launch.arch_demo", "--arch", LM_ARCH,
                            "--tokens", "8"], capture_output=True, text=True, cwd=ROOT, timeout=600,
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
@@ -2412,7 +2685,8 @@ def main() -> int:
          prompt=seq, launches=lm_counts, branches=taken, logits_shape=list(logits.shape),
          cache_shape=list(cache_shape), init_s=init_s, first_prefill_s=prefill_first_s,
          peak_memory_gb=peak_gb, decode_steps=LM_DECODE_STEPS, decoded_tokens=decoded,
-         slice_card_vs_cpu=slice_err, slice_tol=LM_SLICE_TOL,
+         slice_card_vs_cpu=slice_err, slice_card_vs_cpu_logits_steps=steps_err,
+         slice_tol=LM_SLICE_TOL,
          arch_demo=demo.stdout.strip().splitlines()[-2:])
 
     # 16. the kernel and the prefill timed at the path's shape --------------
@@ -2668,6 +2942,11 @@ def main() -> int:
     # 22. the sharded mixer over a one-rank NCCL group, and its CLI ------------
     sharded_row = sharded_phase(feds, card)
 
+    # 23. RecurrentGemma-9B at full width and depth (hd 256 on wgmma) --------
+    del params, caches, state, q, k, v
+    torch.cuda.empty_cache()
+    hybrid_row = hybrid_phase(card)
+
     sources = "src/repro_torch/kernels/csrc/"
     rows = [{
         "name": "lstm_forward", "route": "cuda",
@@ -2693,7 +2972,10 @@ def main() -> int:
                  "launches": lm_counts["swa_attention"], "max_abs_err": path_err["bf16_max_abs_err"],
                  "max_abs_err_sweep": swa_err, **swa_row,
                  "bound_fp32_ms": ops / FP32_OPS_PER_S * 1e3,
-                 "hybrid_shape": rg_shape, "hybrid": hybrid})
+                 "hybrid_shape": rg_shape, "hybrid": hybrid,
+                 "hd256_bf16": {**hybrid["256"]["bf16"], **hybrid_row,
+                                "ptxas": next(lines for name, lines in swa_ptxas.items()
+                                              if "wgmma_hd256" in name)}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

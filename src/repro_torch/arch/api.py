@@ -11,10 +11,11 @@
     init_decode_state(params, batch_size, seq_len) -> caches
     input_specs(shape_name) -> the batch as "meta" tensors (no allocation)
 
-The dense and VLM families are ported (``arch/lm.py``); MoE, SSM,
-hybrid and enc-dec raise ``NotImplementedError`` until their modules
-are (ROADMAP Queue 1 item 15), as does ``decode_state_specs``, which
-waits for the dry-run's port.
+The dense and VLM families (``arch/lm.py``) and the RG-LRU hybrid
+family (``arch/hybrid_lm.py``) are ported; MoE, SSM and enc-dec raise
+``NotImplementedError`` until their modules are (ROADMAP Queue 1 item
+15), as does ``decode_state_specs``, which waits for the dry-run's
+port.
 
 Input shapes (assigned):
     train_4k     seq 4096    global batch 256   train step
@@ -37,7 +38,6 @@ PyTree = Any
 PENDING = {
     "moe": "mixture-of-experts layers (nn/moe.py)",
     "ssm": "the Mamba2 SSM family (arch/ssm_lm.py)",
-    "hybrid": "the RG-LRU hybrid family (arch/hybrid_lm.py, nn/rglru.py)",
     "encdec": "the encoder-decoder family (arch/encdec.py)",
 }
 
@@ -109,6 +109,19 @@ def build_arch(cfg: ArchConfig) -> Arch:
             init_decode_state=lambda p, bsz, s: lm.init_cache(
                 cfg, bsz, s, p["embed"].device),
             supports_long=cfg.sliding_window > 0,
+        )
+    if cfg.family == "hybrid":
+        from repro_torch.arch import hybrid_lm
+
+        return Arch(
+            cfg=cfg,
+            init_params=lambda gen: hybrid_lm.init_params(gen, cfg),
+            loss_fn=lambda p, b: hybrid_lm.loss_fn(p, cfg, b),
+            prefill_fn=lambda p, b: hybrid_lm.prefill(p, cfg, b),
+            decode_fn=lambda p, st, b: hybrid_lm.decode_step(p, cfg, st, b),
+            init_decode_state=lambda p, bsz, s: hybrid_lm.init_state(
+                cfg, bsz, s, p["embed"].device),
+            supports_long=True,
         )
     if cfg.family in PENDING or cfg.num_experts:
         what = PENDING["moe" if cfg.num_experts else cfg.family]

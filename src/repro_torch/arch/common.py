@@ -21,11 +21,13 @@ def compute_dtype(name: str) -> torch.dtype:
 
 
 def cast_params(params: PyTree, dtype: torch.dtype) -> PyTree:
-    """Every fp32 leaf of a nested dict of tensors cast to the compute
-    dtype (the identity when that is fp32, or when the leaves already
-    are in it, as the port's LM params are)."""
+    """Every fp32 leaf of nested dicts and lists of tensors cast to the
+    compute dtype (the identity when that is fp32, or when the leaves
+    already are in it, as the port's LM params are)."""
     if isinstance(params, dict):
         return {k: cast_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [cast_params(v, dtype) for v in params]
     return params.to(dtype) if params.dtype == torch.float32 else params
 
 

@@ -1,0 +1,255 @@
+"""RecurrentGemma-style hybrid LM (a port of ``repro.arch.hybrid_lm``):
+RG-LRU recurrent blocks and local (sliding-window) attention blocks in a
+repeating pattern (default 2:1), each followed by a gated MLP, per
+Griffin (arXiv:2402.19427).
+
+Layers are grouped into super-blocks of one pattern period, as in JAX:
+38 configured layers / 3 -> 13 super-blocks (39 layers).  ``blocks``
+holds one dict per kind of the pattern (rglru, rglru, attn), each leaf
+stacked over the super-blocks, and ``params_from_numpy`` carries a JAX
+tree across as it is.  The super-blocks run as a Python loop under
+``torch.inference_mode()``.  Each local-attention block's prefill goes
+through ``nn.attention.gqa_attention``, whose banded branch is the
+hand-written ``swa_attention`` kernel (hd 256, one KV head at
+RecurrentGemma's width).
+
+As ``arch/lm.py`` does, the port holds only the compute-dtype copy of
+the params (bf16 at full width, about 21 GB), the same function as
+JAX's fp32 masters cast per call.  ``prefill`` returns the last
+position's logits and no state, as JAX's ``build_arch`` does; it
+applies the final norm and head to that position only (both are per
+position; the full (1, 8192, 256,000) bf16 logits would take 4.2 GB).
+
+Decode starts from ``init_state``, whose ring KV caches hold
+min(seq_len, window) slots, as in JAX: decoding past seq_len tokens with
+seq_len < window keeps only the last seq_len keys in view, fewer than
+the window allows.  Both packages do so, and
+``tests/test_torch_hybrid.py`` pins it.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.arch.common import cast_params, compute_dtype, cross_entropy
+from repro_torch.arch.lm import qkv
+from repro_torch.config import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.nn import rglru
+from repro_torch.nn.attention import KVCache, decode_attention, gqa_attention
+from repro_torch.nn.layers import dense, embed, init_swiglu, normal, pad_vocab, rms_norm, swiglu_ffn
+
+PyTree = Any
+
+
+def _pattern(cfg: ArchConfig) -> tuple:
+    return cfg.block_pattern or ("rglru", "rglru", "attn")
+
+
+def num_super_blocks(cfg: ArchConfig) -> int:
+    return max(1, round(cfg.num_layers / len(_pattern(cfg))))
+
+
+def _width(cfg: ArchConfig) -> int:
+    return cfg.lru_width or cfg.d_model
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_sub(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype: torch.dtype) -> dict:
+    d = cfg.d_model
+    if kind == "rglru":
+        mix = {"rec": rglru.init_recurrent_block(gen, d, _width(cfg), dtype)}
+    else:
+        h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        mix = {
+            "wq": normal(gen, (d, h * hd), d ** -0.5, dtype),
+            "wk": normal(gen, (d, kh * hd), d ** -0.5, dtype),
+            "wv": normal(gen, (d, kh * hd), d ** -0.5, dtype),
+            "wo": normal(gen, (h * hd, d), (h * hd) ** -0.5, dtype),
+        }
+    return {
+        "ln1_scale": torch.zeros((d,), dtype=dtype, device=gen.device),
+        "ln2_scale": torch.zeros((d,), dtype=dtype, device=gen.device),
+        "mix": mix,
+        "mlp": init_swiglu(gen, d, cfg.d_ff, dtype),
+    }
+
+
+def _put(stacked: dict, tree: dict, i: int, n: int) -> None:
+    """``tree``'s leaves into slot i of the n-stacked nested dict."""
+    for name, t in tree.items():
+        if isinstance(t, dict):
+            _put(stacked.setdefault(name, {}), t, i, n)
+            continue
+        if name not in stacked:
+            stacked[name] = t.new_empty((n, *t.shape))
+        stacked[name][i] = t
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
+    """Random params from ``gen`` on its device, in ``cfg.dtype``, with
+    JAX's distributions (not its numbers), one sub-block at a time into
+    the stacked tensors."""
+    dtype = compute_dtype(cfg.dtype)
+    vp, d = pad_vocab(cfg.vocab_size), cfg.d_model
+    pat, nsb = _pattern(cfg), num_super_blocks(cfg)
+    blocks: list[dict] = [{} for _ in pat]
+    for sb in range(nsb):
+        for i, kind in enumerate(pat):
+            _put(blocks[i], _init_sub(gen, cfg, kind, dtype), sb, nsb)
+    return {
+        "embed": normal(gen, (vp, d), 0.02, dtype),
+        "blocks": blocks,
+        "final_scale": torch.zeros((d,), dtype=dtype, device=gen.device),
+        "lm_head": normal(gen, (d, vp), d ** -0.5, dtype),
+    }
+
+
+def params_from_numpy(tree: PyTree, cfg: ArchConfig, device=None) -> PyTree:
+    """A JAX param tree as numpy arrays (``jax.tree.map(np.asarray,
+    params)``: dicts, and ``blocks`` a list of one dict per kind) as the
+    port's: the same structure, each leaf a tensor in ``cfg.dtype`` on
+    ``device`` (CUDA unless the CPU is asked for)."""
+    dev, dtype = resolve_device(device), compute_dtype(cfg.dtype)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, cfg, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, cfg, dev) for v in tree]
+    return torch.tensor(np.asarray(tree, dtype=np.float32), device=dev).to(dtype)
+
+
+def _index(tree: dict, i: int) -> dict:
+    """Super-block i of a stacked nested dict."""
+    return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# forward / prefill
+# ---------------------------------------------------------------------------
+
+
+def _super_forward(x, sub: list, cfg: ArchConfig, positions):
+    for bp, kind in zip(sub, _pattern(cfg)):
+        h = rms_norm(x, bp["ln1_scale"], cfg.norm_eps)
+        if kind == "rglru":
+            mix = rglru.recurrent_block(h, bp["mix"]["rec"])
+        else:
+            q, k, v = qkv(h, bp["mix"], cfg, positions)
+            attn = gqa_attention(q, k, v, causal=True, window=cfg.local_attn_window)
+            mix = dense(attn.reshape(x.shape[0], x.shape[1], -1), bp["mix"]["wo"])
+        x = x + mix
+        x = x + swiglu_ffn(rms_norm(x, bp["ln2_scale"], cfg.norm_eps), bp["mlp"])
+    return x
+
+
+def _trunk(params, cfg: ArchConfig, tokens):
+    """Embedding and every super-block: the last hidden states (B, S, d)."""
+    dtype = compute_dtype(cfg.dtype)
+    x = embed(tokens, params["embed"], dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for sb in range(num_super_blocks(cfg)):
+        x = _super_forward(x, [_index(kind, sb) for kind in params["blocks"]], cfg, positions)
+    return x
+
+
+@torch.inference_mode()
+def forward(params, cfg: ArchConfig, batch):
+    """Teacher-forcing logits (B, S, Vp) and the (2,) aux losses (zeros)."""
+    params = cast_params(params, compute_dtype(cfg.dtype))
+    x = rms_norm(_trunk(params, cfg, batch["tokens"]), params["final_scale"], cfg.norm_eps)
+    return dense(x, params["lm_head"]), torch.zeros((2,), device=x.device)
+
+
+def loss_fn(params, cfg: ArchConfig, batch):
+    """Mean next-token CE against ``batch["labels"]`` (value only)."""
+    logits, _ = forward(params, cfg, batch)
+    return cross_entropy(logits, batch["labels"])
+
+
+@torch.inference_mode()
+def prefill(params, cfg: ArchConfig, batch):
+    """(last-position logits (B, 1, Vp), None): JAX's
+    ``forward(...)[0][:, -1:]``, with the final norm and head on that
+    position only."""
+    params = cast_params(params, compute_dtype(cfg.dtype))
+    x = _trunk(params, cfg, batch["tokens"])[:, -1:]
+    x = rms_norm(x, params["final_scale"], cfg.norm_eps)
+    return dense(x, params["lm_head"]), None
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def init_state(cfg: ArchConfig, batch: int, seq_len: int, device=None) -> PyTree:
+    """Per-super-block state, stacked over the super-blocks: ``rec{i}``
+    {"conv": (nsb, B, K-1, W), "h": (nsb, B, W) fp32} for a recurrent
+    block i of the pattern, ``kv{i}`` a ring ``KVCache`` of
+    min(seq_len, window) slots (leaves (nsb, B, cap, K, hd), pos (nsb,))
+    for an attention block."""
+    dev, dtype = resolve_device(device), compute_dtype(cfg.dtype)
+    nsb, cap = num_super_blocks(cfg), min(seq_len, cfg.local_attn_window)
+    state = {}
+    for i, kind in enumerate(_pattern(cfg)):
+        if kind == "rglru":
+            one = rglru.init_recurrent_state(batch, _width(cfg), dtype, dev)
+            state[f"rec{i}"] = {k: torch.stack([t] * nsb) for k, t in one.items()}
+        else:
+            shape = (nsb, batch, cap, cfg.num_kv_heads, cfg.head_dim)
+            state[f"kv{i}"] = KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                                      v=torch.zeros(shape, dtype=dtype, device=dev),
+                                      pos=torch.zeros((nsb,), dtype=torch.int32, device=dev))
+    return state
+
+
+def _super_decode(x, sub: list, cfg: ArchConfig, st: dict, pos):
+    new = {}
+    for i, (bp, kind) in enumerate(zip(sub, _pattern(cfg))):
+        h = rms_norm(x, bp["ln1_scale"], cfg.norm_eps)
+        if kind == "rglru":
+            out, new[f"rec{i}"] = rglru.recurrent_block_decode(h[:, 0], bp["mix"]["rec"],
+                                                               st[f"rec{i}"])
+            mix = out[:, None, :]
+        else:
+            q, k, v = qkv(h, bp["mix"], cfg, pos.reshape(1))
+            cache = st[f"kv{i}"].append(k, v)
+            attn = decode_attention(q, cache, window=cfg.local_attn_window)
+            new[f"kv{i}"] = cache
+            mix = dense(attn.reshape(x.shape[0], 1, -1), bp["mix"]["wo"])
+        x = x + mix
+        x = x + swiglu_ffn(rms_norm(x, bp["ln2_scale"], cfg.norm_eps), bp["mlp"])
+    return x, new
+
+
+@torch.inference_mode()
+def decode_step(params, cfg: ArchConfig, states, batch):
+    """One decode step.  batch = {"token": (B, 1) int, "pos": the absolute
+    position, an int or a 0-d tensor}; ``states`` as :func:`init_state`
+    gives them.  Returns (logits (B, 1, Vp), new states); the given
+    states are not changed."""
+    dtype = compute_dtype(cfg.dtype)
+    params = cast_params(params, dtype)
+    x = embed(batch["token"], params["embed"], dtype)
+    pos = torch.as_tensor(batch["pos"], device=x.device)
+    steps = []
+    for sb in range(num_super_blocks(cfg)):
+        st = {key: (KVCache(s.k[sb], s.v[sb], s.pos[sb]) if isinstance(s, KVCache)
+                    else _index(s, sb)) for key, s in states.items()}
+        x, new = _super_decode(x, [_index(kind, sb) for kind in params["blocks"]], cfg, st, pos)
+        steps.append(new)
+    stacked = {}
+    for key, first in steps[0].items():
+        if isinstance(first, KVCache):
+            stacked[key] = KVCache(*(torch.stack([getattr(s[key], f) for s in steps])
+                                     for f in ("k", "v", "pos")))
+        else:
+            stacked[key] = {f: torch.stack([s[key][f] for s in steps]) for f in first}
+    x = rms_norm(x, params["final_scale"], cfg.norm_eps)
+    return dense(x, params["lm_head"]), stacked

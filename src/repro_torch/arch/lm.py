@@ -125,7 +125,9 @@ def params_from_numpy(tree: PyTree, cfg: ArchConfig, device=None) -> PyTree:
 # ---------------------------------------------------------------------------
 
 
-def _qkv(x, lp, cfg: ArchConfig, positions):
+def qkv(x, lp, cfg: ArchConfig, positions):
+    """q, k (rotated) and v of an attention layer's weights ``lp`` (its
+    optional biases too; the hybrid's attention blocks have none)."""
     b, s, _ = x.shape
     h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = dense(x, lp["wq"], lp.get("bq")).reshape(b, s, h, hd)
@@ -140,7 +142,7 @@ def layer_forward(x, lp, cfg: ArchConfig, positions):
     one residual (PaLM style), as in JAX."""
     _dense_only(cfg)
     h = rms_norm(x, lp["ln1_scale"], cfg.norm_eps)
-    q, k, v = _qkv(h, lp, cfg, positions)
+    q, k, v = qkv(h, lp, cfg, positions)
     attn = gqa_attention(q, k, v, causal=True, window=cfg.sliding_window)
     attn_out = dense(attn.reshape(x.shape[0], x.shape[1], -1), lp["wo"])
     if cfg.parallel_block:
@@ -153,7 +155,7 @@ def layer_decode(x, lp, cache: KVCache, cfg: ArchConfig, pos):
     """One-token layer.  x (B, 1, d); pos the absolute position (0-d)."""
     _dense_only(cfg)
     h = rms_norm(x, lp["ln1_scale"], cfg.norm_eps)
-    q, k, v = _qkv(h, lp, cfg, pos.reshape(1))
+    q, k, v = qkv(h, lp, cfg, pos.reshape(1))
     cache = cache.append(k, v)
     attn = decode_attention(q, cache, window=cfg.sliding_window)
     x = x + dense(attn.reshape(x.shape[0], 1, -1), lp["wo"])

@@ -13,15 +13,17 @@ takes S % 1024 == 0).  The kernel is built for hd 64, 128 and 256, and
 runs any multiple of 256 in chunks of 256 columns; any other hd is
 zero-padded to the next of these (:func:`with_padded_head_dim`), which
 is exact.  Only what the grid cannot hold is refused: more than
-:data:`MAX_CHUNKS` chunks.  bf16 at hd 64 and 128 runs on the tensor
-cores with P rounded to bf16 (``ref.swa_bf16_bound`` states what that
-costs); fp32, and bf16 from hd 256 up, on scalar fp32 FMAs.  Its plain
-twin is
+:data:`MAX_CHUNKS` chunks.  bf16 at hd 64, 128 and 256 runs on the
+tensor cores (``wgmma`` + TMA; 64-key tiles at hd 256) with P rounded
+to bf16 (``ref.swa_bf16_bound`` states what that costs); fp32, and bf16
+above hd 256, on scalar fp32 FMAs.  Its plain twin is
 ``repro_torch.kernels.ref.swa_attention_plain``;
 the CUDA-or-CPU dispatch is ``repro_torch.kernels.ops.swa_attention``.
 
 :data:`LAUNCHES` counts the kernel's launches in this process, so a run
-can show that its path went through the kernel.
+can show that its path went through the kernel, and
+:data:`BUILD_LAUNCHES` the same by build (:func:`build_of`), so it can
+show which build ran.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_operands, refuse_autograd
 
 LAUNCHES = 0
+BUILD_LAUNCHES: dict[str, int] = {}
 
 HEAD_DIMS = (64, 128, 256)  # the kernel's builds; other hd <= 256 are padded
 CHUNK = HEAD_DIMS[-1]  # above it, hd runs in chunks of these columns (padded to a multiple)
@@ -91,6 +94,15 @@ def padded_head_dim(hd: int) -> int:
     return next((p for p in HEAD_DIMS if p >= hd), -(-hd // CHUNK) * CHUNK)
 
 
+def build_of(dtype: torch.dtype, hd: int) -> str:
+    """The build of ``csrc/swa_attention.cu`` that a launch at the padded
+    head dim ``hd`` runs, as its C entry point dispatches: the ``wgmma``
+    kernel for bf16 at hd 64, 128 and 256, the scalar kernel otherwise
+    (above 256, its hd-256 build in chunks)."""
+    kind = "wgmma" if dtype == torch.bfloat16 and hd in HEAD_DIMS else "scalar"
+    return f"{kind}-{'bf16' if dtype == torch.bfloat16 else 'fp32'}-hd{min(hd, CHUNK)}"
+
+
 def with_padded_head_dim(attention, q, k, v, *, window: int) -> torch.Tensor:
     """``attention(q, k, v, window=, scale=)`` at :func:`padded_head_dim`:
     q, k and v zero-padded on their last dim, the scale ``hd ** -0.5`` of
@@ -118,6 +130,8 @@ def _launch(q, k, v, *, window: int, scale: float) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"swa_attention: kernel launch failed with cudaError {err}")
     LAUNCHES += 1
+    build = build_of(q.dtype, hd)
+    BUILD_LAUNCHES[build] = BUILD_LAUNCHES.get(build, 0) + 1
     return out
 
 

@@ -24,6 +24,16 @@ from repro_torch.config import get_arch_config, list_archs
 from repro_torch.device import resolve_device
 
 
+def leaf_count(tree) -> int:
+    """Elements of every tensor in nested dicts and lists (the hybrid's
+    ``blocks`` is a list of dicts)."""
+    if isinstance(tree, dict):
+        return sum(leaf_count(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(leaf_count(v) for v in tree)
+    return tree.numel()
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="yi-6b", choices=list_archs())
@@ -47,9 +57,7 @@ def main(argv: list[str] | None = None) -> int:
     print(f"arch={cfg.name} family={cfg.family} L={cfg.num_layers} d={cfg.d_model}")
 
     params = arch.init_params(torch.Generator(device=device).manual_seed(0))
-    n_params = sum(t.numel() for v in params.values()
-                   for t in (v.values() if isinstance(v, dict) else [v]))
-    print(f"params: {n_params / 1e6:.1f}M")
+    print(f"params: {leaf_count(params) / 1e6:.1f}M")
 
     b = args.batch
     state = arch.init_decode_state(params, b, args.prompt_len + args.tokens + 8)

@@ -4,7 +4,8 @@ package on the CPU, on the same weights carried across by
 ``loss_fn``, ``prefill`` (logits and caches) and four ``decode_step``s of
 every dense/VLM config at ``reduced()`` width and of the reduced
 Mistral-Large with a 1024-token window at S=3072 (the banded branch, so
-the kernel's twin), the families not ported yet, the input specs, and
+the kernel's twin), the families not ported yet and the hybrid's
+``Arch``, the input specs, and
 the ``arch_demo`` CLI.  It also pins a fault of the reference that the
 port keeps: decode after prefill is right only when S % window == 0."""
 import dataclasses
@@ -170,10 +171,28 @@ def test_prefill_then_decode_fault_of_the_reference_is_pinned(s, window, right):
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x22b", "granite-moe-1b-a400m", "mamba2-370m",
-                                  "recurrentgemma-9b", "whisper-medium"])
+                                  "whisper-medium"])
 def test_families_not_ported_yet_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
         build_arch(get_arch_config(name))
+
+
+def test_hybrid_family_builds_its_arch():
+    """RecurrentGemma-9B, once among the families above, builds the
+    hybrid ``Arch`` (``arch/hybrid_lm.py``; held against JAX in
+    ``tests/test_torch_hybrid.py``)."""
+    from repro_torch.arch import hybrid_lm
+
+    cfg = get_arch_config("recurrentgemma-9b")
+    arch = build_arch(cfg)
+    assert arch.cfg is cfg and arch.supports_long
+    small = build_arch(cfg.reduced())
+    params = small.init_params(torch.Generator().manual_seed(0))
+    state = small.init_decode_state(params, 1, 16)
+    assert set(state) == {"rec0", "rec1", "kv2"} and state["kv2"].k.shape[2] == 16
+    logits, none = small.prefill_fn(params, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+    assert none is None and logits.shape == (1, 1, params["lm_head"].shape[1])
+    assert hybrid_lm.num_super_blocks(cfg) == 13
 
 
 def test_unknown_family_raises_keyerror_like_jax():

@@ -10,8 +10,9 @@ against the same sweep on the CPU, a streaming ``eval_fn`` on the card
 against the CPU and Fig 4's eval launches, the baselines (FedAvg and
 MAML/MetaSGD on the card against the CPU from one set of draws, the
 Table-4 evaluation through ``lstm_forward``, at REPLACE-BG's pooled
-R=71,317 val windows too), the banded branch of ``gqa_attention``
-and a small LM prefill through ``swa_attention``, and a round of the
+R=71,317 val windows too), the banded branch of ``gqa_attention``,
+a small LM prefill and a small RecurrentGemma prefill (hd 256, both
+dtypes) through ``swa_attention``, and a round of the
 sharded mixer over a one-rank NCCL group bitwise the tree mixer's.
 
 These tests need a CUDA device and skip elsewhere (decided inside the
@@ -519,9 +520,11 @@ def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
     (2, 192, 4, 2, 128, 100), (2, 320, 12, 1, 64, 4096),
     # Mistral-Large's 12 query heads a KV head
     (2, 2048, 24, 2, 128, 1024),
-    # hd 256 on the scalar kernel (RecurrentGemma's one KV head, window
-    # 2048), S % 128 == 64 at B=2; hd 96 zero-padded to 128
+    # hd 256 (bf16 on the wgmma kernel's 64-key tiles, fp32 on the scalar
+    # kernel): RecurrentGemma's one KV head and K = H, windows 100 and
+    # 2048, S % 128 == 64 at B=2 and at K=1; hd 96 zero-padded to 128
     (1, 1024, 2, 1, 256, 2048), (2, 192, 4, 2, 256, 100), (1, 320, 3, 1, 96, 100),
+    (1, 1024, 4, 4, 256, 100), (1, 320, 16, 1, 256, 2048), (1, 2112, 2, 2, 256, 2048),
     (2, 1024, 4, 2, 96, 300),
     # hd 512 in two chunks of 256 columns, hd 288 zero-padded to 512
     (1, 1024, 2, 1, 512, 2048), (2, 192, 4, 2, 512, 100), (1, 320, 3, 1, 288, 100),
@@ -542,6 +545,32 @@ def test_swa_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, window):
         err = (got.float() - o32).abs()
         bound = ref.swa_bf16_bound(q, k, v, window=window)
         assert bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.parametrize("s,h,kh,window", [(1024, 4, 1, 2048), (320, 4, 4, 100),
+                                          (192, 2, 1, 100)])
+def test_swa_hd256_bf16_runs_the_wgmma_build_bitwise(cuda, s, h, kh, window):
+    """bf16 at hd 256 launches the wgmma build, never the scalar one; two
+    launches agree bitwise; its ptxas report shows no spill."""
+    from repro_torch.kernels import _build
+
+    q, k, v = _swa_inputs(1, s, h, kh, 256, torch.bfloat16, seed=s + h, device=cuda)
+    before = dict(swa_kernel.BUILD_LAUNCHES)
+    got = swa_kernel.swa_attention(q, k, v, window=window)
+    again = swa_kernel.swa_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    ran = {b: n - before.get(b, 0) for b, n in swa_kernel.BUILD_LAUNCHES.items()
+           if n != before.get(b, 0)}
+    assert ran == {"wgmma-bf16-hd256": 2}
+    assert torch.equal(got, again)
+    o32 = ref.swa_attention_plain(q.float(), k.float(), v.float(), window=window)
+    bound = ref.swa_bf16_bound(q, k, v, window=window)
+    assert bool(((got.float() - o32).abs() <= bound).all())
+    log = _build.build_log("swa_attention")
+    entry = next(part for part in log.split("Compiling entry function")[1:]
+                 if "wgmma_hd256" in part.splitlines()[0])
+    spills = [ln for ln in entry.splitlines() if "spill" in ln]
+    assert spills and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills)
 
 
 def test_swa_wrapper_checks(cuda):
@@ -612,6 +641,48 @@ def test_lm_prefill_and_decode_through_the_kernel(cuda):
     step, _ = arch.decode_fn(params, caches, {"token": tokens[:, :1], "pos": 3072})
     want_step, _ = arch.decode_fn(cpu_params, want_caches, {"token": tokens[:, :1].cpu(), "pos": 3072})
     torch.testing.assert_close(step.cpu(), want_step, rtol=0, atol=1e-4)
+
+
+def test_hybrid_prefill_and_decode_through_the_kernel(cuda):
+    """The reduced RecurrentGemma-9B with hd 256, one KV head and a
+    1024-token window at S=3072: fp32 on the card (the scalar kernel)
+    against the CPU (the twin) within 1e-4, and bf16 on the wgmma hd-256
+    build, one launch a prefill."""
+    import dataclasses
+
+    from repro_torch.arch import build_arch
+    from repro_torch.config import get_arch_config
+
+    cfg = dataclasses.replace(get_arch_config("recurrentgemma-9b").reduced(), head_dim=256,
+                              num_kv_heads=1, local_attn_window=1024)
+    arch = build_arch(cfg)
+    params = arch.init_params(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (1, 3072),
+                           generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    before = dict(swa_kernel.BUILD_LAUNCHES)
+    logits, _ = arch.prefill_fn(params, {"tokens": tokens})
+    assert swa_kernel.BUILD_LAUNCHES["scalar-fp32-hd256"] == before.get("scalar-fp32-hd256", 0) + 1
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        return [cpu(v) for v in tree] if isinstance(tree, list) else tree.cpu()
+
+    cpu_params = cpu(params)
+    want, _ = arch.prefill_fn(cpu_params, {"tokens": tokens.cpu()})
+    torch.testing.assert_close(logits.cpu(), want, rtol=0, atol=1e-4)
+    state = arch.init_decode_state(params, 1, 3072)
+    cpu_state = arch.init_decode_state(cpu_params, 1, 3072)
+    step, _ = arch.decode_fn(params, state, {"token": tokens[:, :1], "pos": 0})
+    want_step, _ = arch.decode_fn(cpu_params, cpu_state, {"token": tokens[:, :1].cpu(), "pos": 0})
+    torch.testing.assert_close(step.cpu(), want_step, rtol=0, atol=1e-4)
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    bf16_arch = build_arch(bf16)
+    before = dict(swa_kernel.BUILD_LAUNCHES)
+    got, _ = bf16_arch.prefill_fn(bf16_arch.init_params(torch.Generator(device=cuda).manual_seed(0)),
+                                  {"tokens": tokens})
+    assert bool(torch.isfinite(got).all())
+    assert swa_kernel.BUILD_LAUNCHES["wgmma-bf16-hd256"] == before.get("wgmma-bf16-hd256", 0) + 1
 
 
 # ------------------------------------------------------------ baselines
