@@ -290,6 +290,31 @@ Phases, each printing one JSON line:
                 CPU from the same weights at S=4,096 (the banded branch
                 on both; logits of the prefill and two decode steps
                 within 1e-4);
+ 24. swept    — the swept-sharded engine (``train_sweep`` with
+                ``mixer="sharded"``) on the (1, 1) sweep mesh of a
+                one-rank NCCL group on ``cuda:0``
+                (``make_sweep_mesh(15, 226)``: its node and grid
+                subgroups, one rank each; the multi-rank layouts are held
+                on the CPU over gloo by the tests): the Fig-5 grid (G=15)
+                on the REPLACE-BG fast twin (N=226, D=66,689) at H=128,
+                batch 64, random topology, B=7, Adam 1e-3, 8 rounds with
+                an eval every 4, on ``allgather`` sparse, ``psum`` dense,
+                ``masked`` sparse and ``allgather`` sparse at a DP sigma
+                axis of 0.05, each against the tree sweep from the same
+                seeds: node params and optimizer rows bitwise
+                (``torch.equal``), populations, losses and val records
+                within 1e-6 relative; masked bitwise allgather; one
+                ``lstm_forward`` launch of 15 groups an eval and no
+                gossip kernel; scenario-rounds/s of each beside the tree
+                sweep, in turns; the peak memory of each; a profiled
+                4-round chunk of allgather (sparse) and psum (dense): the
+                ``round.gossip`` span's device time a round, the kernels
+                in it (the NCCL ones named) and the card's busy share;
+                then the sweep CLI ``--sweep-ratios 0,0.3,0.7
+                --sweep-seeds 2 --mixer sharded --num-processes 1`` for 4
+                rounds (226 ``lstm_forward`` launches for the test
+                forecasts, finite records, the histories and summary the
+                tree CLI's);
 
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -471,6 +496,18 @@ SHARDED_PROFILED_ROUNDS = 4
 # path's mean), losses and val records: relative, norm-wise
 SHARDED_TOL = 1e-6
 SHARDED_CLI_ROUNDS = 4
+# phase 24: the swept-sharded engine on the (1, 1) sweep mesh of a one-rank
+# NCCL group, the Fig-5 grid at REPLACE-BG fast, H=128; its schedules
+# (gossip_impl, gossip_repr, DP sigma: an armed dp_sigmas axis), each
+# against the tree sweep; the profiled ones; the CLI's grid
+SWEPT_DATASET, SWEPT_HIDDEN = "replace-bg", 128
+SWEPT_ROUNDS, SWEPT_EVAL = 8, 4
+SWEPT_RUNS = (("allgather", "sparse", 0.0), ("psum", "dense", 0.0), ("masked", "sparse", 0.0),
+              ("allgather", "sparse", 0.05))
+SWEPT_PROFILED = (("allgather", "sparse", 0.0), ("psum", "dense", 0.0))
+SWEPT_PROFILED_ROUNDS = 4
+SWEPT_CLI = ["--fast-data", "--topology", "random", "--sweep-ratios", "0,0.3,0.7",
+             "--sweep-seeds", "2", "--rounds", "4"]
 
 
 def require(cond, what) -> None:
@@ -1761,6 +1798,196 @@ def sharded_phase(feds, card: str) -> dict:
     return dict(launches_sharded=lstm_launches, launches_sharded_cli=cli_counts["lstm_forward"])
 
 
+def swept_phase(feds, card: str) -> dict:
+    """Phase 24, the swept-sharded engine (``train_sweep`` with
+    ``mixer="sharded"``) on the (1, 1) sweep mesh of a one-rank NCCL
+    group, and the sweep CLI with ``--mixer sharded``; returns the
+    ``lstm_forward`` row's launches on the phase's paths."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.config import FLConfig, SweepConfig
+    from repro_torch.core import GluADFL, SweepGrid
+    from repro_torch.launch.mesh import make_sweep_mesh
+    from repro_torch.launch.train import run as train_run
+    from repro_torch.launch.train import val_windows
+    from repro_torch.models import LSTMModel
+    from repro_torch.models import lstm as lstm_model
+    from repro_torch.optim import get_optimizer
+
+    fed = feds[SWEPT_DATASET]
+    n = fed.num_nodes
+    val = val_windows(fed)
+    fig5 = SweepConfig()
+    grids = {sigma: SweepGrid.build(fig5.topologies, fig5.inactive_ratios, fig5.seed_list(),
+                                    num_nodes=n, dp_sigmas=(sigma,) if sigma else None)
+             for sigma in {s for _, _, s in SWEPT_RUNS}}
+    g = grids[0.0].size
+
+    def sync():
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+
+    def trainer(mixer, impl, repr_, mesh=None):
+        return GluADFL(LSTMModel(hidden=SWEPT_HIDDEN).as_model(), get_optimizer("adam", 1e-3),
+                       FLConfig(num_nodes=n, topology="random"), mixer=mixer, gossip_impl=impl,
+                       gossip_repr=repr_, mesh=mesh, device=DEV)
+
+    def sweep(t, sigma, states=None, rounds=SWEPT_ROUNDS, evals=True):
+        out = t.train_sweep(fed.x, fed.y, fed.counts, grid=grids[sigma], batch_size=64,
+                            rounds=rounds, chunk=rounds, eval_every=SWEPT_EVAL if evals else 0,
+                            val_data=val if evals else None, states=states)
+        sync()
+        return out
+
+    # the groups of each lstm_forward launch on the counted runs
+    groups: list[int] = []
+    plain_forward = lstm_model.lstm_forward
+
+    def recording(x, wx, *rest):
+        groups.append(int(wx.shape[0]))
+        return plain_forward(x, wx, *rest)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    backend = "nccl" if DEV == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                            timeout=timedelta(seconds=300))
+    try:
+        require(dist.get_backend() == backend, f"the group's backend is {dist.get_backend()}")
+        mesh = make_sweep_mesh(g, n, device=DEV)
+        require(mesh.shape == {"grid": 1, "node": 1} and mesh.node.group is not None and
+                mesh.grid_group is not None, f"the sweep mesh {mesh}")
+        trees = {(r, s): sweep(trainer("tree", "allgather", r), s)
+                 for r, s in {(r, s) for _, r, s in SWEPT_RUNS}}
+        runs, peaks, checks, lstm_launches = {}, {}, {}, 0
+        for impl, repr_, sigma in SWEPT_RUNS:
+            key = f"{impl}-{repr_}" + (f"-dp{sigma}" if sigma else "")
+            t = trainer("sharded", impl, repr_, mesh)
+            if DEV == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.memory_allocated()
+            groups.clear()
+            lstm_model.lstm_forward = recording
+            reset_launches()
+            try:
+                pops, hists, states = sweep(t, sigma)
+            finally:
+                lstm_model.lstm_forward = plain_forward
+            counts = launches()
+            if DEV == "cuda":
+                peak = torch.cuda.max_memory_allocated()
+                peaks[key] = dict(peak=peak / 1e9, added=(peak - start) / 1e9)
+            evals = SWEPT_ROUNDS // SWEPT_EVAL
+            require(counts["lstm_forward"] == evals and sum(counts.values()) == evals
+                    and groups == [g] * evals,
+                    f"{key}: launches {counts}, groups {groups}: want {evals} lstm_forward "
+                    f"launches of {g} groups and no gossip kernel")
+            lstm_launches += counts["lstm_forward"]
+            tpops, thists, tstates = trees[(repr_, sigma)]
+            require(torch.equal(states.params, tstates.params) and
+                    all(torch.equal(states.opt_state[k], tstates.opt_state[k])
+                        for k in states.opt_state if states.opt_state[k] is not None),
+                    f"{key}: the node params after {SWEPT_ROUNDS} rounds are not bitwise the "
+                    f"tree sweep's")
+            losses = np.array([[h["loss"] for h in hist] for hist in hists])
+            require(losses.shape == (g, SWEPT_ROUNDS) and np.isfinite(losses).all(),
+                    f"{key}: losses")
+            diffs = dict(
+                populations=rel_diff(torch.cat([pops[k].reshape(g, -1) for k in sorted(pops)], 1),
+                                     torch.cat([tpops[k].reshape(g, -1) for k in sorted(tpops)],
+                                               1)),
+                losses=rel_diff(losses, [[h["loss"] for h in hist] for hist in thists]),
+                val_rmse=rel_diff([h["val_rmse"] for hist in hists for h in hist
+                                   if "val_rmse" in h],
+                                  [h["val_rmse"] for hist in thists for h in hist
+                                   if "val_rmse" in h]))
+            require(max(diffs.values()) <= SHARDED_TOL, f"{key} against the tree sweep: {diffs}")
+            checks[key] = dict(backend=t.plan.backend, bitwise_params_opt_state=True,
+                               rel_diff_vs_tree=diffs, launches=counts, groups=groups[:])
+            runs[key] = (t, hists, states, sigma)
+        _, ha, a, _ = runs["allgather-sparse"]
+        _, hm, m, _ = runs["masked-sparse"]
+        require(ha == hm and torch.equal(a.params, m.params), "masked is not bitwise allgather")
+
+        # scenario-rounds/s in turns (forward, then back), each from its
+        # run's states, no eval
+        timed = {"tree-sparse": (trainer("tree", "allgather", "sparse"), 0.0,
+                                 trees[("sparse", 0.0)][2]),
+                 "tree-dense": (trainer("tree", "allgather", "dense"), 0.0,
+                                trees[("dense", 0.0)][2]),
+                 **{k: (t, sigma, st) for k, (t, _, st, sigma) in runs.items()}}
+        rates = {k: [] for k in timed}
+        for k in list(timed) + list(reversed(timed)):
+            t, sigma, st = timed[k]
+            t0 = time.perf_counter()
+            sweep(t, sigma, st, evals=False)
+            rates[k].append(g * SWEPT_ROUNDS / (time.perf_counter() - t0))
+
+        # a profiled chunk: the gossip span's device time and the kernels in it
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if DEV == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiles = {}
+        for impl, repr_, sigma in SWEPT_PROFILED:
+            t, _, st, _ = runs[f"{impl}-{repr_}"]
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=activities) as prof:
+                sweep(t, sigma, st, rounds=SWEPT_PROFILED_ROUNDS, evals=False)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            by_span, _, busy_ms, _ = span_breakdown(prof)
+            items = span_items(prof, "round.gossip")
+            require(by_span["round.gossip"] > 0, f"{impl}-{repr_}: no device work in round.gossip")
+            profiles[f"{impl}-{repr_}"] = dict(
+                gossip_device_ms_per_round=by_span["round.gossip"] / SWEPT_PROFILED_ROUNDS,
+                gossip_items_ms=items,
+                nccl_kernels=sorted(k for k in items if "nccl" in k.lower()),
+                device_ms_by_span=by_span, device_busy_ms=busy_ms, wall_ms=wall_ms,
+                device_busy_share=busy_ms / wall_ms)
+    finally:
+        dist.destroy_process_group()
+
+    # the CLI, one process: the (1, 1) sweep mesh without a group, against
+    # the tree sweep's CLI run
+    out = ROOT / "build" / "chip_smoke"
+    cli = {}
+    for mixer in ("tree", "sharded"):
+        extra = ["--mixer", mixer] + (["--num-processes", "1"] if mixer == "sharded" else [])
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            cli[mixer] = train_run(["--dataset", SWEPT_DATASET, *SWEPT_CLI, "--hidden",
+                                    str(SWEPT_HIDDEN), "--device", DEV, "--out", str(out / mixer),
+                                    *extra])
+        sync()
+        cli[mixer + "_launches"] = launches()
+        cli[mixer + "_printed"] = printed.getvalue()
+    run, cli_counts = cli["sharded"], cli["sharded_launches"]
+    require(run.trainer.plan.backend == "sharded" and run.trainer.mesh.shape ==
+            {"grid": 1, "node": 1} and run.trainer.mesh.node.group is None,
+            f"the CLI's plan {run.trainer.plan.backend} on {run.trainer.mesh}")
+    require(cli_counts["lstm_forward"] == n and sum(cli_counts.values()) == n,
+            f"the CLI's launches {cli_counts}, want {n} lstm_forward (the test forecasts)")
+    require(len(run.summary) == 6 and all(np.isfinite(r["final_loss"]) and np.isfinite(r["rmse"])
+                                          for r in run.summary), "the CLI's summary")
+    require(run.history == cli["tree"].history and run.summary == cli["tree"].summary,
+            "the CLI's sharded sweep is not the tree sweep's")
+    emit("swept", dataset=SWEPT_DATASET, nodes=n, hidden=SWEPT_HIDDEN, scenarios=g,
+         dim=runs["allgather-sparse"][0].layout.dim, rounds=SWEPT_ROUNDS, eval_every=SWEPT_EVAL,
+         world_size=1, backend=backend, mesh=mesh.shape, runs=checks,
+         masked_bitwise_allgather=True, scenario_rounds_per_s=rates, peak_memory_gb=peaks,
+         profiles=profiles,
+         cli=dict(rounds=len(run.history[0]), scenarios=len(run.summary), seconds=run.seconds,
+                  tree_seconds=cli["tree"].seconds, launches=cli_counts,
+                  gossip_repr=run.trainer.plan.gossip_repr, bitwise_tree_cli=True,
+                  printed_lines=len(cli["sharded_printed"].splitlines())),
+         nvidia_smi=card)
+    return dict(launches_swept=lstm_launches, launches_swept_cli=cli_counts["lstm_forward"])
+
+
 def hybrid_split(prof) -> tuple[dict[str, float], dict[str, float], int, int]:
     """Device time (ms) of a profiled prefill split into the GEMMs
     (``GEMM_NAMES``), ``swa_attention``, the RG-LRU scan (items whose start
@@ -2947,6 +3174,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid_row = hybrid_phase(card)
 
+    # 24. the swept-sharded engine over a one-rank NCCL group, and its CLI -----
+    torch.cuda.empty_cache()
+    swept_row = swept_phase(feds, card)
+
     sources = "src/repro_torch/kernels/csrc/"
     rows = [{
         "name": "lstm_forward", "route": "cuda",
@@ -2954,7 +3185,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/lstm_cell.py:51",
         "launches": launches_serve, "launches_personalize": launches_personalize["lstm_forward"],
         "max_abs_err": max(errs), **lstm_row, **sweep_row, **baselines_row, **figures_row,
-        **sharded_row,
+        **sharded_row, **swept_row,
     }]
     path_launches = {"gossip_mix": trained["ohiot1dm"][1]["gossip_mix"],
                      "gossip_mix_sparse": trained["replace-bg"][1]["gossip_mix_sparse"],

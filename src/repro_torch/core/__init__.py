@@ -4,7 +4,8 @@ resolved gossip plan and its backend registry (tree, kernel, sharded),
 the sharded mixer over ``torch.distributed`` ranks
 (``core.distributed``), pairwise-masked secure aggregation
 (``core.secure_agg``), the scenario-sweep engine (``SweepGrid``,
-``GluADFL.train_sweep``), cold-start personalization, and the
+``GluADFL.train_sweep``, on one process or, with the sharded mixer, over
+a sweep mesh of ranks), cold-start personalization, and the
 baselines it is compared against (FedAvg, MAML/MetaSGD, pooled
 supervised training) on their shared chunk engine (``core.chunked``).
 

@@ -39,25 +39,35 @@ all.  So a one-rank sharded run is bitwise the tree mixer's, and with W
 > 1 the results differ from it only by the summation order (psum,
 gather) of fp32 sums.
 
+The grid-batched forms serve the swept-sharded engine on a
+:class:`~repro_torch.launch.mesh.SweepMesh`: picked, as in the JAX
+package, for a 3-D operator on a sweep mesh or by ``grid_axis="grid"``,
+they take the rank's ``(Gb, k, D)`` block (or its flat ``(Gb·k, D)``
+rows) of its ``Gb`` scenarios and their global ``(Gb, N, N)`` matrices
+or ``(Gb, N, B+1)`` tables, and run the schedule over the mesh's node
+subgroup with one collective a round for the whole block (one
+all-gather of the block, reordered to ``(Gb, N, D)``; one
+reduce-scatter; one ring transfer a step).  No collective crosses the
+grid.  At node width 1 each runs the tree sweep's torch op
+(``GossipPlan.sweep_gossip``) on the same operands, so a ``(1, 1)``
+sweep is bitwise the tree sweep.
+
 The JAX package contracts these with ``jnp`` einsums and collectives
 and calls no Pallas kernel on its sharded path; the bodies here are
-plain PyTorch, like the tree mixer.  The grid-batched forms
-(``grid_axis``, the swept-sharded engine) are not ported yet.
+plain PyTorch, like the tree mixer.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.gossip import gossip_mix_sparse_tree
+
 # interchangeable schedules for the sharded mix (the JAX package's)
 GOSSIP_IMPLS = ("allgather", "psum", "masked", "gather")
 
 # mixing-operator representations: dense (N, N) matrix vs (N, B+1) table
 GOSSIP_REPRS = ("dense", "sparse")
-
-GRID_REFUSAL = ("the grid-batched sharded mix (grid_axis, the swept-sharded engine on a "
-                "(grid, node) layout) is not ported to PyTorch yet")
-
 
 def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     """Every rank's ``(k, ...)`` block of a per-row tensor, in rank
@@ -66,6 +76,42 @@ def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
         return x
     out = x.new_empty((mesh.width * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
+    return out
+
+
+def all_gather_grid(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every node rank's ``(Gb, k, ...)`` block of a grid block, in one
+    all-gather, as the ``(Gb, N, ...)`` global rows of each scenario."""
+    if mesh.group is None:
+        return x
+    out = x.new_empty((mesh.width * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
+    return out.view(mesh.width, *x.shape).transpose(0, 1).reshape(x.shape[0], -1,
+                                                                  *x.shape[2:])
+
+
+def all_gather_scenarios(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every grid rank's ``(Gb, ...)`` block of per-scenario results, in
+    one all-gather over the sweep mesh's grid subgroup, as ``(G, ...)``
+    in scenario order (one process: ``x``)."""
+    if mesh.grid_group is None:
+        return x
+    out = x.new_empty((mesh.grid_width * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.grid_group)
+    return out
+
+
+def _reduce_scatter_grid(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over the node ranks of ``x`` (Gb, N, ...), this rank's
+    ``(Gb, k, ...)`` rows of each scenario, in one reduce-scatter."""
+    if mesh.group is None:
+        return x
+    gb, n = x.shape[:2]
+    k = n // mesh.width
+    send = x.view(gb, mesh.width, k, *x.shape[2:]).transpose(0, 1).reshape(
+        mesh.width * gb, k, *x.shape[2:])
+    out = x.new_empty((gb, k) + tuple(x.shape[2:]))
+    dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM, group=mesh.group)
     return out
 
 
@@ -158,23 +204,30 @@ def gather_tables_gossip_shard(w: torch.Tensor, idx: torch.Tensor, wgt: torch.Te
     rank ``(rank + t) % W`` and contracts exactly the table entries that
     reference them.  Each (row, slot) lands in one step, and the fp32
     step sums add up to the whole B+1 contraction.  Two row blocks are
-    resident, resident and in flight: O(N/W · D), no gathered (N, D)."""
-    k = w.shape[0]
-    block = w.to(torch.float32)
-    wgt32 = wgt.to(torch.float32)
+    resident, resident and in flight: O(N/W · D), no gathered (N, D).
+    Leading dims (a sweep's grid block ``(Gb, k, D)`` with its
+    ``(Gb, k, B+1)`` table rows) batch through, one transfer a step for
+    the whole block."""
+    k = w.shape[-2]
+    lead = w.shape[0] if w.dim() == 3 else 1
+    block = w.to(torch.float32).reshape(lead, k, -1)
+    idx3 = idx.long().reshape(lead, k, -1)
+    wgt32 = wgt.to(torch.float32).reshape(lead, k, -1)
+    offset = (torch.arange(lead, device=idx.device) * k)[:, None, None]
     acc = None
     for t in range(mesh.width):
         src = (mesh.rank + t) % mesh.width     # whose rows `block` holds now
-        local = idx.long() - src * k
+        local = idx3 - src * k
         in_block = (local >= 0) & (local < k)
-        term = torch.einsum("kb,kbd->kd", torch.where(in_block, wgt32, 0.0),
-                            block[torch.where(in_block, local, 0)])
+        rows = (torch.where(in_block, local, 0) + offset).reshape(lead * k, -1)
+        term = torch.einsum("nb,nbd->nd", torch.where(in_block, wgt32, 0.0).reshape(lead * k, -1),
+                            block.reshape(lead * k, -1)[rows])
         acc = term if acc is None else acc + term
         if t + 1 < mesh.width:
             incoming = torch.empty_like(block)
             _exchange([(block, mesh.rank - 1)], [(incoming, mesh.rank + 1)], mesh)
             block = incoming
-    return acc
+    return acc.reshape(w.shape)
 
 
 # wire-schedule registry for the dense sharded mix: impl -> (shard body,
@@ -212,17 +265,51 @@ def _default_federation_mesh(num_nodes: int, device=None):
     return make_federation_mesh(num_nodes, device=device)
 
 
-def _check(lead: int, n: int, what: str, grid_axis) -> None:
-    if grid_axis is not None:
-        raise NotImplementedError(GRID_REFUSAL)
+def _check(lead: int, n: int, what: str) -> None:
     if lead != n:
         raise ValueError(f"{what} leading dim {lead} != the mesh's N={n}")
 
 
 def _keep_inactive(out: torch.Tensor, w: torch.Tensor, active, rows: slice) -> torch.Tensor:
+    """Inactive rows as bitwise copies of ``w``; ``active`` is the global
+    (N,) flags, or a grid block's (Gb, N)."""
     if active is None:
         return out
-    return torch.where(active[rows, None] > 0, out, w)
+    return torch.where(active[..., rows].reshape(w.shape[:-1] + (1,)) > 0, out, w)
+
+
+def _node_mesh(mesh):
+    """The mesh the gossip collectives run over: a sweep mesh's node
+    subgroup, or the federation mesh itself."""
+    return mesh.node if mesh.axis_names == ("grid", "node") else mesh
+
+
+def _is_grid(op: torch.Tensor, mesh, grid_axis, what: str, shapes: tuple[str, str]) -> bool:
+    """Whether a call is grid-batched (``grid_axis="grid"``, or a 3-D
+    operator on a sweep mesh), with the operator's rank checked against
+    it in the JAX package's words."""
+    if grid_axis not in (None, "grid"):
+        raise ValueError(f"grid_axis must be None or 'grid', got {grid_axis!r}")
+    grid = grid_axis is not None or (op.dim() == 3 and mesh.axis_names == ("grid", "node"))
+    want = 3 if grid else 2
+    if op.dim() != want:
+        raise ValueError(f"{what} must be {want}-D {shapes[grid]} for grid_axis={grid_axis!r}, "
+                         f"got shape {tuple(op.shape)}")
+    return grid
+
+
+def _grid_block(w: torch.Tensor, op: torch.Tensor, node, what: str) -> torch.Tensor:
+    """The rank's block of a grid call as ``(Gb, k, D)``, given as that
+    or as its flat ``(Gb·k, D)`` rows; its scenario count must be the
+    operator's leading dim."""
+    _check(op.shape[1], node.num_nodes, what)
+    k = node.num_nodes // node.width
+    lead = w.shape[0] if w.dim() == 3 else w.shape[0] / k
+    if lead != op.shape[0] or (w.dim() == 3 and w.shape[1] != k):
+        raise ValueError(f"stacked leading dim {lead:g} != {what} leading dim {op.shape[0]} "
+                         f"(block {tuple(w.shape)} of {k} rows a scenario, {what} "
+                         f"{tuple(op.shape)})")
+    return w.reshape(op.shape[0], k, -1)
 
 
 def sharded_gossip_mix(w: torch.Tensor, mix: torch.Tensor, active: torch.Tensor | None = None,
@@ -233,18 +320,45 @@ def sharded_gossip_mix(w: torch.Tensor, mix: torch.Tensor, active: torch.Tensor 
     already keep them for finite data).  ``impl`` picks the schedule:
     ``"allgather"``/``"masked"`` (this rank's matrix rows against the
     gathered federation) or ``"psum"`` (its column block, then a
-    reduce-scatter).  Returns this rank's ``(k, D)`` mixed rows."""
+    reduce-scatter).  Returns this rank's ``(k, D)`` mixed rows.
+
+    Grid-batched (a (Gb, N, N) ``mix`` on a sweep mesh, or
+    ``grid_axis="grid"``): ``w`` is the rank's ``(Gb, k, D)`` block (or
+    its ``(Gb·k, D)`` rows) and ``active`` (Gb, N); the result has
+    ``w``'s shape."""
     if impl not in _DENSE_WIRE_SCHEDULES:
         raise ValueError(f"impl {impl!r} not in {tuple(_DENSE_WIRE_SCHEDULES)} (dense wire "
                          f"schedules; 'gather' is sparse-only -- sharded_gossip_mix_gather)")
-    if mix.dim() != 2:
-        raise ValueError(f"mixing matrix must be 2-D (N, N), got shape {tuple(mix.shape)}")
-    mesh = mesh or _default_federation_mesh(mix.shape[0])
-    _check(mix.shape[0], mesh.num_nodes, "mixing-matrix", grid_axis)
+    mesh = mesh or _default_federation_mesh(mix.shape[-1])
+    grid = _is_grid(mix, mesh, grid_axis, "mixing matrix", ("(N, N)", "(G, N, N)"))
+    node = _node_mesh(mesh)
     body, block = _DENSE_WIRE_SCHEDULES[impl]
-    rows = mesh.rows
-    out = body(w, mix[:, rows] if block == "cols" else mix[rows], mesh)
-    return _keep_inactive(out, w, active, rows)
+    rows = node.rows
+    if not grid:
+        _check(mix.shape[0], node.num_nodes, "mixing-matrix")
+        out = body(w, mix[:, rows] if block == "cols" else mix[rows], node)
+        return _keep_inactive(out, w, active, rows)
+    w3 = _grid_block(w, mix, node, "mixing-matrix")
+    if block == "cols":
+        out = _reduce_scatter_grid(mix[:, :, rows].to(torch.float32) @ w3, node)
+    else:
+        out = mix[:, rows].to(torch.float32) @ all_gather_grid(w3, node)
+    return _keep_inactive(out.reshape(w.shape), w, active, rows)
+
+
+def _table_call(w, idx, wgt, mesh, grid_axis):
+    """The shared front of the two table schedules: the checks, the node
+    mesh, the rows, and the block as ``(Gb, k, D)`` on a grid call
+    (else None)."""
+    if idx.shape != wgt.shape:
+        raise ValueError(f"idx {tuple(idx.shape)} != wgt {tuple(wgt.shape)}")
+    mesh = mesh or _default_federation_mesh(idx.shape[-2])
+    grid = _is_grid(idx, mesh, grid_axis, "neighbor table", ("(N, B+1)", "(G, N, B+1)"))
+    node = _node_mesh(mesh)
+    if not grid:
+        _check(idx.shape[0], node.num_nodes, "neighbor-table")
+        return node, None
+    return node, _grid_block(w, idx, node, "neighbor-table")
 
 
 def sharded_gossip_mix_sparse(w: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
@@ -252,13 +366,21 @@ def sharded_gossip_mix_sparse(w: torch.Tensor, idx: torch.Tensor, wgt: torch.Ten
                               grid_axis=None) -> torch.Tensor:
     """Rank-parallel gossip from the global (N, B+1) neighbor table
     ``(idx, wgt)``: the allgather schedule, then each of this rank's
-    ``(k, D)`` rows gathers its B+1 entries."""
-    if idx.shape != wgt.shape:
-        raise ValueError(f"idx {tuple(idx.shape)} != wgt {tuple(wgt.shape)}")
-    mesh = mesh or _default_federation_mesh(idx.shape[0])
-    _check(idx.shape[0], mesh.num_nodes, "neighbor-table", grid_axis)
-    rows = mesh.rows
-    return _keep_inactive(sparse_gossip_shard(w, idx[rows], wgt[rows], mesh), w, active, rows)
+    ``(k, D)`` rows gathers its B+1 entries.  Grid-batched as
+    :func:`sharded_gossip_mix` (a (Gb, N, B+1) table): the block is
+    gathered once to ``(Gb·N, D)`` and each row gathers through its
+    table row offset by its scenario's ``g·N``, the tree sweep's
+    gather."""
+    node, w3 = _table_call(w, idx, wgt, mesh, grid_axis)
+    rows = node.rows
+    if w3 is None:
+        return _keep_inactive(sparse_gossip_shard(w, idx[rows], wgt[rows], node), w, active, rows)
+    gb, n = idx.shape[:2]
+    w_all = all_gather_grid(w3, node).reshape(gb * n, -1)
+    offset = (torch.arange(gb, dtype=idx.dtype, device=idx.device) * n)[:, None, None]
+    mine = (idx[:, rows] + offset).reshape(-1, idx.shape[-1])
+    out = gossip_mix_sparse_tree(w_all, mine, wgt[:, rows].reshape(-1, idx.shape[-1]))
+    return _keep_inactive(out.reshape(w.shape), w, active, rows)
 
 
 def sharded_gossip_mix_gather(w: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
@@ -267,13 +389,13 @@ def sharded_gossip_mix_gather(w: torch.Tensor, idx: torch.Tensor, wgt: torch.Ten
     """Rank-parallel gossip from the neighbor table on the gather-table
     schedule (``gossip_impl="gather"``): the same contract as
     :func:`sharded_gossip_mix_sparse`, and no rank ever holds the
-    gathered (N, D) federation."""
-    if idx.shape != wgt.shape:
-        raise ValueError(f"idx {tuple(idx.shape)} != wgt {tuple(wgt.shape)}")
-    mesh = mesh or _default_federation_mesh(idx.shape[0])
-    _check(idx.shape[0], mesh.num_nodes, "neighbor-table", grid_axis)
-    rows = mesh.rows
-    out = gather_tables_gossip_shard(w, idx[rows], wgt[rows], mesh)
+    gathered (N, D) federation (grid-batched: no ``(Gb, N, D)``)."""
+    node, w3 = _table_call(w, idx, wgt, mesh, grid_axis)
+    rows = node.rows
+    if w3 is None:
+        out = gather_tables_gossip_shard(w, idx[rows], wgt[rows], node)
+    else:
+        out = gather_tables_gossip_shard(w3, idx[:, rows], wgt[:, rows], node).reshape(w.shape)
     return _keep_inactive(out, w, active, rows)
 
 

@@ -1,5 +1,5 @@
 """GluADFL, Algorithm 1 of the paper, vectorized over the federation
-(the single-process counterpart of ``repro.core.gluadfl``).
+(the counterpart of ``repro.core.gluadfl``).
 
   * Line 3: per-node random init.
   * Lines 5-9: only ACTIVE nodes mix, over {self} and at most B active
@@ -77,9 +77,18 @@ the collectives of the resolved schedule, and steps its rows.  The
 round's loss is an ``all_reduce`` of ``[sum(loss * act), sum(act)]``
 and the population an ``all_reduce`` of the row sums over N, so every
 rank's history is the same.  At W = 1 a sharded run is bitwise the tree
-mixer's.  The swept-sharded engine is not ported yet
-(``train_sweep`` refuses the sharded mixer), nor is a custom loss
-function.
+mixer's.  A custom loss function is not ported.
+
+The swept-sharded engine (``train_sweep`` with ``mixer="sharded"``)
+runs the grid over the ranks of a
+:class:`~repro_torch.launch.mesh.SweepMesh`, one rank standing for one
+device of the JAX package's ``("grid", "node")`` mesh: each rank trains
+the ``(G / grid_width, N / node_width)`` block of its scenarios and
+rows, gossips over its node subgroup (``core.distributed``'s grid
+forms), reduces each scenario's loss and population over that
+subgroup, and gathers the grid's histories and populations over its
+grid subgroup once a chunk, so every rank returns all G.  One process
+is the ``(1, 1)`` mesh: bitwise the tree sweep.
 """
 from __future__ import annotations
 
@@ -95,8 +104,13 @@ from torch.profiler import record_function
 from repro_torch.config import FLConfig
 from repro_torch.core.chunked import engine_chunk
 from repro_torch.core.async_sched import bernoulli_active, markov_active, staleness_update
-from repro_torch.core.distributed import all_gather_rows, all_reduce_sum
-from repro_torch.core.gossip_plan import resolve_gossip_plan
+from repro_torch.core.distributed import (
+    all_gather_grid,
+    all_gather_rows,
+    all_gather_scenarios,
+    all_reduce_sum,
+)
+from repro_torch.core.gossip_plan import GossipPlan, resolve_gossip_plan
 from repro_torch.core.secure_agg import (
     MaskSource,
     edge_mask_source,
@@ -243,6 +257,13 @@ class _Scenarios:
     sigma: torch.Tensor | None       # (G·N, 1) DP sigma of each row
     shift: torch.Tensor | None       # (G·N,) data-skew shift of each row
     mask_sources: Sequence[MaskSource] | None
+    plan: GossipPlan                 # the trainer's, or its plan on the sweep mesh
+    mesh: object = None              # the SweepMesh of a swept-sharded run
+
+    @property
+    def node(self):
+        """The node subgroup's mesh (None off the sharded mixer)."""
+        return None if self.mesh is None else self.mesh.node
 
 
 @dataclass
@@ -351,6 +372,7 @@ class GluADFL:
         gossip_repr: str = "dense",
         dp_noise_sigma: float = 0.0,
         mask_source: MaskSource | None = None,
+        mesh=None,
         device=None,
     ):
         if grad_at not in ("premix", "mixed"):
@@ -367,10 +389,13 @@ class GluADFL:
             mixer=mixer, gossip_impl=gossip_impl, gossip_repr=gossip_repr,
             num_nodes=cfg.num_nodes,
             comm_batch=cfg.comm_batch, topology=cfg.topology,
-            cluster_size=cfg.cluster_size, device=self.device,
+            cluster_size=cfg.cluster_size, mesh=mesh, device=self.device,
         )
-        # the sharded mixer's FederationMesh (this rank's rows), else None
+        # the sharded mixer's FederationMesh (this rank's rows) or the
+        # SweepMesh it was given, else None
         self.mesh = self.plan.mesh
+        self._mesh_given = mesh is not None
+        self._sweep_plans: dict = {}  # G -> the sharded plan on its sweep mesh
         self.layout = ParamLayout.of(model.init(torch.Generator().manual_seed(0)))
         if mask_source is not None and not self.plan.masked:
             raise ValueError("mask_source is for gossip_impl='masked'")
@@ -441,15 +466,18 @@ class GluADFL:
         are a one-process run's."""
         return self.shard_state(self.init(generator))
 
-    def to_device(self, x, y, counts) -> FedTensors:
+    def to_device(self, x, y, counts, mesh=None) -> FedTensors:
         """The federation's padded arrays as tensors on the device: on
-        the sharded mixer this rank's rows of the windows, with the
-        counts whole (every rank draws the whole round)."""
-        if self.mesh is None:
+        the sharded mixer (``mesh``, default the trainer's) this rank's
+        rows of the windows, with the counts whole (every rank draws the
+        whole round); on a sweep mesh its node subgroup's rows."""
+        mesh = self.mesh if mesh is None else mesh
+        if mesh is None:
             return FedTensors.of(x, y, counts, self.device)
         from repro_torch.launch.multihost import place_federation
 
-        x, y, counts, _ = place_federation(self.mesh, x, y, counts, device=self.device)
+        node = mesh.node if mesh.axis_names == ("grid", "node") else mesh
+        x, y, counts, _ = place_federation(node, x, y, counts, device=self.device)
         return FedTensors(x, y, counts)
 
     def draw(self, generator: torch.Generator, data: FedTensors, batch_size: int) -> RoundDraws:
@@ -626,6 +654,9 @@ class GluADFL:
                 raise NotImplementedError("engine='loop' is the single-process debug "
                                           "fallback; multi-process runs use the scan engine")
             self.plan.require_multihost()
+        if self.mesh is not None and self.mesh.axis_names != ("node",):
+            raise ValueError("a sweep mesh lays out train_sweep's scenarios; train() runs on "
+                             "the federation mesh (launch.mesh.make_federation_mesh)")
         chunk = engine_chunk(engine, chunk, 0)[0]
         rounds = self.cfg.rounds if rounds is None else rounds
         data = self.to_device(x, y, counts)
@@ -669,45 +700,57 @@ class GluADFL:
         return tuple(torch.as_tensor(np.asarray(v, np.float32)).to(self.device) for v in val_data)
 
     # ------------------------------------------------------------------
-    def _scenarios(self, grid: SweepGrid) -> _Scenarios:
-        """The grid's knobs on the device.  Unarmed axes fall back to the
-        trainer's own: its DP sigma and its config's data skew for every
-        scenario, as in the JAX package."""
-        dev, g, n = self.device, grid.size, self.cfg.num_nodes
+    def _scenarios(self, grid: SweepGrid, plan: GossipPlan, mesh=None) -> _Scenarios:
+        """The knobs of this rank's scenarios on the device (every
+        scenario off the sharded mixer), each row's for its rows
+        ``plan.rows``.  Unarmed axes fall back to the trainer's own: its
+        DP sigma and its config's data skew for every scenario, as in
+        the JAX package."""
+        dev, n = self.device, self.cfg.num_nodes
+        scen = slice(None) if mesh is None else mesh.scenarios(grid.size)
+        rows = plan.rows
+        k = len(range(n)[rows])
         sigma = grid.dp_sigma
         if sigma is None and self.dp_noise_sigma > 0.0:
-            sigma = torch.full((g,), self.dp_noise_sigma)
+            sigma = torch.full((grid.size,), self.dp_noise_sigma)
         skew = grid.skew
         if skew is None and self.cfg.data_skew != 0.0:
-            skew = torch.full((g,), self.cfg.data_skew)
+            skew = torch.full((grid.size,), self.cfg.data_skew)
         shift = None
         if skew is not None:
-            offsets = torch.from_numpy(node_skew_offsets(n))
-            shift = (skew[:, None] * offsets[None, :]).reshape(-1).to(dev)
+            offsets = torch.from_numpy(node_skew_offsets(n))[rows]
+            shift = (skew[scen, None] * offsets[None, :]).reshape(-1).to(dev)
         sources = None
-        if self.plan.masked:
-            sources = sweep_mask_sources(grid.seeds, self.layout.dim, dev)
+        if plan.masked:
+            sources = sweep_mask_sources(grid.seeds[scen], self.layout.dim, dev)
         return _Scenarios(
-            adjacency=grid.adjacency.to(dev), resample=grid.resample.to(dev),
-            inactive_ratio=grid.inactive_ratio.to(dev),
-            markov=None if grid.markov is None else grid.markov.to(dev),
-            sigma=None if sigma is None else sigma.repeat_interleave(n)[:, None].to(dev),
-            shift=shift, mask_sources=sources,
+            adjacency=grid.adjacency[scen].to(dev), resample=grid.resample[scen].to(dev),
+            inactive_ratio=grid.inactive_ratio[scen].to(dev),
+            markov=None if grid.markov is None else grid.markov[scen].to(dev),
+            sigma=None if sigma is None else sigma[scen].repeat_interleave(k)[:, None].to(dev),
+            shift=shift, mask_sources=sources, plan=plan, mesh=mesh,
         )
 
     def sweep_round(self, state: FLState, data: FedTensors, draws: RoundDraws,
                     sc: _Scenarios):
-        """One round of every scenario: ``state`` holds the flat (G·N, ...)
-        rows, ``draws`` the G scenarios' draws stacked (``draw_sweep``).
-        Returns ``(new_state, losses)``, each scenario's active-weighted
-        mean loss as a (G,) tensor on the device."""
-        cfg = self.cfg
+        """One round of every scenario: ``state`` holds the flat (G·k, ...)
+        rows (k = N, or a rank's N / node_width rows of each of its G
+        scenarios on the sharded mixer), ``draws`` the G scenarios'
+        whole draws stacked (``draw_sweep``), of which the rank keeps
+        its rows.  Returns ``(new_state, losses)``, each scenario's
+        active-weighted mean loss as a (G,) tensor on the device."""
+        cfg, plan, node = self.cfg, sc.plan, sc.node
         g, n = draws.u_act.shape
+        rows = plan.rows
+        k = data.x.shape[0]
         with record_function("round.mixing_operator"):
             active = bernoulli_active(draws.u_act, sc.inactive_ratio)
             if sc.markov is not None:
                 # both schedules read the same uniforms: arming the axis moves no draw
-                prev_active = (state.staleness.view(g, n) == 0).to(torch.float32)
+                staleness = state.staleness.view(g, k)
+                if node is not None:
+                    staleness = all_gather_grid(staleness, node)
+                prev_active = (staleness == 0).to(torch.float32)
                 sticky = markov_active(draws.u_act, prev_active, cfg.p_stay_active,
                                        cfg.p_stay_inactive)
                 active = torch.where(sc.markov[:, None] > 0, sticky, active)
@@ -715,39 +758,47 @@ class GluADFL:
             if draws.scores is not None:
                 drawn = random_adjacency(draws.scores, min(cfg.comm_batch, n - 1))
                 adj = torch.where(sc.resample[:, None, None] > 0, drawn, adj)
-            operand = self.plan.build_repr(adj, active)
+            operand = plan.build_repr(adj, active)
         premix = state.params
+        act = active[:, rows]
         noise = None
         if sc.sigma is not None:
             if draws.dp_noise is None:
                 raise ValueError("a DP sweep needs RoundDraws.dp_noise")
-            noise = sc.sigma * draws.dp_noise.view(g * n, -1)
+            noise = sc.sigma * draws.dp_noise[:, rows].reshape(g * k, -1)
         with record_function("round.gossip"):
             mask_ctx = None if sc.mask_sources is None else (sc.mask_sources, adj)
-            mixed = self.plan.sweep_gossip(premix, operand, active, noise, mask_ctx)
+            mixed = plan.sweep_gossip(premix, operand, active, noise, mask_ctx)
         with record_function("round.local_step"):
             new_params, new_opt, losses = self._local_step(
                 premix, mixed, state.opt_state, data,
-                draws.batch_idx.view(g * n, *draws.batch_idx.shape[2:]), sc.shift)
-        rows = active.reshape(-1)
+                draws.batch_idx[:, rows].reshape(g * k, *draws.batch_idx.shape[2:]), sc.shift)
+        flat_act = act.reshape(-1)
 
         def keep_inactive(new, old):
             if new is None:
                 return None
-            return torch.where(rows.reshape((g * n,) + (1,) * (new.dim() - 1)) > 0, new, old)
+            return torch.where(flat_act.reshape((g * k,) + (1,) * (new.dim() - 1)) > 0, new, old)
 
         with record_function("round.mask"):
             params = keep_inactive(new_params, premix)
-            opt_state = {k: keep_inactive(v, state.opt_state[k]) for k, v in new_opt.items()}
-            loss = (torch.sum(losses.view(g, n) * active, dim=1)
-                    / torch.clamp_min(torch.sum(active, dim=1), 1.0))
-            staleness = staleness_update(state.staleness, rows)
+            opt_state = {key: keep_inactive(v, state.opt_state[key]) for key, v in new_opt.items()}
+            num, den = torch.sum(losses.view(g, k) * act, dim=1), torch.sum(act, dim=1)
+            if node is not None:
+                num, den = all_reduce_sum(torch.stack([num, den]), node)
+            loss = num / torch.clamp_min(den, 1.0)
+            staleness = staleness_update(state.staleness, flat_act)
         return FLState(params, opt_state, staleness, state.round + 1), loss
 
-    def populations(self, state: FLState, g: int) -> torch.Tensor:
+    def populations(self, state: FLState, g: int, node=None) -> torch.Tensor:
         """Each scenario's population model (the mean of its N rows of the
-        flat (G·N, D) params) as a (G, D) tensor."""
-        return state.params.view(g, self.cfg.num_nodes, -1).mean(dim=1)
+        flat (G·N, D) params) as a (G, D) tensor; on a node subgroup
+        ``node`` (a rank's (G·k, D) rows), an ``all_reduce`` of the row
+        sums over N."""
+        rows = state.params.view(g, state.params.shape[0] // g, -1)
+        if node is None or node.group is None:
+            return rows.mean(dim=1)
+        return all_reduce_sum(rows.sum(dim=1), node) / self.cfg.num_nodes
 
     def sweep_val_rmse(self, pops: torch.Tensor, val_x: torch.Tensor,
                        val_y: torch.Tensor) -> torch.Tensor:
@@ -759,11 +810,11 @@ class GluADFL:
             return torch.sqrt(torch.mean(torch.square(pred - val_y), dim=1))
 
     def _sweep_eval(self, state: FLState, g: int, eval_fn: Callable | None, val_x,
-                    val_y) -> dict[str, torch.Tensor]:
+                    val_y, node=None) -> dict[str, torch.Tensor]:
         """One eval round of every scenario: each key's (G,) values, from
         the resolved ``eval_fn`` once a scenario, or (None) the built-in
         val RMSE of all G populations in one forward."""
-        pops = self.populations(state, g)
+        pops = self.populations(state, g, node)
         if eval_fn is None:
             return {"val_rmse": self.sweep_val_rmse(pops, val_x, val_y)}
         views = self.layout.views(pops)
@@ -807,57 +858,125 @@ class GluADFL:
         while the built-in val RMSE evaluates all G populations in one
         forward (:meth:`sweep_val_rmse`).  The host syncs once per
         ``chunk`` rounds for the whole grid.  The kernel mixer is
-        refused (``GossipPlan.require_sweep``)."""
+        refused (``GossipPlan.require_sweep``).
+
+        With ``mixer="sharded"`` the grid runs on a sweep mesh (the one
+        the trainer was given, else :func:`launch.mesh.make_sweep_mesh`
+        of (G, N) over the default group), each rank standing for one
+        device of the JAX package's ``("grid", "node")`` mesh: every
+        rank calls this with the same arguments, ``generators``,
+        ``states`` and ``draws`` cover the whole grid, and each rank
+        keeps its scenarios' block of them and its rows
+        (``mesh.scenarios(G)``, ``mesh.rows``), draws what it draws
+        from its scenarios' generators, and evaluates its scenarios'
+        populations in one forward.  Every rank returns all G
+        populations and histories; ``states`` is the rank's
+        (G / grid_width, N / node_width, ...) block.  Over more than one
+        rank, a tree sweep is refused: it batches scenarios on one
+        process (the JAX package's ``process_count() > 1`` refusal)."""
+        grouped = dist.is_available() and dist.is_initialized()
+        if grouped and dist.get_world_size() > 1 and not self.plan.caps.uses_mesh:
+            raise NotImplementedError(
+                "train_sweep batches the tree mixer's scenarios on one process; over several "
+                "ranks a sweep needs mixer='sharded' (the swept-sharded engine)")
         self.plan.require_sweep()
         n = self.cfg.num_nodes
         if grid.adjacency.shape[-1] != n:
             raise ValueError(f"grid built for N={grid.adjacency.shape[-1]} nodes but "
                              f"cfg.num_nodes={n}")
-        g = grid.size
+        plan, mesh = self.plan, None
+        if plan.caps.uses_mesh:
+            plan = self._sweep_plan(grid.size)
+            mesh = plan.mesh
+        scen = slice(None) if mesh is None else mesh.scenarios(grid.size)
+        g = len(range(grid.size)[scen])
+        rows = plan.rows
         rounds = self.cfg.rounds if rounds is None else rounds
-        data = self.to_device(x, y, counts)
+        data = self.to_device(x, y, counts, mesh)
+        k = data.x.shape[0]
         if generators is None and (states is None or draws is None):
             generators = [torch.Generator(device=self.device).manual_seed(seed)
-                          for seed in grid.seeds]
+                          for seed in grid.seeds[scen]]
+        elif generators is not None:
+            generators = list(generators)[scen]
         if states is None:
-            state = self._fresh_state(torch.cat([self._draw_params(gen) for gen in generators]))
+            state = self._fresh_state(torch.cat([self._draw_params(gen)[rows]
+                                                 for gen in generators]))
         else:
-            state = states.reshaped((g * n,))
-        sc = self._scenarios(grid)
+            def cut(t):
+                return None if t is None else t[scen][:, rows]
+            state = FLState(cut(states.params), {key: cut(v) for key, v in states.opt_state.items()},
+                            cut(states.staleness), states.round).reshaped((g * k,))
+        sc = self._scenarios(grid, plan, mesh)
         stream: Iterator[RoundDraws] | None = None if draws is None else iter(draws)
-        resample = [bool(v) for v in grid.resample.tolist()]
+        resample = [bool(v) for v in grid.resample[scen].tolist()]
         dp_dim = self.layout.dim if sc.sigma is not None else 0
         val_x, val_y = self._val_tensors(val_data)
         do_eval = bool(eval_every) and (eval_fn is not None or val_data is not None)
         resolved = None if eval_fn is None else self.resolve_eval_fn(eval_fn)
         chunk = max(1, min(chunk or DEFAULT_CHUNK, rounds))
-        histories: list[list[dict]] = [[] for _ in range(g)]
+        histories: list[list[dict]] = [[] for _ in range(grid.size)]
         t = 0
         while t < rounds:
             c = min(chunk, rounds - t)
             losses, evals = [], {}
             for i in range(c):
                 with record_function("round.draws"):
-                    rd = next(stream) if stream is not None else draw_sweep(
-                        generators, data.counts, local_steps=self.cfg.local_steps,
-                        batch_size=batch_size, resample=resample, dp_dim=dp_dim)
+                    if stream is not None:
+                        # a whole-grid round; its leading axis is the scenarios'
+                        rd = next(stream).rows(scen.start, scen.stop)
+                    else:
+                        rd = draw_sweep(generators, data.counts, local_steps=self.cfg.local_steps,
+                                        batch_size=batch_size, resample=resample, dp_dim=dp_dim)
                 state, loss = self.sweep_round(state, data, rd, sc)
                 losses.append(loss)
                 if do_eval and (t + i + 1) % eval_every == 0:
                     with record_function("round.eval"):
-                        evals[i] = self._sweep_eval(state, g, resolved, val_x, val_y)
-            # one host sync per chunk for the whole grid
+                        evals[i] = self._sweep_eval(state, g, resolved, val_x, val_y, sc.node)
+            # one host sync per chunk for the whole grid: this rank's
+            # scenarios' losses and eval values as one (G, ...) block,
+            # gathered over the grid subgroup
             with record_function("chunk.sync"):
-                host = iter(read_host([torch.stack(losses, dim=1)]
-                                      + [v for rec in evals.values() for v in rec.values()]))
-            losses_host = next(host)  # scenario-major: (G, c)
-            for s in range(g):
-                histories[s] += [{"round": t + i, "loss": losses_host[s * c + i]}
-                                 for i in range(c)]
-            for i, rec in evals.items():
-                for k in rec:
-                    for s, v in enumerate(next(host)):
-                        histories[s][t + i][k] = v
+                block = torch.cat([torch.stack(losses, dim=1).to(torch.float64)]
+                                  + [v.to(self.device, torch.float64)[:, None]
+                                     for rec in evals.values() for v in rec.values()], dim=1)
+                if mesh is not None:
+                    block = all_gather_scenarios(block, mesh)
+                host = read_host([block])[0]
+            width = block.shape[1]
+            for s_, hist in enumerate(histories):
+                row = iter(host[s_ * width:(s_ + 1) * width])
+                hist += [{"round": t + i, "loss": next(row)} for i in range(c)]
+                for i, rec in evals.items():
+                    hist[t + i].update({key: next(row) for key in rec})
             t += c
-        pops = self.layout.views(self.populations(state, g))
-        return pops, histories, state.reshaped((g, n))
+        pops = self.populations(state, g, sc.node)
+        if mesh is not None:
+            pops = all_gather_scenarios(pops, mesh)
+        return self.layout.views(pops), histories, state.reshaped((g, k))
+
+    def _sweep_plan(self, num_scenarios: int) -> GossipPlan:
+        """The sharded plan of a G-scenario sweep, on the sweep mesh the
+        trainer was given or else on ``make_sweep_mesh(G, N)`` of the
+        default group (built once per G; every rank builds it in the
+        same order)."""
+        n = self.cfg.num_nodes
+        if self._mesh_given:
+            mesh = self.mesh
+            if mesh.axis_names != ("grid", "node"):
+                raise ValueError(f"swept-sharded training needs a 2-D ('grid', 'node') mesh "
+                                 f"(launch.mesh.make_sweep_mesh), got axes {mesh.axis_names}")
+            if num_scenarios % mesh.grid_width or n % mesh.node_width:
+                raise ValueError(f"sweep mesh {mesh.shape} does not divide the grid: "
+                                 f"G={num_scenarios}, N={n}")
+            return self.plan
+        if num_scenarios not in self._sweep_plans:
+            from repro_torch.launch.mesh import make_sweep_mesh
+
+            p = self.plan
+            self._sweep_plans[num_scenarios] = resolve_gossip_plan(
+                mixer=p.mixer, gossip_impl=p.gossip_impl, gossip_repr=p.gossip_repr,
+                num_nodes=n, comm_batch=p.comm_batch, topology=self.cfg.topology,
+                cluster_size=self.cfg.cluster_size,
+                mesh=make_sweep_mesh(num_scenarios, n, device=self.device), device=self.device)
+        return self._sweep_plans[num_scenarios]

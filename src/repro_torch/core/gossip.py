@@ -51,12 +51,15 @@ def gossip_dp_composed(mix_fn: Callable, premix: torch.Tensor, noise: torch.Tens
     diagonal): the same, and since the plain mix selected inactive rows
     back to the noised view, they are restored to the clean premix.
     ``premix`` and ``noise`` hold the global ``rows`` of a global
-    ``operand`` and ``active`` (a rank's block on the sharded mixer)."""
+    ``operand`` and ``active`` (a rank's block on the sharded mixer; on
+    the swept-sharded engine, those rows of each of its scenarios'
+    (Gb, N, ...) operators, flat as ``(Gb·k, D)``)."""
     mixed_noisy = mix_fn(premix + noise, operand, active)
     if isinstance(operand, tuple):
-        out = mixed_noisy - operand[1][rows, :1] * noise
-        return torch.where(active[rows, None] > 0, out, premix)
-    return mixed_noisy - torch.diagonal(operand, dim1=-2, dim2=-1).reshape(-1, 1)[rows] * noise
+        out = mixed_noisy - operand[1][..., rows, :1].reshape(-1, 1) * noise
+        return torch.where(active[..., rows].reshape(-1, 1) > 0, out, premix)
+    diag = torch.diagonal(operand, dim1=-2, dim2=-1)[..., rows]
+    return mixed_noisy - diag.reshape(-1, 1) * noise
 
 
 def gossip_mix_masked(mixed: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,

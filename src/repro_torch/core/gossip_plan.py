@@ -30,11 +30,15 @@ A :class:`GossipPlan` holds every knob decision:
 
 The sweep engine (``GluADFL.train_sweep``) runs G scenarios' stacked
 ``(G·N, D)`` rows through :meth:`GossipPlan.sweep_gossip` on the tree
-backend only (:meth:`GossipPlan.require_sweep` refuses the others): the
-dense operator is a batched ``(G, N, N) @ (G, N, D)``, the sparse one a
-single gather over the ``(G·N, B+1)`` table with scenario g's indices
-offset by ``g·N``.  The JAX package also batches the sharded backend
-over a ``(grid, node)`` mesh; the port's does not yet.
+backend and the sharded one's ``allgather``, ``psum`` and ``masked``
+schedules (:meth:`GossipPlan.require_sweep` refuses the kernel mixer
+and the gather tables, as the JAX package does).  On the tree backend
+the dense operator is a batched ``(G, N, N) @ (G, N, D)``, the sparse
+one a single gather over the ``(G·N, B+1)`` table with scenario g's
+indices offset by ``g·N``.  On the sharded backend a plan resolved on
+a :class:`~repro_torch.launch.mesh.SweepMesh` mixes the rank's
+``(G / grid_width) · (N / node_width)`` rows through the grid-batched
+forms of ``core.distributed`` over the mesh's node subgroup.
 """
 from __future__ import annotations
 
@@ -65,12 +69,6 @@ from repro_torch.kernels import ops
 # the mixer knob's legal values (``gossip_impl="gather"`` reroutes the
 # sharded mixer to the sharded_gather_tables backend)
 MIXERS = ("tree", "kernel", "sharded")
-
-# the swept-sharded engine (the JAX package's (grid, node) mesh) is not ported yet
-SHARDED_SWEEP_REFUSAL = (
-    "train_sweep batches the tree mixer; the sharded mixer's swept engine (grid x node "
-    "process groups) is not ported to PyTorch yet -- use mixer='tree' for sweeps")
-
 
 class GossipPlanError(ValueError):
     """A knob value or combination the registry does not resolve."""
@@ -132,6 +130,7 @@ def _build_kernel(impl, sparse, mesh):
 
 
 def _build_sharded(impl, sparse, mesh):
+    # on a SweepMesh the 3-D (Gb, N, ...) operators pick the grid forms
     if sparse:
         return lambda w, op, active: sharded_gossip_mix_sparse(w, op[0], op[1], active,
                                                                mesh=mesh)
@@ -181,13 +180,12 @@ register_mix_backend(MixBackend(
     impls=("allgather", "psum", "masked"),
     caps=BackendCaps(
         supports_sparse=True, supports_dense=True,
-        supports_sweep_grid=False, supports_multihost=True,
+        supports_sweep_grid=True, supports_multihost=True,
         memory_class="allgather O(N·D) / psum O(N/W·D) per rank",
         fused_dp=False, uses_mesh=True,
     ),
     build=_build_sharded,
     summary="torch.distributed collectives over the ranks' row blocks",
-    sweep_refusal=SHARDED_SWEEP_REFUSAL,
 ))
 
 register_mix_backend(MixBackend(
@@ -202,7 +200,9 @@ register_mix_backend(MixBackend(
     ),
     build=_build_gather_tables,
     summary="ranks' (N/W, B+1) table rows + send/recv ring rotation of the row blocks",
-    sweep_refusal=SHARDED_SWEEP_REFUSAL,
+    sweep_refusal=("train_sweep batches the tree or sharded allgather/psum/masked schedules; "
+                   "gossip_impl='gather' (sharded gather tables) is the single-run scale-out "
+                   "schedule -- use allgather/psum for swept-sharded runs"),
 ))
 
 
@@ -234,7 +234,7 @@ def choose_gossip_impl(num_nodes: int, param_bytes_per_node: int, *, shards: int
     when the gathered federation exceeds the budget over several
     shards."""
     if shards is None:
-        shards = _default_federation_mesh(num_nodes).width
+        shards = _node_axis_width(_default_federation_mesh(num_nodes))
     gathered = num_nodes * param_bytes_per_node
     if secure:
         if shards > 1 and gathered > budget_bytes:
@@ -253,16 +253,23 @@ def choose_gossip_impl(num_nodes: int, param_bytes_per_node: int, *, shards: int
 SPARSE_GOSSIP_FACTOR = 4
 
 
+def _node_axis_width(mesh) -> int:
+    """The width the gossip collectives run over: a federation mesh's W,
+    or a sweep mesh's node width (its grid axis only batches)."""
+    return mesh.node_width if mesh.axis_names == ("grid", "node") else mesh.width
+
+
 def choose_gossip_repr(num_nodes: int, comm_batch: int, *, factor: int = SPARSE_GOSSIP_FACTOR,
                        mesh=None, budget_bytes: int = DEFAULT_GATHER_BUDGET_BYTES) -> str:
     """``--gossip-repr auto``: the sparse table once
     ``num_nodes >= factor * (comm_batch + 1)`` (sparse at the paper's
     N=226, B=7; dense at ohiot1dm's N=12).  With a federation ``mesh``,
     sparse is also forced once a rank's (N/W, N) fp32 block of the
-    dense matrix alone outgrows ``budget_bytes``."""
+    dense matrix alone outgrows ``budget_bytes`` (a sweep mesh: W its
+    node width)."""
     if num_nodes >= factor * (comm_batch + 1):
         return "sparse"
-    if mesh is not None and (num_nodes // mesh.width) * num_nodes * 4 > budget_bytes:
+    if mesh is not None and (num_nodes // _node_axis_width(mesh)) * num_nodes * 4 > budget_bytes:
         return "sparse"
     return "dense"
 
@@ -270,9 +277,10 @@ def choose_gossip_repr(num_nodes: int, comm_batch: int, *, factor: int = SPARSE_
 @dataclass(frozen=True, eq=False)
 class GossipPlan:
     """One resolved mixing pipeline; the round calls :meth:`build_repr`
-    and :meth:`gossip`.  On a sharded backend the params handed to
-    :meth:`gossip` are the rank's rows ``mesh.rows`` and the operator
-    and activity are global."""
+    and :meth:`gossip` (a swept round :meth:`sweep_gossip`).  On a
+    sharded backend the params handed to :meth:`gossip` are the rank's
+    rows ``mesh.rows`` (of each of its scenarios, on a sweep mesh) and
+    the operator and activity are global."""
 
     mixer: str
     backend: str                     # registered backend name
@@ -280,7 +288,7 @@ class GossipPlan:
     gossip_impl: str                 # never "auto"
     comm_batch: int
     caps: BackendCaps
-    mesh: Any = None                 # FederationMesh of a sharded backend
+    mesh: Any = None                 # FederationMesh or SweepMesh of a sharded backend
     neighbor_cand: Any = None        # static-topology candidates (sparse)
     _mix: Callable = None
     _dp: Callable = None
@@ -350,29 +358,36 @@ class GossipPlan:
     def sweep_gossip(self, premix: torch.Tensor, operand, active: torch.Tensor,
                      noise: torch.Tensor | None = None, mask_ctx=None) -> torch.Tensor:
         """One swept round's mixing step over G scenarios: ``premix`` and
-        ``noise`` (G·N, D), row ``g·N + n`` node n of scenario g;
+        ``noise`` (G·k, D), row ``g·k + i`` row i of scenario g (k = N,
+        or a rank's N / node_width rows on the sharded backend);
         ``operand`` the stacked (G, N, N) matrices or (G, N, B+1)
-        tables of :meth:`build_repr`; ``active`` (G, N).  The sparse
-        tables become one (G·N, B+1) table, scenario g's indices offset
-        by ``g·N``.  ``mask_ctx``, ``(G mask sources, (G, N, N)
-        adjacency)`` on a masked plan, adds each scenario's
-        cancellation term from its own source, scenario by scenario
-        (one scenario's masks at a time)."""
+        tables of :meth:`build_repr`; ``active`` (G, N).  On the tree
+        backend the sparse tables become one (G·N, B+1) table, scenario
+        g's indices offset by ``g·N``; on the sharded backend (a plan on
+        a sweep mesh) the grid forms take the stacked operators.
+        ``mask_ctx``, ``(G mask sources, (G, N, N) adjacency)`` on a
+        masked plan, adds each scenario's cancellation term over this
+        process's rows from its own source, scenario by scenario (one
+        scenario's masks at a time)."""
         self.require_sweep()
         g, n = active.shape
-        flat = operand
-        if self.gossip_repr == "sparse":
-            idx, wgt = operand
-            offset = (torch.arange(g, dtype=idx.dtype, device=idx.device) * n)[:, None, None]
-            flat = ((idx + offset).view(g * n, -1), wgt.reshape(g * n, -1))
-        out = self.gossip(premix, flat, active.reshape(-1), noise)
+        if self.caps.uses_mesh:
+            out = self.gossip(premix, operand, active, noise)
+        else:
+            flat = operand
+            if self.gossip_repr == "sparse":
+                idx, wgt = operand
+                offset = (torch.arange(g, dtype=idx.dtype, device=idx.device) * n)[:, None, None]
+                flat = ((idx + offset).view(g * n, -1), wgt.reshape(g * n, -1))
+            out = self.gossip(premix, flat, active.reshape(-1), noise)
         if mask_ctx is not None:
             sources, adj = mask_ctx
             with record_function("round.secure_mask"):
                 idx, wgt = self.mask_table(operand, adj, active)
-                rows = out.view(g, n, -1)
-                out = torch.cat([gossip_mix_masked(rows[s], idx[s], wgt[s],
-                                                   sources[s](idx[s], wgt[s]))
+                rows = self.rows
+                blocks = out.view(g, out.shape[0] // g, -1)
+                out = torch.cat([gossip_mix_masked(blocks[s], idx[s][rows], wgt[s][rows],
+                                                   sources[s](idx[s], wgt[s])[rows])
                                  for s in range(g)])
         return out
 
@@ -429,6 +444,9 @@ def resolve_gossip_plan(
             f"dense (N, N) variant")
     if backend.caps.uses_mesh:
         mesh = mesh or _default_federation_mesh(num_nodes, device)
+        if mesh.num_nodes != num_nodes:
+            raise GossipPlanError(f"the mesh splits N={mesh.num_nodes} nodes, the federation "
+                                  f"has {num_nodes}")
     else:
         mesh = None
     mix_fn = backend.build(gossip_impl, sparse, mesh)

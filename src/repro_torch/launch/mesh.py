@@ -15,6 +15,18 @@ ranks, and 4 ranks are refused.
 Without an initialized process group (one process) the mesh has no
 group, width 1 and every row, and the sharded mixer runs no collective.
 
+The swept-sharded engine (``GluADFL.train_sweep`` with
+``mixer="sharded"``) lays the W ranks out as JAX's 2-D ``("grid",
+"node")`` sweep mesh, one rank standing for one JAX device:
+:func:`make_sweep_mesh` gives rank ``r = gi · node_width + ni`` (the
+mesh's row-major device order) the scenario block ``gi`` of ``G /
+grid_width`` scenarios and the row block ``ni`` of ``N / node_width``
+rows.  The ranks that share ``gi`` form the *node subgroup*, a
+:class:`FederationMesh` that carries the gossip collectives; the ranks
+that share ``ni`` form the *grid subgroup*, which only gathers results:
+no gossip collective crosses scenarios.  One process (no group) is the
+``(1, 1)`` mesh and runs no collective.
+
 The plan-resolution policies ``choose_gossip_impl`` and
 ``choose_gossip_repr`` live in ``core.gossip_plan`` and are re-exported
 here, as the JAX package's ``launch.mesh`` does.
@@ -22,7 +34,7 @@ here, as the JAX package's ``launch.mesh`` does.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, ClassVar
 
 import torch
 import torch.distributed as dist
@@ -37,6 +49,8 @@ class FederationMesh:
     width: int
     rank: int
     num_nodes: int
+
+    axis_names: ClassVar[tuple[str, ...]] = ("node",)
 
     @property
     def rows(self) -> slice:
@@ -63,13 +77,107 @@ def make_federation_mesh(num_nodes: int, *, device=None) -> FederationMesh:
         raise ValueError(
             f"the federation's N={num_nodes} nodes do not split over W={width} ranks: "
             f"each rank holds N / W contiguous rows, so W must divide N")
-    if device is not None:
-        want = "nccl" if torch.device(device).type == "cuda" else "gloo"
-        backend = dist.get_backend(group)
-        if backend != want:
-            raise ValueError(f"a {torch.device(device).type} trainer needs a {want!r} process "
-                             f"group, got {backend!r}")
+    _check_backend(group, device)
     return FederationMesh(group, width, dist.get_rank(group), num_nodes)
+
+
+def _check_backend(group, device) -> None:
+    """The group's backend must be the device's: ``nccl`` for CUDA,
+    ``gloo`` for the CPU."""
+    if device is None:
+        return
+    want = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    backend = dist.get_backend(group)
+    if backend != want:
+        raise ValueError(f"a {torch.device(device).type} trainer needs a {want!r} process "
+                         f"group, got {backend!r}")
+
+
+@dataclass(frozen=True)
+class SweepMesh:
+    """The calling rank's place on the ``(grid_width, node_width)`` sweep
+    mesh: its node subgroup ``node`` (a :class:`FederationMesh` of the
+    ``node_width`` ranks that share its scenario block), its grid
+    subgroup ``grid_group`` (the ``grid_width`` ranks that share its row
+    block; None on one process) and its scenario block ``grid_index``."""
+
+    grid_width: int
+    node_width: int
+    grid_index: int
+    node: FederationMesh
+    grid_group: Any
+
+    axis_names: ClassVar[tuple[str, ...]] = ("grid", "node")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"grid": self.grid_width, "node": self.node_width}
+
+    @property
+    def num_nodes(self) -> int:
+        return self.node.num_nodes
+
+    @property
+    def rows(self) -> slice:
+        """This rank's contiguous block of global federation rows, the
+        same in each of its scenarios."""
+        return self.node.rows
+
+    def scenarios(self, num_scenarios: int) -> slice:
+        """This rank's contiguous block of the grid's ``num_scenarios``
+        scenarios."""
+        per = num_scenarios // self.grid_width
+        return slice(self.grid_index * per, (self.grid_index + 1) * per)
+
+
+def _sweep_mesh_widths(num_scenarios: int, num_nodes: int, avail: int) -> tuple[int, int]:
+    """(grid_width, node_width) for :func:`make_sweep_mesh`'s default
+    search: both must divide their extents; maximize devices used, then
+    prefer the wider node axis (the memory-scaled one).  The JAX
+    package's search, unchanged."""
+    best = (1, 1)
+    for gw in (d for d in range(1, avail + 1) if num_scenarios % d == 0):
+        for nw in (d for d in range(1, avail // gw + 1) if num_nodes % d == 0):
+            if (gw * nw, nw) > (best[0] * best[1], best[1]):
+                best = (gw, nw)
+    return best
+
+
+def make_sweep_mesh(num_scenarios: int, num_nodes: int, *, grid_width: int | None = None,
+                    node_width: int | None = None, device=None) -> SweepMesh:
+    """The sweep mesh of the default process group's W ranks (one
+    process: the ``(1, 1)`` mesh, no group).  The widths default to
+    JAX's search over ``avail = W`` ranks; both must divide their
+    extents, and ``grid_width · node_width`` must be W, since a rank
+    outside the mesh would have nothing to train.  Every rank creates
+    every subgroup (``dist.new_group``) in the same order: the node
+    subgroups by ``gi``, then the grid subgroups by ``ni``.  With
+    ``device``, the group's backend must be the device's, as for
+    :func:`make_federation_mesh`."""
+    grouped = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if grouped else 1
+    if grid_width is None or node_width is None:
+        grid_width, node_width = _sweep_mesh_widths(num_scenarios, num_nodes, world)
+    if num_scenarios % grid_width or num_nodes % node_width:
+        raise ValueError(
+            f"sweep mesh widths must divide the grid: G={num_scenarios} % "
+            f"grid_width={grid_width} and N={num_nodes} % node_width={node_width} must both be 0")
+    if grid_width * node_width != world:
+        raise ValueError(
+            f"the sweep mesh ({grid_width} x {node_width}) for G={num_scenarios} scenarios and "
+            f"N={num_nodes} nodes does not cover the W={world} ranks: each rank holds one "
+            f"(G / grid_width, N / node_width) block, so grid_width * node_width must be W")
+    if not grouped:
+        return SweepMesh(1, 1, 0, FederationMesh(None, 1, 0, num_nodes), None)
+    _check_backend(dist.group.WORLD, device)
+    rank = dist.get_rank()
+    gi, ni = divmod(rank, node_width)
+    node_groups = [dist.new_group([g * node_width + i for i in range(node_width)])
+                   for g in range(grid_width)]
+    grid_groups = [dist.new_group([g * node_width + i for g in range(grid_width)])
+                   for i in range(node_width)]
+    node = FederationMesh(node_groups[gi], node_width, ni, num_nodes)
+    return SweepMesh(grid_width, node_width, gi, node, grid_groups[ni])
 
 
 # the auto-knob policies are plan-resolution policies and live with the

@@ -36,12 +36,19 @@ Scenario sweeps: ``--sweep-ratios 0,0.3,0.7 --sweep-seeds 3`` trains
 the (ratio x seed) grid of ``--topology`` as one batched federation
 (``GluADFL.train_sweep``); ``--sweep-schedules bernoulli,markov``,
 ``--sweep-skews 0,0.5`` and ``--sweep-dp-sigmas 0.01,0.05`` extend the
-cross product, and need ``--sweep-ratios``.  Sweeps run the tree mixer
-and sync with the host once per chunk (``--mixer kernel``,
-``--engine loop`` and ``--chunk 0`` exit 2).  Each scenario's test forecasts are one forward
-of the G population models per patient; instead of a checkpoint, the
-launcher writes the per-scenario summary
-``<out>/sweep_<dataset>_<topology>.json``, the JAX launcher's records.
+cross product, and need ``--sweep-ratios``.  Sweeps run the tree mixer,
+or with ``--mixer sharded`` the swept-sharded engine on the sweep mesh
+of the process group's ranks (``launch.mesh.make_sweep_mesh``: one
+process is the (1, 1) mesh, bitwise the tree sweep), and sync with the
+host once per chunk (``--mixer kernel``, ``--engine loop`` and
+``--chunk 0`` exit 2).  On the sweep mesh ``--gossip-impl auto``
+budgets the gathered federation of every scenario a rank holds
+(``G / grid_width`` of them) over ``node_width`` shards, and
+``--gossip-repr auto`` reads the mesh's node width, as the JAX
+launcher does.  Each scenario's test forecasts are one forward of the G
+population models per patient; instead of a checkpoint, the launcher
+writes the per-scenario summary ``<out>/sweep_<dataset>_<topology>.json``,
+the JAX launcher's records.
 
 Multi-process runs: ``--num-processes W --process-id r --coordinator
 host:port`` (or the ``REPRO_NUM_PROCESSES`` / ``REPRO_PROCESS_ID`` /
@@ -50,10 +57,13 @@ with the same flags (``launch.multihost.initialize``: NCCL, one card a
 rank, on CUDA; gloo with ``--device cpu``).  The mixer becomes
 ``sharded`` (with a note if another was asked for), each rank trains its
 N / W rows, and rank 0 alone prints the per-patient report and writes
-the checkpoint.  They refuse ``--engine loop``/``--chunk 0`` and sweeps
-(scenario sweeps are single-process), and N must divide by W.  A sweep
-with ``--mixer sharded`` is refused too: the swept-sharded engine is not
-ported yet.  The deprecated ``--use-kernel`` is refused, exit code 2.
+the checkpoint (a sweep's summary).  They refuse ``--engine loop`` /
+``--chunk 0``, and N must divide by W.  A sweep over W > 1 processes
+needs ``--mixer sharded`` (the tree sweep is single-process, as in the
+JAX package); its ranks lay out as the sweep mesh, each rank standing
+for one device of the JAX package's ``("grid", "node")`` mesh, and
+``grid_width · node_width`` must be W.  The deprecated ``--use-kernel``
+is refused, exit code 2.
 """
 from __future__ import annotations
 
@@ -78,6 +88,7 @@ from repro_torch.core import (
 from repro_torch.data import load_federated_dataset
 from repro_torch.device import resolve_device
 from repro_torch.launch import multihost
+from repro_torch.launch.mesh import make_sweep_mesh
 from repro_torch.metrics import all_metrics
 from repro_torch.models import LSTMModel
 from repro_torch.optim import get_optimizer
@@ -224,20 +235,35 @@ def run(argv: list[str] | None = None) -> TrainRun:
     lstm = LSTMModel(history_len=cfg.data.history_len, hidden=args.hidden)
     fl_cfg = replace(cfg.fl, topology=args.topology, num_nodes=fed.num_nodes,
                      rounds=args.rounds, inactive_ratio=args.inactive_ratio)
+    # the grid and its mesh first: the auto knobs budget for the swept
+    # working set, and the trainer runs on the mesh they were chosen for
+    grid = sweep_mesh = None
+    if sweep_ratios is not None:
+        grid = SweepGrid.build([args.topology], sweep_ratios, range(args.sweep_seeds),
+                               num_nodes=fed.num_nodes, cluster_size=fl_cfg.cluster_size,
+                               **sweep_axes)
+        if args.mixer == "sharded":
+            sweep_mesh = make_sweep_mesh(grid.size, fed.num_nodes, device=device)
     gossip_repr = args.gossip_repr
     if gossip_repr == "auto":
-        gossip_repr = choose_gossip_repr(fed.num_nodes, fl_cfg.comm_batch)
+        gossip_repr = choose_gossip_repr(fed.num_nodes, fl_cfg.comm_batch, mesh=sweep_mesh)
         print(f"gossip-repr auto -> {gossip_repr}")
     gossip_impl = args.gossip_impl
     if gossip_impl == "auto":
         p0 = lstm.init(torch.Generator().manual_seed(0))
         node_bytes = sum(v.numel() * v.element_size() for v in p0.values())
-        gossip_impl = choose_gossip_impl(fed.num_nodes, node_bytes)
+        if sweep_mesh is not None:
+            # every scenario block a rank holds is gathered, over the node width
+            gossip_impl = choose_gossip_impl(
+                fed.num_nodes, node_bytes * (grid.size // sweep_mesh.grid_width),
+                shards=sweep_mesh.node_width)
+        else:
+            gossip_impl = choose_gossip_impl(fed.num_nodes, node_bytes)
         print(f"gossip-impl auto -> {gossip_impl}")
     try:
         trainer = GluADFL(lstm.as_model(), get_optimizer(cfg.train.optimizer, cfg.train.lr),
                           fl_cfg, mixer=args.mixer, gossip_impl=gossip_impl,
-                          gossip_repr=gossip_repr, device=device)
+                          gossip_repr=gossip_repr, mesh=sweep_mesh, device=device)
     except GossipPlanError as e:
         raise Refused(str(e)) from e
     print(f"gossip-impl {trainer.plan.gossip_impl}")
@@ -247,10 +273,7 @@ def run(argv: list[str] | None = None) -> TrainRun:
         val_data = val_windows(fed)
         print(f"streaming eval: every {args.eval_every} rounds on {len(val_data[0])} val windows")
 
-    if sweep_ratios is not None:
-        grid = SweepGrid.build([args.topology], sweep_ratios, range(args.sweep_seeds),
-                               num_nodes=fed.num_nodes, cluster_size=fl_cfg.cluster_size,
-                               **sweep_axes)
+    if grid is not None:
         return run_sweep(args, trainer, grid, sweep_ratios, sweep_axes, fed, cfg, val_data,
                          device)
 
@@ -294,8 +317,8 @@ def run(argv: list[str] | None = None) -> TrainRun:
 
 def parse_sweep(args, distributed: bool = False) -> tuple[list[float] | None, dict]:
     """The sweep flags: the ratios (None when no sweep is asked for) and
-    the armed optional axes; the JAX launcher's refusals, and the
-    sharded mixer's (not ported for sweeps yet), exit 2."""
+    the armed optional axes; the JAX launcher's refusals exit 2, and so
+    does a tree sweep over several processes."""
     if args.sweep_ratios is None:
         if args.sweep_schedules or args.sweep_skews or args.sweep_dp_sigmas:
             raise Refused("--sweep-schedules/--sweep-skews/--sweep-dp-sigmas extend the "
@@ -313,15 +336,13 @@ def parse_sweep(args, distributed: bool = False) -> tuple[list[float] | None, di
         axes["skews"] = tuple(float(v) for v in args.sweep_skews.split(",") if v)
     if args.sweep_dp_sigmas:
         axes["dp_sigmas"] = tuple(float(v) for v in args.sweep_dp_sigmas.split(",") if v)
-    if distributed:
-        raise Refused("scenario sweeps are single-process (drop --num-processes or "
-                      "--sweep-ratios)")
     if args.mixer == "kernel":
-        raise Refused("scenario sweeps batch the tree mixer; the kernel mixer is "
+        raise Refused("scenario sweeps batch the tree or sharded mixer; the kernel mixer is "
                       "per-scenario (drop --mixer kernel)")
-    if args.mixer == "sharded":
-        raise Refused("scenario sweeps batch the tree mixer; the swept-sharded engine (grid x "
-                      "node process groups) is not ported to PyTorch yet (drop --mixer sharded)")
+    if distributed and args.mixer != "sharded":
+        raise Refused("tree scenario sweeps are single-process; a sweep over several "
+                      "processes needs --mixer sharded (drop --num-processes or add "
+                      "--mixer sharded)")
     if args.engine == "loop" or args.chunk == 0:
         raise Refused("scenario sweeps need the scan engine (drop --engine loop / --chunk 0)")
     return ratios, axes
@@ -334,11 +355,18 @@ def run_sweep(args, trainer: GluADFL, grid: SweepGrid, ratios: list[float], swee
     axes_note = "".join(f" x {k} {list(v)}" for k, v in sweep_axes.items())
     print(f"sweep: {grid.size} scenarios ({args.topology} x {ratios}{axes_note} x "
           f"{args.sweep_seeds} seeds) as one batched program")
+    mesh = trainer.mesh
+    if mesh is not None:
+        print(f"sweep mesh: {mesh.shape} over {mesh.grid_width * mesh.node_width} ranks "
+              f"(grid batches, node carries the gossip collectives)")
     t0 = time.perf_counter()
     pops, hists, _ = trainer.train_sweep(
         fed.x, fed.y, fed.counts, grid=grid, batch_size=cfg.train.batch_size,
         chunk=args.chunk or None, eval_every=args.eval_every, val_data=val_data)
     seconds = time.perf_counter() - t0
+    if not multihost.is_primary():  # every rank holds every scenario's history and population
+        multihost.barrier()
+        return TrainRun(trainer, pops, hists, None, seconds)
     print(f"{grid.size * len(hists[0]) / seconds:.2f} scenario-rounds/s on {device}")
     preds, ys = [], []
     for p, pred in patient_predictions(trainer.model, pops, fed, device):
@@ -366,6 +394,7 @@ def run_sweep(args, trainer: GluADFL, grid: SweepGrid, ratios: list[float], swee
     path = out / f"sweep_{args.dataset}_{args.topology}.json"
     path.write_text(json.dumps(summary, indent=2))
     print(f"sweep summary -> {path}")
+    multihost.barrier()
     return TrainRun(trainer, pops, hists, path, seconds, summary)
 
 

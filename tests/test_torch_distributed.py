@@ -26,7 +26,9 @@ put together in rank order:
   * the refusals at W > 1: N % W != 0, ``engine="loop"``, a tree mixer.
 
 In process: W=1 sharded training is bitwise the tree mixer for every
-schedule, and the port's plan resolves the JAX package's cells.
+schedule, the port's plan resolves the JAX package's cells with its
+``sweep`` flags, and the grid forms fail in the JAX package's words
+(the swept-sharded engine itself: ``tests/test_torch_sweep_sharded.py``).
 """
 from __future__ import annotations
 
@@ -416,31 +418,48 @@ def test_supported_cells_match_jax():
     assert len(ours) == 19
 
 
-def test_sharded_sweep_flag_is_the_known_difference():
-    """The JAX package batches the sharded backend's allgather, psum and
-    masked schedules over a (grid, node) mesh; the port's swept-sharded
-    engine is not ported yet, so its sharded backend says no.  Every
-    other cell agrees (neither sweeps the gather tables)."""
+def test_supported_cells_sweep_flags_match_jax():
+    """Every cell of the port's registry has the JAX package's ``sweep``
+    flag: the tree and sharded (allgather, psum, masked) backends batch
+    a sweep grid, the kernel mixer and the gather tables do not, and
+    the plan refuses those two in the JAX package's words."""
     jax_sweep = {_cell_key(c): c["sweep"] for c in jax_supported_cells()}
-    for c in gossip_plan.supported_cells():
-        if c["backend"] == "sharded":
-            assert jax_sweep[_cell_key(c)] and not c["sweep"]
-        else:
-            assert c["sweep"] == jax_sweep[_cell_key(c)]
-    plan = gossip_plan.resolve_gossip_plan(mixer="sharded", num_nodes=8, comm_batch=2)
-    with pytest.raises(NotImplementedError, match="not ported to PyTorch yet"):
-        plan.require_sweep()
+    ours = gossip_plan.supported_cells()
+    assert {_cell_key(c): c["sweep"] for c in ours} == jax_sweep
+    assert {c["backend"] for c in ours if c["sweep"]} == {"tree", "sharded"}
+    gather = gossip_plan.resolve_gossip_plan(mixer="sharded", gossip_impl="gather",
+                                             gossip_repr="sparse", num_nodes=8, comm_batch=2)
+    with pytest.raises(NotImplementedError, match="gather tables"):
+        gather.require_sweep()
+    gossip_plan.resolve_gossip_plan(mixer="sharded", num_nodes=8, comm_batch=2).require_sweep()
 
 
-def test_grid_batched_forms_are_refused_until_ported():
-    w, active, mix, (idx, wgt) = op_inputs()
-    for call in (lambda: sharded_gossip_mix(w, mix, grid_axis="grid"),
-                 lambda: sharded_gossip_mix_sparse(w, idx, wgt, grid_axis="grid"),
-                 lambda: sharded_gossip_mix_gather(w, idx, wgt, grid_axis="grid")):
-        with pytest.raises(NotImplementedError, match="grid"):
-            call()
+def test_grid_forms_fail_in_jax_words():
+    """The grid forms' shape errors are the JAX package's
+    (``tests/test_distributed.py``'s
+    ``test_sharded_gossip_mix_shape_mismatch_fails_at_trace`` on a
+    one-device (1, 1) sweep mesh): a mismatched scenario grid says
+    "leading dim", a 2-D operator with ``grid_axis`` says "mixing
+    matrix" / "neighbor table"."""
+    from repro_torch.launch.mesh import make_sweep_mesh
+
+    mesh = make_sweep_mesh(3, 8, grid_width=1, node_width=1)
+    w = torch.ones((3, 8, 4))
+    eye = torch.eye(8)
+    with pytest.raises(ValueError, match="leading dim"):
+        sharded_gossip_mix(w, torch.stack([eye] * 4), mesh=mesh)
+    with pytest.raises(ValueError, match="mixing matrix"):
+        sharded_gossip_mix(w, eye, mesh=mesh, grid_axis="grid")
+    idx = torch.arange(8)[:, None].expand(8, 3).contiguous()
+    wgt = torch.full((8, 3), 1 / 3)
+    for fn in (sharded_gossip_mix_sparse, sharded_gossip_mix_gather):
+        with pytest.raises(ValueError, match="leading dim"):
+            fn(w, torch.stack([idx] * 2), torch.stack([wgt] * 2), mesh=mesh)
+        with pytest.raises(ValueError, match="neighbor table"):
+            fn(w, idx, wgt, mesh=mesh, grid_axis="grid")
+    w2, _, mix, _ = op_inputs()
     with pytest.raises(ValueError, match="sparse-only"):
-        sharded_gossip_mix(w, mix, impl="gather")
+        sharded_gossip_mix(w2, mix, impl="gather")
 
 
 if __name__ == "__main__":

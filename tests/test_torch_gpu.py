@@ -12,8 +12,9 @@ MAML/MetaSGD on the card against the CPU from one set of draws, the
 Table-4 evaluation through ``lstm_forward``, at REPLACE-BG's pooled
 R=71,317 val windows too), the banded branch of ``gqa_attention``,
 a small LM prefill and a small RecurrentGemma prefill (hd 256, both
-dtypes) through ``swa_attention``, and a round of the
-sharded mixer over a one-rank NCCL group bitwise the tree mixer's.
+dtypes) through ``swa_attention``, a round of the sharded mixer over a
+one-rank NCCL group bitwise the tree mixer's, and a swept-sharded sweep
+on that group's (1, 1) sweep mesh bitwise the tree sweep.
 
 These tests need a CUDA device and skip elsewhere (decided inside the
 ``cuda`` fixture).  They import neither ``jax`` nor ``repro``, so they
@@ -837,5 +838,64 @@ def test_one_rank_nccl_sharded_round_is_bitwise_the_tree_round(cuda, impl, repr_
         assert torch.equal(a.params, b.params) and torch.equal(la, lb)
         assert all(torch.equal(a.opt_state[k], b.opt_state[k]) for k in a.opt_state)
         assert torch.equal(a.staleness, b.staleness)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("impl,repr_,sigma", [("allgather", "sparse", 0.0), ("psum", "dense", 0.0),
+                                              ("masked", "sparse", 0.01)])
+def test_one_rank_nccl_swept_sharded_sweep_is_bitwise_the_tree_sweep(cuda, impl, repr_, sigma):
+    """``train_sweep`` with ``mixer="sharded"`` on the (1, 1) sweep mesh
+    of a one-rank NCCL group (its node and grid subgroups' collectives
+    copies on the card) against the tree sweep from the same seeds:
+    node params, optimizer rows and losses bitwise, val records within
+    1e-6 relative (the population is an ``all_reduce`` of the row sums
+    over N, the tree's a mean); one ``lstm_forward`` launch an eval and
+    no gossip kernel."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.core import SweepGrid
+    from repro_torch.launch.mesh import make_sweep_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    n, rounds, every = 40, 4, 2
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(n, 64, L)).astype(np.float32)
+    y = x[:, :, -1].copy()
+    counts = np.full(n, 64, np.int32)
+    val = (x[0], y[0])
+    grid = SweepGrid.build(("ring", "random"), (0.0, 0.4), (0,), num_nodes=n,
+                           dp_sigmas=(sigma,) if sigma else None)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                            timeout=timedelta(seconds=120))
+    try:
+        mesh = make_sweep_mesh(grid.size, n, device=cuda)
+        assert mesh.shape == {"grid": 1, "node": 1} and mesh.node.group is not None
+
+        def sweep(mixer):
+            t = GluADFL(LSTMModel(hidden=32).as_model(), adam(1e-3), FLConfig(num_nodes=n),
+                        mixer=mixer, gossip_impl=impl, gossip_repr=repr_,
+                        mesh=mesh if mixer == "sharded" else None)
+            return t.train_sweep(x, y, counts, grid=grid, batch_size=16, rounds=rounds,
+                                 eval_every=every, val_data=val)
+        tpop, thist, tstate = sweep("tree")
+        gossip_before = dict(gossip_kernels.LAUNCHES)
+        lstm_before = lstm_cell.LAUNCHES
+        pop, hist, state = sweep("sharded")
+        assert gossip_kernels.LAUNCHES == gossip_before
+        assert lstm_cell.LAUNCHES - lstm_before == rounds // every
+        assert torch.equal(state.params, tstate.params)
+        assert all(torch.equal(state.opt_state[k], tstate.opt_state[k]) for k in state.opt_state)
+        for a, b in zip(hist, thist):
+            assert [h["loss"] for h in a] == [h["loss"] for h in b]
+            va = np.array([h["val_rmse"] for h in a if "val_rmse" in h])
+            vb = np.array([h["val_rmse"] for h in b if "val_rmse" in h])
+            assert len(va) == rounds // every
+            assert np.abs(va - vb).max() <= 1e-6 * np.abs(vb).max()
     finally:
         dist.destroy_process_group()

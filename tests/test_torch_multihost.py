@@ -9,15 +9,16 @@ killed on the way out).  Each rank calls
 rows a rank), H=8, 3 rounds, an eval every 2, for the ``allgather``
 (the default ``--mixer tree`` overridden to ``sharded``), ``psum`` and
 sparse ``gather`` schedules, then the refusals: ``--engine loop``,
-``--chunk 0``, a sweep, and ABC4D's N=25 over two ranks.  The tests hold
+``--chunk 0``, a tree sweep, and ABC4D's N=25 over two ranks; and a
+``--mixer sharded`` sweep, which runs.  The tests hold
 each run against the one-process ``--mixer tree`` run: both ranks'
 histories bitwise equal, rank 0's population within an L2 of 1e-4 and
 its losses and val RMSE within 1e-4 (the JAX package's sharded-trainer
 bounds), and only rank 0 writing the checkpoint.
 
 In process: ``--mixer sharded --num-processes 1`` is bitwise the tree
-mixer's run, a sweep with ``--mixer sharded`` is refused, and the
-bootstrap's one-process no-op, environment and placement.
+mixer's run, and the bootstrap's one-process no-op, environment and
+placement.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ from test_torch_distributed import LOSS_TOL, POP_L2, rank_results, spawn_ranks, 
 BASE = ["--device", "cpu", "--fast-data", "--rounds", "3", "--hidden", "8", "--eval-every", "2"]
 CLI_CASES = {"allgather": [], "psum": ["--gossip-impl", "psum"],
              "gather": ["--gossip-impl", "gather", "--gossip-repr", "sparse"]}
+SHARDED_SWEEP = ["--sweep-ratios", "0,0.5", "--mixer", "sharded"]
 REFUSALS = {"loop": ["--engine", "loop"], "chunk0": ["--chunk", "0"],
             "sweep": ["--sweep-ratios", "0,0.5"], "N25": ["--dataset", "abc4d"]}
 
@@ -59,6 +61,10 @@ def worker(argv) -> None:
         res["runs"][name] = (run.history, run.population, run.checkpoint, run.trainer.plan.backend,
                              sorted(p.name for p in out.glob("*")) if out.exists() else [],
                              printed.getvalue())
+    out = args.out / f"rank{args.rank}" / "sweep"
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = train_cli.run(BASE + flags + SHARDED_SWEEP + ["--out", str(out)])
+    res["sweep"] = (run.history, run.checkpoint, run.trainer.mesh.shape)
     for name, extra in REFUSALS.items():
         try:
             train_cli.run(BASE + flags + extra + ["--out", str(args.out / "refused")])
@@ -131,10 +137,18 @@ def test_one_process_sharded_cli_is_bitwise_tree(tmp_path, capsys):
     assert "multihost" not in capsys.readouterr().out
 
 
-def test_sweep_with_the_sharded_mixer_is_refused(capsys):
-    assert train_cli.main(["--device", "cpu", "--fast-data", "--sweep-ratios", "0,0.5",
-                           "--mixer", "sharded"]) == 2
-    assert "swept-sharded engine" in capsys.readouterr().err
+def test_a_sweep_over_two_processes_needs_the_sharded_mixer(ranks):
+    """A tree sweep on ``--num-processes 2`` is refused (it batches
+    scenarios on one process); ``--mixer sharded`` runs it on the sweep
+    mesh, both ranks with every scenario's history, rank 0 alone writing
+    the summary."""
+    for r in ranks:
+        assert "single-process" in r["refused"]["sweep"]
+        assert "--mixer sharded" in r["refused"]["sweep"]
+    (h0, c0, shape0), (h1, c1, shape1) = (r["sweep"] for r in ranks)
+    assert shape0 == shape1 == {"grid": 1, "node": 2}
+    assert len(h0) == 2 and h0 == h1 and all(len(h) == 3 for h in h0)
+    assert c0 is not None and c0.name == "sweep_ohiot1dm_random.json" and c1 is None
 
 
 def test_initialize_is_a_no_op_on_one_process(monkeypatch):
