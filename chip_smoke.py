@@ -315,6 +315,36 @@ Phases, each printing one JSON line:
                 rounds (226 ``lstm_forward`` launches for the test
                 forecasts, finite records, the histories and summary the
                 tree CLI's);
+ 25. zoo      — the rest of the LM zoo's serving families through
+                ``build_arch`` at full width, bf16, batch 1, each with
+                random weights from a seeded generator: Mixtral-8x22B (4
+                of 56 layers; S=32,768; MoE, window 4096 at hd 128),
+                Granite-3.0-1B-A400M (24 layers, S=4,096; MoE, full
+                attention), Mamba2-370M (48 layers, S=8,192; SSD) and
+                Whisper-medium (24 + 24 layers, 1,500 frames and 448
+                tokens): for each, the init time, two prefills (bitwise
+                equal), the launches and ``gqa_attention`` branches of a
+                prefill (Mixtral: 4 ``swa_attention`` launches on the
+                ``wgmma-bf16-hd128`` build and 4 banded branches; no
+                kernel of ours on the other three), the peak memory, 16
+                greedy decode steps (Mixtral, Granite and Mamba2 from the
+                prefill's state, Whisper from ``init_state`` with the
+                frames; 0 launches), decode ms a step (median of 16),
+                the prefill's wall (median of 3) and tokens/s, a profiled
+                prefill's device time split into GEMMs,
+                ``swa_attention``, the MoE's GEMMs and dispatch (the
+                ``moe`` span), the SSD's GEMMs and passes (the
+                ``ssm.ssd`` span) and the rest, with the busy share;
+                Whisper's ``init_decode_state`` path (the zero encoder
+                output) held too; one Mixtral attention layer's
+                ``swa_attention`` at S=8,192 against
+                ``ref.swa_attention_plain`` within ``swa_bf16_bound``,
+                and the kernel timed at the prefill's shape beside the
+                banded SDPA; one layer of each config (Whisper: one
+                encoder and one decoder layer) at full width in fp32 on
+                the card against the CPU from the same weights (logits
+                of the prefill and two decode steps within 1e-4); and
+                ``arch_demo`` on each config's reduced variant;
 
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -506,6 +536,17 @@ SWEPT_RUNS = (("allgather", "sparse", 0.0), ("psum", "dense", 0.0), ("masked", "
               ("allgather", "sparse", 0.05))
 SWEPT_PROFILED = (("allgather", "sparse", 0.0), ("psum", "dense", 0.0))
 SWEPT_PROFILED_ROUNDS = 4
+# phase 25: (config, layers kept or None for all, prompt tokens, one
+# prefill's gqa_attention branches, the prompt of the fp32 one-layer slice)
+ZOO = (("mixtral-8x22b", 4, 32_768, {"plain": 0, "flash": 0, "banded": 4}, 512),
+       ("granite-moe-1b-a400m", None, 4_096, {"plain": 0, "flash": 24, "banded": 0}, 4_096),
+       ("mamba2-370m", None, 8_192, {"plain": 0, "flash": 0, "banded": 0}, 2_048),
+       ("whisper-medium", None, 448, {"plain": 72, "flash": 0, "banded": 0}, 448))
+ZOO_DECODE_STEPS = 16
+ZOO_TIMED_RUNS = 3
+# record_function span -> the shares of its GEMMs and of its other items
+ZOO_SPANS = {"moe": ("moe_gemm", "moe_dispatch"), "ssm.ssd": ("ssd_gemm", "ssd_passes")}
+MIXTRAL_LAYER_SEQ = 8_192  # the attention layer held against the twin, which holds (S, S) scores
 SWEPT_CLI = ["--fast-data", "--topology", "random", "--sweep-ratios", "0,0.3,0.7",
              "--sweep-seeds", "2", "--rounds", "4"]
 
@@ -2022,15 +2063,17 @@ def cpu_tree(tree):
     return tree.cpu()
 
 
-def logits_run(arch, params, tokens, steps: int, vocab: int, *, state=None, feed=None) -> dict:
-    """A prefill of ``tokens`` (B, S), then ``steps`` decode steps: from
-    the prefill's state at positions S, S + 1, ..., or, given ``state``,
-    from it at 0, 1, ... with tokens[:, :1] first.  Each step decodes the
+def logits_run(arch, params, tokens, steps: int, vocab: int, *, state=None, feed=None,
+               extra=None) -> dict:
+    """A prefill of ``tokens`` (B, S) (with the batch's ``extra`` entries,
+    such as enc-dec frames), then ``steps`` decode steps: from the
+    prefill's state at positions S, S + 1, ..., or, given ``state``, from
+    it at 0, 1, ... with tokens[:, :1] first.  Each step decodes the
     token of ``feed`` (on the CPU), or the greedy token of the step before.
     Returns the logits of the prefill and of each step on the CPU, the
     tokens decoded, and the prefill's and the last step's states."""
     dev = tokens.device
-    logits, prefilled = arch.prefill_fn(params, {"tokens": tokens})
+    logits, prefilled = arch.prefill_fn(params, {"tokens": tokens, **(extra or {})})
     out = {"logits": [logits.cpu()], "fed": [], "prefilled": prefilled}
     pos0, last = (tokens.shape[1], prefilled) if state is None else (0, state)
     for t in range(steps):
@@ -2217,6 +2260,253 @@ def hybrid_phase(card: str) -> dict:
          seconds=time.perf_counter() - t_phase, nvidia_smi=card)
     return {"launches_phase23": counts["swa_attention"], "builds_phase23": builds,
             "launches_per_prefill_phase23": first["swa_attention"]}
+
+
+def zoo_split(prof) -> tuple[dict[str, float], dict[str, float], int]:
+    """Device time (ms) of a profiled prefill split into ``swa_attention``,
+    the GEMMs and the other items of each ``ZOO_SPANS`` span (an item
+    whose start lies in the span's range on the device timeline, the rule
+    of :func:`span_breakdown`), and the GEMMs (``GEMM_NAMES``) and other
+    items outside them; the ten largest items by name; the item count."""
+    from torch.autograd import DeviceType
+
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = {span: [(e.time_range.start, e.time_range.end) for e in on_device if e.name == span]
+              for span in ZOO_SPANS}
+    split = dict.fromkeys(("swa_attention", "gemm", "other")
+                          + sum(ZOO_SPANS.values(), ()), 0.0)
+    top: dict[str, float] = {}
+    work = [e for e in on_device if e.name not in ZOO_SPANS]
+    for e in work:
+        name, start = e.name.lower(), e.time_range.start
+        gemm_key, other_key = next((keys for span, keys in ZOO_SPANS.items()
+                                    if any(lo <= start < hi for lo, hi in ranges[span])),
+                                   ("gemm", "other"))
+        kind = ("swa_attention" if "swa_attention_kernel" in name
+                else gemm_key if any(g in name for g in GEMM_NAMES) else other_key)
+        ms = (e.time_range.end - start) / 1e3
+        split[kind] += ms
+        top[e.name[:90]] = top.get(e.name[:90], 0.0) + ms
+    return split, dict(sorted(top.items(), key=lambda kv: -kv[1])[:10]), len(work)
+
+
+def mixtral_attention_layer(params, cfg, gen: torch.Generator) -> dict:
+    """Layer 0's ``swa_attention`` of the Mixtral prefill on a normed
+    random input at ``MIXTRAL_LAYER_SEQ`` tokens, against
+    ``ref.swa_attention_plain`` one KV head's group at a time (the twin
+    holds (S, S) scores), elementwise within ``swa_bf16_bound``."""
+    from repro_torch.arch import lm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as swa_kernel
+    from repro_torch.nn.layers import rms_norm
+
+    seq, window, rep = MIXTRAL_LAYER_SEQ, cfg.sliding_window, cfg.q_per_kv
+    lp = {name: t[0] for name, t in params["layers"].items() if not isinstance(t, dict)}
+    x = torch.randn((1, seq, cfg.d_model), device="cuda", generator=gen).bfloat16()
+    h = rms_norm(x, lp["ln1_scale"], cfg.norm_eps)
+    q, k, v = (t.contiguous() for t in lm.qkv(h, lp, cfg, torch.arange(seq, device="cuda")))
+    out = swa_kernel.swa_attention(q, k, v, window=window)
+    err, over = 0.0, 0.0
+    for g in range(cfg.num_kv_heads):
+        qg, kg, vg = q[:, :, g * rep:(g + 1) * rep], k[:, :, g:g + 1], v[:, :, g:g + 1]
+        o32 = ref.swa_attention_plain(qg.float(), kg.float(), vg.float(), window=window)
+        diff = (out[:, :, g * rep:(g + 1) * rep].float() - o32).abs()
+        del o32
+        err = max(err, float(diff.max()))
+        over = max(over, float((diff / ref.swa_bf16_bound(qg, kg, vg, window=window)).max()))
+        del diff
+    return {"seq": seq, "max_abs_err": err, "max_err_over_bound": over}
+
+
+def zoo_phase(card: str) -> dict:
+    """Phase 25: the MoE, SSM and enc-dec families through ``build_arch``
+    at full width (the module docstring).  Returns the phase's part of
+    the ``swa_attention`` row of the kernels line."""
+    import dataclasses
+
+    from repro_torch.arch import build_arch, encdec
+    from repro_torch.config import get_arch_config
+    from repro_torch.kernels import swa_attention as swa_kernel
+    from repro_torch.launch import arch_demo
+    from repro_torch.launch.arch_demo import leaf_count
+    from repro_torch.nn import attention as attn
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    row: dict = {}
+    for seed, (name, layers, seq, want_branches, slice_seq) in enumerate(ZOO):
+        t_cfg = time.perf_counter()
+        full = get_arch_config(name)
+        cfg = dataclasses.replace(full, num_layers=layers) if layers else full
+        is_mixtral, is_encdec = cfg.sliding_window > 0, cfg.family == "encdec"
+        arch = build_arch(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(2500 + 10 * seed)
+        t0 = time.perf_counter()
+        params = arch.init_params(gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = leaf_count(params)
+        tokens = torch.randint(0, cfg.vocab_size, (1, seq), dtype=torch.int32, device="cuda",
+                               generator=gen)
+        prompt = {"tokens": tokens}
+        if is_encdec:
+            spec = arch.input_specs("prefill_32k", override_batch=1, override_seq=seq)["frames"]
+            prompt["frames"] = torch.randn(tuple(spec.shape), device="cuda",
+                                           generator=gen).to(spec.dtype)
+
+        # the main path: two prefills, counted
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        branches_before = dict(attn.BRANCHES)
+        t0 = time.perf_counter()
+        logits, state = arch.prefill_fn(params, prompt)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first = launches()
+        again, _ = arch.prefill_fn(params, prompt)
+        torch.cuda.synchronize()
+        counts, builds = launches(), dict(swa_kernel.BUILD_LAUNCHES)
+        taken = {kind: attn.BRANCHES[kind] - branches_before[kind] for kind in attn.BRANCHES}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_swa = cfg.num_layers if is_mixtral else 0
+        require(first["swa_attention"] == n_swa and counts["swa_attention"] == 2 * n_swa
+                and sum(counts.values()) == 2 * n_swa,
+                f"{name}: kernel launches {first} in one prefill, {counts} in two")
+        require(builds == ({"wgmma-bf16-hd128": 2 * n_swa} if n_swa else {}),
+                f"{name}: swa_attention builds launched {builds}")
+        require(taken == {kind: 2 * n for kind, n in want_branches.items()},
+                f"{name}: attention branches {taken} in two prefills")
+        vocab_padded = params["embed"].shape[0]
+        require(tuple(logits.shape) == (1, 1, vocab_padded) and bool(torch.isfinite(logits).all()),
+                f"{name}: prefill logits {tuple(logits.shape)} or non-finite")
+        require(torch.equal(logits, again), f"{name}: two prefills of the same prompt differ")
+        del again
+
+        # 16 greedy decode steps: from the prefill's state, or (enc-dec)
+        # from init_state with the frames, the serving path
+        if is_encdec:
+            state = encdec.init_state(params, cfg, 1, seq + ZOO_DECODE_STEPS,
+                                      frames=prompt["frames"])
+        pos0 = 0 if is_encdec else seq
+        tok = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)[:, None].to(torch.int32)
+        decoded, step_walls = [], []
+        for t in range(ZOO_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_logits, state = arch.decode_fn(params, state, {"token": tok, "pos": pos0 + t})
+            torch.cuda.synchronize()
+            step_walls.append(time.perf_counter() - t0)
+            require(bool(torch.isfinite(step_logits).all()), f"{name}: decode step {t} non-finite")
+            tok = torch.argmax(step_logits[:, -1, :cfg.vocab_size], dim=-1)[:, None].to(torch.int32)
+            decoded.append(int(tok))
+        require(launches() == counts, f"{name}: decode launched a kernel: {launches()}")
+        extra = {}
+        if is_encdec:  # Arch.init_decode_state: the zero encoder output (ROADMAP Queue 3)
+            blind = arch.init_decode_state(params, 1, seq + ZOO_DECODE_STEPS)
+            require(not bool(blind["cross"]["k"].any()), f"{name}: init_decode_state's cross K")
+            first_step = {"token": torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)[:, None]
+                          .to(torch.int32), "pos": 0}
+            blind_logits, _ = arch.decode_fn(params, blind, first_step)
+            heard, _ = arch.decode_fn(params, encdec.init_state(params, cfg, 1, 8,
+                                                                frames=prompt["frames"]),
+                                      first_step)
+            require(bool(torch.isfinite(blind_logits).all()), f"{name}: init_decode_state path")
+            extra["init_decode_state_vs_frames_max_abs_diff"] = float(
+                (blind_logits.float() - heard.float()).abs().max())
+            del blind, heard
+        del state
+
+        # the prefill timed (host clock around a synced call) and profiled
+        walls = []
+        for _ in range(ZOO_TIMED_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            arch.prefill_fn(params, prompt)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            arch.prefill_fn(params, prompt)
+            torch.cuda.synchronize()
+            profiled_s = time.perf_counter() - t0
+        split, top, items = zoo_split(prof)
+        del prof
+        require(split["gemm"] + split["moe_gemm"] + split["ssd_gemm"] > 0,
+                f"{name}: the profiler saw no GEMM: {split}")
+        require((split["swa_attention"] > 0) == is_mixtral, f"{name}: swa_attention time {split}")
+
+        if is_mixtral:  # the kernel at this path's shapes, against its twin and timed
+            extra["attention_layer_vs_plain"] = mixtral_attention_layer(params, cfg, gen)
+            require(extra["attention_layer_vs_plain"]["max_err_over_bound"] <= 1.0,
+                    f"{name}: one attention layer vs swa_attention_plain: "
+                    f"{extra['attention_layer_vs_plain']}")
+            q, k, v = swa_inputs(gen, 1, seq, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                                 torch.bfloat16)
+            timing = swa_timing(q, k, v, cfg.sliding_window, BF16_OPS_PER_S)
+            del q, k, v
+            row = {"launches_phase25": counts["swa_attention"], "builds_phase25": builds,
+                   "launches_per_prefill_phase25": first["swa_attention"],
+                   "mixtral_shape": dict(B=1, S=seq, H=cfg.num_heads, K=cfg.num_kv_heads,
+                                         hd=cfg.head_dim, window=cfg.sliding_window),
+                   "mixtral": {**timing, **extra["attention_layer_vs_plain"]}}
+            extra["swa_attention"] = timing
+        del params, logits, prompt
+        torch.cuda.empty_cache()
+
+        # one layer (enc-dec: one of each) at full width, fp32: card against CPU
+        one = dataclasses.replace(full, num_layers=1, dtype="float32",
+                                  encoder_layers=1 if is_encdec else full.encoder_layers)
+        one_arch = build_arch(one)
+        one_gen = torch.Generator(device="cuda").manual_seed(2501 + 10 * seed)
+        gpu_params = one_arch.init_params(one_gen)
+        cpu_params = cpu_tree(gpu_params)
+        toks = tokens[:, :slice_seq]
+        frames = torch.randn((1, one.encoder_seq, one.d_model), device="cuda",
+                             generator=gen) if is_encdec else None
+
+        def one_run(p, toks, frames):
+            def run(feed=None):
+                if not is_encdec:
+                    return logits_run(one_arch, p, toks, 2, one.vocab_size, feed=feed)
+                state = encdec.init_state(p, one, 1, slice_seq + 2, frames=frames)
+                return logits_run(one_arch, p, toks, 2, one.vocab_size, feed=feed, state=state,
+                                  extra={"frames": frames})
+            return run
+
+        slice_err, _, _ = card_vs_cpu(
+            one_run(gpu_params, toks, frames),
+            one_run(cpu_params, toks.cpu(), None if frames is None else frames.cpu()),
+            LM_SLICE_TOL["logits"], f"{name}: one layer at full width")
+        del gpu_params, cpu_params, frames
+        torch.cuda.empty_cache()
+
+        with contextlib.redirect_stdout(io.StringIO()) as demo_out:
+            rc = arch_demo.main(["--arch", name, "--tokens", "4"])
+        require(rc == 0, f"arch_demo --arch {name} exited {rc}")
+
+        prefill_s = statistics.median(walls)
+        emit("zoo", arch=name, family=cfg.family, citation=cfg.citation, d_model=cfg.d_model,
+             layers=cfg.num_layers, encoder_layers=cfg.encoder_layers, heads=cfg.num_heads,
+             kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+             experts=cfg.num_experts, top_k=cfg.experts_per_token, window=cfg.sliding_window,
+             ssm_state=cfg.ssm_state, vocab=cfg.vocab_size, params=n_params, dtype=cfg.dtype,
+             reduced=({"num_layers": f"{full.num_layers}->{layers}", "batch": "32->1"} if layers
+                      else {"batch": "32->1"}),
+             prompt=seq, batch=1, init_s=init_s, first_prefill_s=first_s,
+             launches_per_prefill=first, launches_two_prefills=counts, builds_two_prefills=builds,
+             branches_two_prefills=taken, prefill_bitwise_repeat=True, peak_memory_gb=peak_gb,
+             decode_steps=ZOO_DECODE_STEPS, decode_from=("init_state(frames)" if is_encdec
+                                                         else "prefill"),
+             decoded_tokens=decoded, decode_step_ms_median=statistics.median(step_walls) * 1e3,
+             decode_step_ms=[w * 1e3 for w in step_walls], prefill_walls_s=walls,
+             prefill_wall_s=prefill_s, prefill_tokens_per_s=seq / prefill_s,
+             prefill_device_ms=split, prefill_top_device_ms=top, prefill_device_items=items,
+             profiled_prefill_wall_s=profiled_s,
+             prefill_device_busy_share=sum(split.values()) / (profiled_s * 1e3),
+             one_layer_fp32_seq=slice_seq, one_layer_card_vs_cpu_logits=slice_err,
+             tol=LM_SLICE_TOL["logits"], arch_demo=demo_out.getvalue().strip().splitlines()[-2:],
+             seconds=time.perf_counter() - t_cfg, nvidia_smi=card, **extra)
+    return row
 
 
 def main() -> int:
@@ -3178,6 +3468,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     swept_row = swept_phase(feds, card)
 
+    # 25. the MoE, SSM and enc-dec families at full width ----------------------
+    torch.cuda.empty_cache()
+    zoo_row = zoo_phase(card)
+
     sources = "src/repro_torch/kernels/csrc/"
     rows = [{
         "name": "lstm_forward", "route": "cuda",
@@ -3206,7 +3500,8 @@ def main() -> int:
                  "hybrid_shape": rg_shape, "hybrid": hybrid,
                  "hd256_bf16": {**hybrid["256"]["bf16"], **hybrid_row,
                                 "ptxas": next(lines for name, lines in swa_ptxas.items()
-                                              if "wgmma_hd256" in name)}})
+                                              if "wgmma_hd256" in name)},
+                 **zoo_row})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The LM-architecture zoo's uniform API (a port of ``repro.arch``):
 ``build_arch(cfg)`` returns an :class:`Arch` whose ``prefill_fn`` and
-``decode_fn`` run the dense and VLM families (``arch/lm.py``) and the
-RG-LRU hybrid (``arch/hybrid_lm.py``); the other families raise
-``NotImplementedError`` until they are ported."""
+``decode_fn`` run every family of the zoo: dense, MoE and VLM
+(``arch/lm.py``), the Mamba-2 SSM (``arch/ssm_lm.py``), the RG-LRU
+hybrid (``arch/hybrid_lm.py``) and the Whisper encoder-decoder
+(``arch/encdec.py``)."""
 from repro_torch.arch.api import SHAPES, Arch, ShapeSpec, build_arch

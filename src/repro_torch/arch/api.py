@@ -11,11 +11,11 @@
     init_decode_state(params, batch_size, seq_len) -> caches
     input_specs(shape_name) -> the batch as "meta" tensors (no allocation)
 
-The dense and VLM families (``arch/lm.py``) and the RG-LRU hybrid
-family (``arch/hybrid_lm.py``) are ported; MoE, SSM and enc-dec raise
-``NotImplementedError`` until their modules are (ROADMAP Queue 1 item
-15), as does ``decode_state_specs``, which waits for the dry-run's
-port.
+Every family is ported: dense, MoE and VLM (``arch/lm.py``), the Mamba-2
+SSM (``arch/ssm_lm.py``), the RG-LRU hybrid (``arch/hybrid_lm.py``) and
+the Whisper encoder-decoder (``arch/encdec.py``).  JAX's
+``decode_state_specs`` (an ``eval_shape`` for the dry run) has no
+counterpart until the dry run is ported.
 
 Input shapes (assigned):
     train_4k     seq 4096    global batch 256   train step
@@ -34,13 +34,6 @@ import torch
 from repro_torch.config import ArchConfig
 
 PyTree = Any
-
-PENDING = {
-    "moe": "mixture-of-experts layers (nn/moe.py)",
-    "ssm": "the Mamba2 SSM family (arch/ssm_lm.py)",
-    "encdec": "the encoder-decoder family (arch/encdec.py)",
-}
-
 
 @dataclass(frozen=True)
 class ShapeSpec:
@@ -86,18 +79,20 @@ class Arch:
 
         if sh.kind == "decode":
             return {"token": spec(b, 1), "pos": spec()}
+        act = compute_dtype(cfg.dtype)
         out = {"tokens": spec(b, s)}
         if cfg.family == "vlm":
             tv = cfg.vision_tokens
-            out = {"patches": spec(b, tv, VISION_STUB_DIM, dtype=compute_dtype(cfg.dtype)),
-                   "tokens": spec(b, s - tv)}
+            out = {"patches": spec(b, tv, VISION_STUB_DIM, dtype=act), "tokens": spec(b, s - tv)}
+        if cfg.family == "encdec":
+            out = {"frames": spec(b, cfg.encoder_seq, cfg.d_model, dtype=act), "tokens": spec(b, s)}
         if sh.kind == "train":
             out["labels"] = spec(b, s)
         return out
 
 
 def build_arch(cfg: ArchConfig) -> Arch:
-    if cfg.family in ("dense", "vlm") and not cfg.num_experts:
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.arch import lm
 
         return Arch(
@@ -109,6 +104,18 @@ def build_arch(cfg: ArchConfig) -> Arch:
             init_decode_state=lambda p, bsz, s: lm.init_cache(
                 cfg, bsz, s, p["embed"].device),
             supports_long=cfg.sliding_window > 0,
+        )
+    if cfg.family == "ssm":
+        from repro_torch.arch import ssm_lm
+
+        return Arch(
+            cfg=cfg,
+            init_params=lambda gen: ssm_lm.init_params(gen, cfg),
+            loss_fn=lambda p, b: ssm_lm.loss_fn(p, cfg, b),
+            prefill_fn=lambda p, b: ssm_lm.prefill(p, cfg, b),
+            decode_fn=lambda p, st, b: ssm_lm.decode_step(p, cfg, st, b),
+            init_decode_state=lambda p, bsz, s: ssm_lm.init_state(cfg, bsz, p["embed"].device),
+            supports_long=True,
         )
     if cfg.family == "hybrid":
         from repro_torch.arch import hybrid_lm
@@ -123,8 +130,16 @@ def build_arch(cfg: ArchConfig) -> Arch:
                 cfg, bsz, s, p["embed"].device),
             supports_long=True,
         )
-    if cfg.family in PENDING or cfg.num_experts:
-        what = PENDING["moe" if cfg.num_experts else cfg.family]
-        raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet (ROADMAP Queue 1 item 15)")
+    if cfg.family == "encdec":
+        from repro_torch.arch import encdec
+
+        return Arch(
+            cfg=cfg,
+            init_params=lambda gen: encdec.init_params(gen, cfg),
+            loss_fn=lambda p, b: encdec.loss_fn(p, cfg, b),
+            prefill_fn=lambda p, b: encdec.prefill(p, cfg, b),
+            decode_fn=lambda p, st, b: encdec.decode_step(p, cfg, st, b),
+            init_decode_state=lambda p, bsz, s: encdec.init_state(p, cfg, bsz, s),
+            supports_long=False,
+        )
     raise KeyError(f"unknown family {cfg.family!r}")

@@ -6,8 +6,8 @@ Griffin (arXiv:2402.19427).
 Layers are grouped into super-blocks of one pattern period, as in JAX:
 38 configured layers / 3 -> 13 super-blocks (39 layers).  ``blocks``
 holds one dict per kind of the pattern (rglru, rglru, attn), each leaf
-stacked over the super-blocks, and ``params_from_numpy`` carries a JAX
-tree across as it is.  The super-blocks run as a Python loop under
+stacked over the super-blocks, and ``arch.common.params_from_numpy``
+carries a JAX tree across as it is.  The super-blocks run as a Python loop under
 ``torch.inference_mode()``.  Each local-attention block's prefill goes
 through ``nn.attention.gqa_attention``, whose banded branch is the
 hand-written ``swa_attention`` kernel (hd 256, one KV head at
@@ -30,10 +30,10 @@ from __future__ import annotations
 
 from typing import Any
 
-import numpy as np
 import torch
 
-from repro_torch.arch.common import cast_params, compute_dtype, cross_entropy
+from repro_torch.arch.common import (cast_params, compute_dtype, cross_entropy, index_stacked,
+                                     put_stacked)
 from repro_torch.arch.lm import qkv
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
@@ -81,17 +81,6 @@ def _init_sub(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype: torch.dty
     }
 
 
-def _put(stacked: dict, tree: dict, i: int, n: int) -> None:
-    """``tree``'s leaves into slot i of the n-stacked nested dict."""
-    for name, t in tree.items():
-        if isinstance(t, dict):
-            _put(stacked.setdefault(name, {}), t, i, n)
-            continue
-        if name not in stacked:
-            stacked[name] = t.new_empty((n, *t.shape))
-        stacked[name][i] = t
-
-
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
     """Random params from ``gen`` on its device, in ``cfg.dtype``, with
     JAX's distributions (not its numbers), one sub-block at a time into
@@ -102,31 +91,13 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
     blocks: list[dict] = [{} for _ in pat]
     for sb in range(nsb):
         for i, kind in enumerate(pat):
-            _put(blocks[i], _init_sub(gen, cfg, kind, dtype), sb, nsb)
+            put_stacked(blocks[i], _init_sub(gen, cfg, kind, dtype), sb, nsb)
     return {
         "embed": normal(gen, (vp, d), 0.02, dtype),
         "blocks": blocks,
         "final_scale": torch.zeros((d,), dtype=dtype, device=gen.device),
         "lm_head": normal(gen, (d, vp), d ** -0.5, dtype),
     }
-
-
-def params_from_numpy(tree: PyTree, cfg: ArchConfig, device=None) -> PyTree:
-    """A JAX param tree as numpy arrays (``jax.tree.map(np.asarray,
-    params)``: dicts, and ``blocks`` a list of one dict per kind) as the
-    port's: the same structure, each leaf a tensor in ``cfg.dtype`` on
-    ``device`` (CUDA unless the CPU is asked for)."""
-    dev, dtype = resolve_device(device), compute_dtype(cfg.dtype)
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, cfg, dev) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [params_from_numpy(v, cfg, dev) for v in tree]
-    return torch.tensor(np.asarray(tree, dtype=np.float32), device=dev).to(dtype)
-
-
-def _index(tree: dict, i: int) -> dict:
-    """Super-block i of a stacked nested dict."""
-    return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +125,8 @@ def _trunk(params, cfg: ArchConfig, tokens):
     x = embed(tokens, params["embed"], dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     for sb in range(num_super_blocks(cfg)):
-        x = _super_forward(x, [_index(kind, sb) for kind in params["blocks"]], cfg, positions)
+        sub = [index_stacked(kind, sb) for kind in params["blocks"]]
+        x = _super_forward(x, sub, cfg, positions)
     return x
 
 
@@ -241,8 +213,9 @@ def decode_step(params, cfg: ArchConfig, states, batch):
     steps = []
     for sb in range(num_super_blocks(cfg)):
         st = {key: (KVCache(s.k[sb], s.v[sb], s.pos[sb]) if isinstance(s, KVCache)
-                    else _index(s, sb)) for key, s in states.items()}
-        x, new = _super_decode(x, [_index(kind, sb) for kind in params["blocks"]], cfg, st, pos)
+                    else index_stacked(s, sb)) for key, s in states.items()}
+        sub = [index_stacked(kind, sb) for kind in params["blocks"]]
+        x, new = _super_decode(x, sub, cfg, st, pos)
         steps.append(new)
     stacked = {}
     for key, first in steps[0].items():

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly for the dense and VLM families (a port of
-``repro.arch.lm``).
+"""Decoder-only LM assembly for the dense, MoE and VLM families (a port
+of ``repro.arch.lm``).
 
 One parameter tree, three entry points:
   * ``forward``      -- whole-sequence logits (teacher forcing),
@@ -8,7 +8,8 @@ One parameter tree, three entry points:
   * ``decode_step``  -- one token against the caches.
 
 The tree keeps JAX's layout: ``layers`` holds each leaf stacked over a
-leading L, and ``params_from_numpy`` carries a JAX tree across as it is.
+leading L, and ``arch.common.params_from_numpy`` carries a JAX tree across
+as it is.
 The layers run as a Python loop (JAX scans them under ``jax.checkpoint``;
 the port takes no gradient here, so it has nothing to rematerialise) and
 everything runs under ``torch.inference_mode()``.  In each layer's
@@ -22,10 +23,11 @@ same function as JAX's fp32 masters cast per call by ``cast_params``.
 At Mistral-Large's full width the fp32 masters of 4 layers alone would
 take 22 GB of the card.
 
-The mixture-of-experts layers (``nn/moe.py``) are not ported: a config
-with ``num_experts > 0`` raises.  JAX's sharding hints
-(``constrain_act``, ``constrain_attn``) are the identity on one device
-and come back with multi-GPU.
+A config with ``num_experts > 0`` runs ``nn.moe.moe_ffn`` in place of
+the SwiGLU in every layer; ``forward`` returns the layers' mean
+(load_balance, router_z) and ``loss_fn`` adds them as JAX does.  JAX's
+sharding hints (``constrain_act``, ``constrain_attn``) are the identity
+on one device and come back with multi-GPU.
 
 Known fault, kept from the reference: ``prefill`` returns caches of
 ``min(S, window)`` slots (S for full attention) in plain order, and the
@@ -37,25 +39,21 @@ from __future__ import annotations
 
 from typing import Any
 
-import numpy as np
 import torch
 
-from repro_torch.arch.common import cast_params, compute_dtype, cross_entropy
+from repro_torch.arch.common import (cast_params, compute_dtype, cross_entropy, index_stacked,
+                                     put_stacked)
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.nn.attention import KVCache, decode_attention, gqa_attention
 from repro_torch.nn.layers import dense, embed, init_swiglu, normal, pad_vocab, rms_norm, rope, swiglu_ffn
+from repro_torch.nn.moe import init_moe, moe_ffn
 
 PyTree = Any
 
 VISION_STUB_DIM = 1024  # stubbed vision-encoder embedding width
-
-
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers (nn/moe.py) are not ported yet "
-            f"(ROADMAP Queue 1 item 15)")
+LOAD_BALANCE_WEIGHT = 0.01  # the MoE aux losses' weights in loss_fn
+ROUTER_Z_WEIGHT = 1e-3
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +78,10 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> dic
     }
     if cfg.attn_bias:
         p.update(bq=zeros(h * hd), bk=zeros(k * hd), bv=zeros(k * hd))
-    p.update(init_swiglu(gen, d, cfg.d_ff, dtype))
+    if cfg.num_experts:
+        p["moe"] = init_moe(gen, d, cfg.d_ff, cfg.num_experts, dtype)
+    else:
+        p.update(init_swiglu(gen, d, cfg.d_ff, dtype))
     return p
 
 
@@ -89,15 +90,11 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
     JAX's distributions (normal at JAX's scales, zero norm gains).  Each
     leaf is drawn in fp32 and cast, one layer at a time into the stacked
     tensors, so the fp32 transient is one leaf."""
-    _dense_only(cfg)
     dtype = compute_dtype(cfg.dtype)
     vp, d = pad_vocab(cfg.vocab_size), cfg.d_model
-    layers: dict[str, torch.Tensor] = {}
+    layers: dict = {}
     for i in range(cfg.num_layers):
-        for name, t in init_layer(gen, cfg, dtype).items():
-            if name not in layers:
-                layers[name] = t.new_empty((cfg.num_layers, *t.shape))
-            layers[name][i] = t
+        put_stacked(layers, init_layer(gen, cfg, dtype), i, cfg.num_layers)
     p = {
         "embed": normal(gen, (vp, d), 0.02, dtype),
         "layers": layers,
@@ -107,17 +104,6 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
     if cfg.family == "vlm":
         p["vision_proj"] = {"w_in": normal(gen, (VISION_STUB_DIM, d), VISION_STUB_DIM ** -0.5, dtype)}
     return p
-
-
-def params_from_numpy(tree: PyTree, cfg: ArchConfig, device=None) -> PyTree:
-    """A JAX param tree (nested dicts of numpy arrays, ``layers``
-    L-stacked, as ``jax.tree.map(np.asarray, params)`` gives it) as the
-    port's: the same keys and shapes, each leaf a tensor in ``cfg.dtype``
-    on ``device`` (CUDA unless the CPU is asked for)."""
-    dev, dtype = resolve_device(device), compute_dtype(cfg.dtype)
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, cfg, dev) for k, v in tree.items()}
-    return torch.tensor(np.asarray(tree, dtype=np.float32), device=dev).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -136,30 +122,39 @@ def qkv(x, lp, cfg: ArchConfig, positions):
     return rope(q, positions, cfg.rope_theta), rope(kk, positions, cfg.rope_theta), v
 
 
+def ffn(h, lp, cfg: ArchConfig):
+    """The layer's MLP on the normed h: (out, aux), aux the MoE's losses
+    or {} for the SwiGLU."""
+    if cfg.num_experts:
+        return moe_ffn(h, lp["moe"], top_k=cfg.experts_per_token,
+                       capacity_factor=cfg.expert_capacity_factor)
+    return swiglu_ffn(h, lp), {}
+
+
 def layer_forward(x, lp, cfg: ArchConfig, positions):
     """Whole-sequence layer; returns (x, (k, v), aux).  With
     ``cfg.parallel_block`` attention and MLP both read norm(x) and add to
     one residual (PaLM style), as in JAX."""
-    _dense_only(cfg)
     h = rms_norm(x, lp["ln1_scale"], cfg.norm_eps)
     q, k, v = qkv(h, lp, cfg, positions)
     attn = gqa_attention(q, k, v, causal=True, window=cfg.sliding_window)
     attn_out = dense(attn.reshape(x.shape[0], x.shape[1], -1), lp["wo"])
     if cfg.parallel_block:
-        return x + attn_out + swiglu_ffn(h, lp), (k, v), {}
+        ff, aux = ffn(h, lp, cfg)
+        return x + attn_out + ff, (k, v), aux
     x = x + attn_out
-    return x + swiglu_ffn(rms_norm(x, lp["ln2_scale"], cfg.norm_eps), lp), (k, v), {}
+    ff, aux = ffn(rms_norm(x, lp["ln2_scale"], cfg.norm_eps), lp, cfg)
+    return x + ff, (k, v), aux
 
 
 def layer_decode(x, lp, cache: KVCache, cfg: ArchConfig, pos):
     """One-token layer.  x (B, 1, d); pos the absolute position (0-d)."""
-    _dense_only(cfg)
     h = rms_norm(x, lp["ln1_scale"], cfg.norm_eps)
     q, k, v = qkv(h, lp, cfg, pos.reshape(1))
     cache = cache.append(k, v)
     attn = decode_attention(q, cache, window=cfg.sliding_window)
     x = x + dense(attn.reshape(x.shape[0], 1, -1), lp["wo"])
-    return x + swiglu_ffn(rms_norm(x, lp["ln2_scale"], cfg.norm_eps), lp), cache
+    return x + ffn(rms_norm(x, lp["ln2_scale"], cfg.norm_eps), lp, cfg)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -169,8 +164,8 @@ def layer_decode(x, lp, cache: KVCache, cfg: ArchConfig, pos):
 
 def _layers(params):
     stacked = params["layers"]
-    for i in range(next(iter(stacked.values())).shape[0]):
-        yield {name: t[i] for name, t in stacked.items()}
+    for i in range(stacked["wq"].shape[0]):
+        yield index_stacked(stacked, i)
 
 
 def _embed_inputs(params, cfg: ArchConfig, batch, dtype):
@@ -184,22 +179,29 @@ def _embed_inputs(params, cfg: ArchConfig, batch, dtype):
 
 @torch.inference_mode()
 def forward(params, cfg: ArchConfig, batch):
-    """Teacher-forcing logits (B, S_total, Vp) and the (2,) aux losses
-    (zeros: no MoE)."""
+    """Teacher-forcing logits (B, S_total, Vp) and the (2,) fp32 mean
+    over layers of (load_balance, router_z) (zeros without MoE)."""
     dtype = compute_dtype(cfg.dtype)
     params = cast_params(params, dtype)
     x = _embed_inputs(params, cfg, batch, dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux_rows = []
     for lp in _layers(params):
-        x, _, _ = layer_forward(x, lp, cfg, positions)
+        x, _, aux = layer_forward(x, lp, cfg, positions)
+        aux_rows.append(torch.stack([aux["load_balance"], aux["router_z"]]) if aux
+                        else torch.zeros((2,), device=x.device))
     x = rms_norm(x, params["final_scale"], cfg.norm_eps)
-    return dense(x, params["lm_head"]), torch.zeros((2,), device=x.device)
+    return dense(x, params["lm_head"]), torch.stack(aux_rows).mean(dim=0)
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """Mean next-token CE against ``batch["labels"]`` (value only)."""
-    logits, _ = forward(params, cfg, batch)
-    return cross_entropy(logits, batch["labels"])
+    """Mean next-token CE against ``batch["labels"]`` (value only), plus
+    the MoE's weighted aux losses."""
+    logits, aux = forward(params, cfg, batch)
+    ce = cross_entropy(logits, batch["labels"])
+    if cfg.num_experts:
+        ce = ce + LOAD_BALANCE_WEIGHT * aux[0] + ROUTER_Z_WEIGHT * aux[1]
+    return ce
 
 
 def cache_capacity(cfg: ArchConfig, seq_len: int) -> int:

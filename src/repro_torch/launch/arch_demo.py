@@ -3,12 +3,13 @@
 to the glucose service (that is ``repro_torch.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.arch_demo --arch yi-6b --tokens 16
-    PYTHONPATH=src python -m repro_torch.launch.arch_demo --device cpu --arch mistral-large-123b
+    PYTHONPATH=src python -m repro_torch.launch.arch_demo --device cpu --arch mixtral-8x22b
 
-Builds the reduced variant of ``--arch`` (``--full-config`` for the
-full one), then feeds a prompt of ones token by token and greedy-decodes
-``--tokens`` tokens through ``decode_fn``, as the JAX demo does.  Runs
-on CUDA unless ``--device cpu``; the families not ported yet exit 2.
+Builds the reduced variant of ``--arch`` (any registered LM config;
+``--full-config`` for the full one), then feeds a prompt of ones token
+by token and greedy-decodes ``--tokens`` tokens through ``decode_fn``
+from ``init_decode_state``, as the JAX demo does.  Runs on CUDA unless
+``--device cpu``; ``glucose-lstm`` (no LM family) exits 2.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ def main(argv: list[str] | None = None) -> int:
         cfg = cfg.reduced()
     try:
         arch = build_arch(cfg)
-    except (NotImplementedError, KeyError) as err:
+    except KeyError as err:
         print(f"arch_demo: {err}", file=sys.stderr)
         return 2
     print(f"arch={cfg.name} family={cfg.family} L={cfg.num_layers} d={cfg.d_model}")

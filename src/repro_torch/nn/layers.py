@@ -4,8 +4,7 @@
 Conventions, as in the JAX package: activations (B, S, D), attention
 heads (B, S, H, hd), ``dense(x, w)`` with ``w`` (d_in, d_out), and every
 vocabulary-sized dimension padded to a multiple of 128 (``pad_vocab``).
-``layer_norm`` and ``gelu_ffn`` wait for the enc-dec family; the
-``init_*`` helpers draw from a ``torch.Generator`` (the same
+The ``init_*`` helpers draw from a ``torch.Generator`` (the same
 distributions as JAX's, not the same numbers).
 """
 from __future__ import annotations
@@ -23,6 +22,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in fp32 (population variance), back in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
@@ -69,3 +78,18 @@ def init_swiglu(gen: torch.Generator, d: int, ff: int, dtype=torch.float32) -> d
 def swiglu_ffn(x: torch.Tensor, p: dict) -> torch.Tensor:
     """Gated MLP (gate, up, down), llama/mistral style."""
     return dense(F.silu(dense(x, p["w_gate"])) * dense(x, p["w_up"]), p["w_down"])
+
+
+def init_gelu_ffn(gen: torch.Generator, d: int, ff: int, dtype=torch.float32) -> dict:
+    return {
+        "w_in": normal(gen, (d, ff), d ** -0.5, dtype),
+        "b_in": torch.zeros((ff,), dtype=dtype, device=gen.device),
+        "w_out": normal(gen, (ff, d), ff ** -0.5, dtype),
+        "b_out": torch.zeros((d,), dtype=dtype, device=gen.device),
+    }
+
+
+def gelu_ffn(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Plain two-matrix MLP with the tanh GELU (whisper style)."""
+    h = F.gelu(dense(x, p["w_in"], p["b_in"]), approximate="tanh")
+    return dense(h, p["w_out"], p["b_out"])

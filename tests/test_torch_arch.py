@@ -1,12 +1,12 @@
-"""The port's LM zoo (dense and VLM families) held against the JAX
+"""The port's LM zoo (dense, MoE and VLM families) held against the JAX
 package on the CPU, on the same weights carried across by
-``arch.lm.params_from_numpy``: the registry field for field, ``forward``,
-``loss_fn``, ``prefill`` (logits and caches) and four ``decode_step``s of
-every dense/VLM config at ``reduced()`` width and of the reduced
-Mistral-Large with a 1024-token window at S=3072 (the banded branch, so
-the kernel's twin), the families not ported yet and the hybrid's
-``Arch``, the input specs, and
-the ``arch_demo`` CLI.  It also pins a fault of the reference that the
+``arch.common.params_from_numpy``: the registry field for field, ``forward``
+(the MoE aux losses too), ``loss_fn``, ``prefill`` (logits and caches)
+and four ``decode_step``s of every dense/MoE/VLM config at ``reduced()``
+width and of the reduced Mistral-Large with a 1024-token window at
+S=3072 (the banded branch, so the kernel's twin), every family's
+``Arch`` built and prefilling, the input specs, and the ``arch_demo``
+CLI on every family.  It also pins a fault of the reference that the
 port keeps: decode after prefill is right only when S % window == 0."""
 import dataclasses
 
@@ -24,13 +24,13 @@ from repro.config import get_arch_config as jax_arch_config
 from repro.config import list_archs as jax_list_archs
 from repro_torch.arch import SHAPES, build_arch
 from repro_torch.arch import lm
-from repro_torch.arch.common import cross_entropy
+from repro_torch.arch.common import cross_entropy, params_from_numpy
 from repro_torch.config import get_arch_config, list_archs
 from repro_torch.launch import arch_demo
 from repro_torch.nn import attention as tattn
 
 ATOL = 1e-4  # fp32 logits after 2 layers: matmul and softmax sums in another order
-DENSE_VLM = [n for n in jax_list_archs() if jax_arch_config(n).family in ("dense", "vlm")]
+LM_CONFIGS = [n for n in jax_list_archs() if jax_arch_config(n).family in ("dense", "moe", "vlm")]
 
 
 def test_registry_matches_jax_field_for_field():
@@ -52,7 +52,7 @@ def _pair(name, **changes):
     jcfg = dataclasses.replace(jax_arch_config(name).reduced(), **changes)
     cfg = dataclasses.replace(get_arch_config(name).reduced(), **changes)
     jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
-    return jcfg, cfg, jparams, lm.params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return jcfg, cfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
 
 
 def _batch(cfg, b, s, seed, labels=False):
@@ -94,7 +94,7 @@ def _prefill_and_decode(jcfg, cfg, jparams, params, jb, tb, steps=4):
     return pairs, (tcache, jcache)
 
 
-@pytest.mark.parametrize("name", DENSE_VLM)
+@pytest.mark.parametrize("name", LM_CONFIGS)
 def test_reduced_config_matches_jax(name):
     jcfg, cfg, jparams, params = _pair(name)
     jb, tb = _batch(cfg, 2, 24, seed=1, labels=True)
@@ -172,9 +172,27 @@ def test_prefill_then_decode_fault_of_the_reference_is_pinned(s, window, right):
 
 @pytest.mark.parametrize("name", ["mixtral-8x22b", "granite-moe-1b-a400m", "mamba2-370m",
                                   "whisper-medium"])
-def test_families_not_ported_yet_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
-        build_arch(get_arch_config(name))
+def test_every_family_builds_its_arch_and_prefills(name):
+    """The four configs that once raised: each builds its ``Arch`` at full
+    size with JAX's ``supports_long``, and at reduced width prefills and
+    takes a decode step from ``init_decode_state`` (held against JAX in
+    ``tests/test_torch_moe.py``, ``test_torch_ssm.py`` and
+    ``test_torch_encdec.py``, and above for the MoE configs)."""
+    cfg = get_arch_config(name)
+    arch = build_arch(cfg)
+    assert arch.cfg is cfg
+    assert arch.supports_long == jax_build_arch(jax_arch_config(name)).supports_long
+    small = build_arch(cfg.reduced())
+    params = small.init_params(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.ones((1, 16), dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((1, small.cfg.encoder_seq, small.cfg.d_model))
+    logits, _ = small.prefill_fn(params, batch)
+    vp = params["embed"].shape[0]
+    assert logits.shape == (1, 1, vp) and bool(torch.isfinite(logits).all())
+    state = small.init_decode_state(params, 1, 8)
+    step, _ = small.decode_fn(params, state, {"token": batch["tokens"][:, :1], "pos": 0})
+    assert step.shape == (1, 1, vp) and bool(torch.isfinite(step).all())
 
 
 def test_hybrid_family_builds_its_arch():
@@ -217,7 +235,7 @@ def test_init_params_shapes_and_dtype():
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))
-@pytest.mark.parametrize("name", ["yi-6b", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("name", ["yi-6b", "llava-next-mistral-7b", "whisper-medium"])
 def test_input_specs_match_jax(shape, name):
     cfg = get_arch_config(name)
     mine = build_arch(cfg).input_specs(shape, override_batch=2)
@@ -233,4 +251,8 @@ def test_arch_demo_cli_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "arch=mistral-large-123b-smoke family=dense L=2 d=256" in out
     assert "decoded 3 tokens" in out and "sampled token ids: [[" in out
-    assert arch_demo.main(["--device", "cpu", "--arch", "mamba2-370m"]) == 2
+    for name in ("mixtral-8x22b", "granite-moe-1b-a400m", "mamba2-370m", "whisper-medium"):
+        assert arch_demo.main(["--device", "cpu", "--arch", name, "--batch", "1",
+                               "--prompt-len", "2", "--tokens", "2"]) == 0
+        assert f"arch={name}-smoke family={get_arch_config(name).family}" in capsys.readouterr().out
+    assert arch_demo.main(["--device", "cpu", "--arch", "glucose-lstm"]) == 2

@@ -4,7 +4,7 @@ CPU: the causal conv, ``linear_scan`` against a sequential recurrence,
 params from numpy inputs (fp32, atol 1e-5), ``recurrent_block_decode``
 stepped over S positions against ``recurrent_block`` in both packages,
 and RecurrentGemma-9B at reduced width on JAX's weights carried across
-by ``arch.hybrid_lm.params_from_numpy``: ``forward``, ``loss_fn`` and
+by ``arch.common.params_from_numpy``: ``forward``, ``loss_fn`` and
 ``prefill`` with hd 256, one KV head and a 1024-token window at S=3072
 (the banded branch, so the kernel's twin), decode past the window's 64
 slots (the ring wraps) against JAX and against ``forward``, and the
@@ -24,6 +24,7 @@ from repro.nn import rglru as jrglru
 from repro.nn.ssm import _causal_conv as jax_causal_conv
 from repro_torch.arch import build_arch
 from repro_torch.arch import hybrid_lm
+from repro_torch.arch.common import params_from_numpy
 from repro_torch.config import get_arch_config
 from repro_torch.nn import attention as tattn
 from repro_torch.nn import rglru
@@ -140,7 +141,7 @@ def _pair(**changes):
     jcfg = dataclasses.replace(jax_arch_config(NAME).reduced(), **changes)
     cfg = dataclasses.replace(get_arch_config(NAME).reduced(), **changes)
     jparams = jhybrid.init_params(jax.random.PRNGKey(0), jcfg)
-    return jcfg, cfg, jparams, hybrid_lm.params_from_numpy(_np_tree(jparams), cfg, "cpu")
+    return jcfg, cfg, jparams, params_from_numpy(_np_tree(jparams), cfg, "cpu")
 
 
 def _tokens(cfg, b, s, seed):

@@ -43,7 +43,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert len(MODULES) >= 20
-    assert {"repro_torch.nn.ssm", "repro_torch.nn.rglru", "repro_torch.arch.hybrid_lm"} <= set(MODULES)
+    assert {"repro_torch.nn.ssm", "repro_torch.nn.rglru", "repro_torch.arch.hybrid_lm",
+            "repro_torch.nn.moe", "repro_torch.arch.ssm_lm",
+            "repro_torch.arch.encdec"} <= set(MODULES)
 
 
 # matches `import jax`, `from jax...`, `import repro` and `from repro...`
