@@ -345,6 +345,42 @@ Phases, each printing one JSON line:
                 the card against the CPU from the same weights (logits
                 of the prefill and two decode steps within 1e-4); and
                 ``arch_demo`` on each config's reduced variant;
+ 26. train    — the LM zoo's train step (``arch.common.make_train_step``,
+                plain PyTorch autograd: JAX's train step reaches no
+                Pallas kernel) at Granite-MoE-1B-A400M's full width and
+                depth (24 layers, d_model 1024, 16 heads, 8 KV heads, 32
+                experts top-8, vocab 49,155; ~1.38 B params) from fp32
+                masters (``init_params(..., dtype=float32)``) cast to
+                bf16 at each forward, the ``train_4k`` shape (S=4,096)
+                with the global batch cut from 256 to 4 in 2
+                microbatches, random tokens and labels, Adam at 3e-4:
+                4 steps on one fixed batch with every count at 0 before
+                them (no kernel of ours launched, 0 ``swa_attention``,
+                every layer's flash branch twice a microbatch: forward
+                and its rematerialisation), finite losses and grad
+                norms, the loss falling from step 1 to 4, every leaf
+                moved, finite moments; two forwards of a microbatch
+                bitwise equal (the rematerialised forward is the first,
+                the MoE's ``index_add_`` combine included); ms a step (median of steps 2-4),
+                tokens/s, peak memory, and a profiled fifth step's
+                device time split and busy share; one train step (M=2,
+                lr 1e-3) of a reduced config of each family (Yi-6B,
+                Mixtral-8x22B, LLaVA-NeXT, Mamba2, RecurrentGemma-9B,
+                Whisper-medium) on the card against the CPU from the
+                same params and batch: loss within 1e-5 relative, m
+                within 1e-5 of each leaf's max, params within lr·1e-3
+                where |g| > 1e-6 and 2·lr elsewhere; at a banded shape
+                (S=8,192, window 2048, H=8, K=2, hd 128, bf16) under
+                grad ``gqa_attention`` takes ``banded_grad``, its output
+                and q, k, v gradients bitwise ``banded_flash_attention``'s
+                with no kernel launch, and without grad one
+                ``swa_attention`` launch; then on a one-rank NCCL group
+                ``gossip_mix_params`` (``allgather``, ``masked``,
+                ``psum``) and ``ring_mix_params`` over the trained
+                params on ``make_gossip_dp_mesh``'s (1, 1, 1) layout,
+                each its input bitwise, and ``GossipDPSchedule``
+                (bernoulli, markov) drawing row-stochastic 16-node mixes
+                on the card;
 
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -538,15 +574,29 @@ SWEPT_PROFILED = (("allgather", "sparse", 0.0), ("psum", "dense", 0.0))
 SWEPT_PROFILED_ROUNDS = 4
 # phase 25: (config, layers kept or None for all, prompt tokens, one
 # prefill's gqa_attention branches, the prompt of the fp32 one-layer slice)
-ZOO = (("mixtral-8x22b", 4, 32_768, {"plain": 0, "flash": 0, "banded": 4}, 512),
-       ("granite-moe-1b-a400m", None, 4_096, {"plain": 0, "flash": 24, "banded": 0}, 4_096),
-       ("mamba2-370m", None, 8_192, {"plain": 0, "flash": 0, "banded": 0}, 2_048),
-       ("whisper-medium", None, 448, {"plain": 72, "flash": 0, "banded": 0}, 448))
+ZOO = (("mixtral-8x22b", 4, 32_768, {"plain": 0, "flash": 0, "banded": 4, "banded_grad": 0}, 512),
+       ("granite-moe-1b-a400m", None, 4_096,
+        {"plain": 0, "flash": 24, "banded": 0, "banded_grad": 0}, 4_096),
+       ("mamba2-370m", None, 8_192, {"plain": 0, "flash": 0, "banded": 0, "banded_grad": 0}, 2_048),
+       ("whisper-medium", None, 448, {"plain": 72, "flash": 0, "banded": 0, "banded_grad": 0}, 448))
 ZOO_DECODE_STEPS = 16
 ZOO_TIMED_RUNS = 3
 # record_function span -> the shares of its GEMMs and of its other items
 ZOO_SPANS = {"moe": ("moe_gemm", "moe_dispatch"), "ssm.ssd": ("ssd_gemm", "ssd_passes")}
 MIXTRAL_LAYER_SEQ = 8_192  # the attention layer held against the twin, which holds (S, S) scores
+# phase 26: Granite-MoE-1B-A400M's train step at full width and depth, the
+# train_4k shape with the global batch cut from 256; one reduced config a
+# family held card against CPU at one step (the CPU tests' tolerances:
+# loss 1e-5 relative, m 1e-5 of each leaf's max, params lr·1e-3 where
+# |g| > 1e-6 and 2·lr elsewhere); the banded shape under grad; gossip-DP
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4_096, 4, 2, 4
+TRAIN_SLICES = ("yi-6b", "mixtral-8x22b", "llava-next-mistral-7b", "mamba2-370m",
+                "recurrentgemma-9b", "whisper-medium")
+TRAIN_SLICE_LR, TRAIN_SLICE_BATCH, TRAIN_SLICE_SEQ = 1e-3, 2, 32
+TRAIN_SLICE_TOL = {"loss": 1e-5, "moment": 1e-5, "param": 1e-3, "g_noise": 1e-6}
+TRAIN_BANDED = dict(s=8_192, h=8, kh=2, hd=128, window=2_048)  # bf16
+GOSSIP_DP_NODES, GOSSIP_DP_MIXES = 16, 4
 SWEPT_CLI = ["--fast-data", "--topology", "random", "--sweep-ratios", "0,0.3,0.7",
              "--sweep-seeds", "2", "--rounds", "4"]
 
@@ -2159,7 +2209,8 @@ def hybrid_phase(card: str) -> dict:
             f"in two {nsb}-attention-layer prefills")
     require(sum(counts.values()) == 2 * nsb, f"another kernel ran in the prefill: {counts}")
     require(builds == {"wgmma-bf16-hd256": 2 * nsb}, f"swa_attention builds launched: {builds}")
-    require(taken == {"plain": 0, "flash": 0, "banded": 2 * nsb}, f"attention branches {taken}")
+    require(taken == {"plain": 0, "flash": 0, "banded": 2 * nsb, "banded_grad": 0},
+            f"attention branches {taken}")
     vocab_padded = params["lm_head"].shape[1]
     require(tuple(logits.shape) == (1, 1, vocab_padded) and bool(torch.isfinite(logits).all()),
             f"prefill logits {tuple(logits.shape)} or non-finite")
@@ -2507,6 +2558,244 @@ def zoo_phase(card: str) -> dict:
              tol=LM_SLICE_TOL["logits"], arch_demo=demo_out.getvalue().strip().splitlines()[-2:],
              seconds=time.perf_counter() - t_cfg, nvidia_smi=card, **extra)
     return row
+
+
+def train_slice_vs_cpu(name: str, seed: int) -> dict:
+    """One train step (M=2) of ``name``'s reduced config on the card and
+    on the CPU from the same fp32 params and batch, held to the CPU
+    tests' tolerances (``TRAIN_SLICE_TOL``).  A failure runs both sides
+    once more and says which side repeats itself bitwise and how the
+    card's fp32 matmuls were set."""
+    from repro_torch.arch import build_arch
+    from repro_torch.arch.common import init_train_state, make_train_step
+    from repro_torch.config import get_arch_config
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    cfg = get_arch_config(name).reduced()
+    arch = build_arch(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    params = arch.init_params(gen, torch.float32)
+    batch = {k: (torch.randint(0, cfg.vocab_size, tuple(v.shape), generator=gen,
+                               dtype=torch.int32) if v.dtype == torch.int32
+                 else torch.randn(tuple(v.shape), generator=gen))
+             for k, v in arch.input_specs("train_4k", override_batch=TRAIN_SLICE_BATCH,
+                                          override_seq=TRAIN_SLICE_SEQ).items()}
+    step = make_train_step(arch.loss_fn, num_microbatches=TRAIN_MICRO, lr=TRAIN_SLICE_LR)
+
+    def run(device):
+        state = init_train_state(tree_map(lambda t: t.to(device), params))
+        new, metrics = step(state, {k: v.to(device) for k, v in batch.items()})
+        return {"loss": metrics["loss"].cpu(), "m": [t.cpu() for t in tree_leaves(new.m)],
+                "params": [t.detach().cpu() for t in tree_leaves(new.params)]}
+
+    def errors(card, cpu):
+        loss = float((card["loss"] - cpu["loss"]).abs() / cpu["loss"].abs())
+        moment = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                     for a, b in zip(card["m"], cpu["m"]))
+        signal = noise = 0.0
+        for a, b, m in zip(card["params"], cpu["params"], cpu["m"]):
+            err, g = (a - b).abs(), m / 0.1  # m = (1 - b1) g after the first step
+            big = g.abs() > TRAIN_SLICE_TOL["g_noise"]
+            signal = max(signal, float(err[big].max()) if bool(big.any()) else 0.0)
+            noise = max(noise, float(err.max()))
+        return {"loss_rel": loss, "m_rel": moment, "param_signal_max": signal,
+                "param_max": noise}
+
+    card, cpu = run("cuda"), run("cpu")
+    errs = errors(card, cpu)
+    ok = (errs["loss_rel"] <= TRAIN_SLICE_TOL["loss"] and errs["m_rel"] <= TRAIN_SLICE_TOL["moment"]
+          and errs["param_signal_max"] <= TRAIN_SLICE_LR * TRAIN_SLICE_TOL["param"]
+          and errs["param_max"] <= 2 * TRAIN_SLICE_LR)
+    if not ok:
+        again = {"card": run("cuda"), "cpu": run("cpu")}
+        repeats = {side: all(torch.equal(x, y) for key in ("m", "params")
+                             for x, y in zip(first[key], again[side][key]))
+                   for side, first in (("card", card), ("cpu", cpu))}
+        matmul = {"float32_matmul_precision": torch.get_float32_matmul_precision(),
+                  "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+        require(False, f"{name}: one train step, card vs CPU: {errs} against {TRAIN_SLICE_TOL} "
+                       f"(lr {TRAIN_SLICE_LR}); bitwise the same when run again: {repeats}; "
+                       f"{matmul}")
+    return errs
+
+
+def train_phase(card: str) -> dict:
+    """Phase 26: the LM zoo's train step (the module docstring).  Returns
+    the phase's part of the ``swa_attention`` row of the kernels line."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.arch import build_arch
+    from repro_torch.arch.common import init_train_state, make_train_step
+    from repro_torch.config import get_arch_config
+    from repro_torch.core.gossip_dp import GossipDPSchedule, gossip_mix_params, ring_mix_params
+    from repro_torch.launch.arch_demo import leaf_count
+    from repro_torch.launch.mesh import make_gossip_dp_mesh
+    from repro_torch.nn import attention as attn
+    from repro_torch.utils.pytree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_arch_config(TRAIN_ARCH)
+    arch = build_arch(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(2600)
+    params = arch.init_params(gen, torch.float32)
+    n_params = leaf_count(params)
+    require({leaf.dtype for leaf in tree_leaves(params)} == {torch.float32}, "fp32 masters")
+    initial = [leaf.cpu() for leaf in tree_leaves(params)]
+    batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                              device="cuda", generator=gen) for k in ("tokens", "labels")}
+    step = make_train_step(arch.loss_fn, num_microbatches=TRAIN_MICRO)
+    state = init_train_state(params)
+    del params
+
+    # (1) the main path: TRAIN_STEPS steps on one fixed batch, counted
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    branches_before = dict(attn.BRANCHES)
+    losses, norms, walls = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    counts = launches()
+    taken = {kind: attn.BRANCHES[kind] - branches_before[kind] for kind in attn.BRANCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(sum(counts.values()) == 0, f"the train step launched a kernel of ours: {counts}")
+    # forward and its rematerialisation, a layer a microbatch a step
+    flash = 2 * cfg.num_layers * TRAIN_MICRO * TRAIN_STEPS
+    require(taken == {"plain": 0, "flash": flash, "banded": 0, "banded_grad": 0},
+            f"attention branches {taken} in {TRAIN_STEPS} steps")
+    require(all(math.isfinite(x) for x in losses + norms) and min(norms) > 0,
+            f"losses {losses}, grad norms {norms}")
+    require(losses[-1] < losses[0], f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    require(int(state.step) == TRAIN_STEPS and state.step.dtype == torch.int32,
+            f"step {state.step}")
+    moved = [not torch.equal(leaf.detach().cpu(), first)
+             for leaf, first in zip(tree_leaves(state.params), initial)]
+    require(all(moved), f"{moved.count(False)} of {len(moved)} leaves did not move")
+    require(all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.m) + tree_leaves(state.v)),
+            "non-finite Adam moments")
+    del initial
+
+    # remat recomputes each layer in the backward pass, which must give the
+    # first forward's values: the MoE's combine is index_add_ (atomics), one
+    # an expert over distinct rows, so two forwards are bitwise equal
+    from repro_torch.arch import lm
+
+    micro = {key: t[:TRAIN_BATCH // TRAIN_MICRO] for key, t in batch.items()}
+    with torch.no_grad():
+        first_logits, first_aux = lm.forward(state.params, cfg, micro)
+        again_logits, again_aux = lm.forward(state.params, cfg, micro)
+    require(torch.equal(first_logits, again_logits) and torch.equal(first_aux, again_aux),
+            "two forwards of one microbatch differ: the recomputed forward would not be the first")
+    del first_logits, again_logits, first_aux, again_aux
+
+    # one more step under the profiler: the card's busy share
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    split, top, items = zoo_split(prof)
+    del prof
+    require(math.isfinite(float(metrics["loss"])), "the profiled step's loss")
+    step_s = statistics.median(walls[1:])
+
+    # (2) one reduced config a family: card against CPU at one step
+    slices = {name: train_slice_vs_cpu(name, 2610 + i) for i, name in enumerate(TRAIN_SLICES)}
+
+    # (3) the banded shape under grad: the plain banded path, bitwise;
+    # without grad one kernel launch
+    sh = TRAIN_BANDED
+    q, k, v = swa_inputs(gen, 1, sh["s"], sh["h"], sh["kh"], sh["hd"], torch.bfloat16)
+    reset_launches()
+    before = dict(attn.BRANCHES)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attn.gqa_attention(*leaves, causal=True, window=sh["window"])
+    grad_launches = launches()["swa_attention"]
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = attn.banded_flash_attention(*ref_leaves, window=sh["window"])
+    cot = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    grads = torch.autograd.grad(out, leaves, cot)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, cot)
+    require(torch.equal(out, ref) and all(torch.equal(a, b) for a, b in zip(grads, ref_grads)),
+            "banded_grad is not banded_flash_attention bitwise (output or q/k/v gradients)")
+    with torch.no_grad():
+        attn.gqa_attention(q, k, v, causal=True, window=sh["window"])
+    banded_taken = {kind: attn.BRANCHES[kind] - before[kind] for kind in attn.BRANCHES}
+    require(grad_launches == 0 and launches()["swa_attention"] == 1
+            and banded_taken == {"plain": 0, "flash": 0, "banded": 1, "banded_grad": 1},
+            f"banded shape: {grad_launches} launches under grad, {launches()} in all, "
+            f"branches {banded_taken}")
+    del q, k, v, leaves, ref_leaves, out, ref, grads, ref_grads, cot
+
+    # (4) gossip-DP on a one-rank NCCL group over the trained params
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                            timeout=timedelta(seconds=300))
+    gossip = {}
+    try:
+        mesh = make_gossip_dp_mesh(nodes=1, data=1, model=1, device="cuda")
+        require(mesh.node_group(("node",)) is not None, "no node subgroup on the NCCL group")
+        mix = torch.ones((1, 1), device="cuda")
+        params = state.params
+        for impl in ("allgather", "masked", "psum"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mixed = gossip_mix_params(params, mix, mesh, ("node",), impl=impl)
+            torch.cuda.synchronize()
+            gossip[f"{impl}_s"] = time.perf_counter() - t0
+            require(all(torch.equal(a, b) for a, b in zip(tree_leaves(mixed), tree_leaves(params))),
+                    f"gossip_mix_params {impl} at W=1 is not the identity")
+            del mixed
+        ring = ring_mix_params(params, mesh, ("node",))
+        require(all(torch.equal(a, b) for a, b in zip(tree_leaves(ring), tree_leaves(params))),
+                "ring_mix_params at W=1 is not the identity")
+        for schedule in ("bernoulli", "markov"):
+            sched = GossipDPSchedule("random", GOSSIP_DP_NODES, inactive_ratio=0.3, seed=26,
+                                     schedule=schedule, device="cuda")
+            mixes = [sched.next_mix() for _ in range(GOSSIP_DP_MIXES)]
+            rows = max(float((m.sum(dim=1) - 1).abs().max()) for m in mixes)
+            require(all(m.device.type == "cuda" and tuple(m.shape) == (GOSSIP_DP_NODES,) * 2
+                        and bool((m >= 0).all()) for m in mixes) and rows <= 1e-6,
+                    f"{schedule} mixes: rows off 1 by {rows}")
+            gossip[schedule] = {"rows_max_abs_off_one": rows,
+                                "active_at_last_mix": int(sched.prev_active.sum()),
+                                "distinct": len({m.cpu().numpy().tobytes() for m in mixes})}
+    finally:
+        dist.destroy_process_group()
+    del state, params, ring
+    torch.cuda.empty_cache()
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit("train", arch=TRAIN_ARCH, family=cfg.family, citation=cfg.citation, d_model=cfg.d_model,
+         layers=cfg.num_layers, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.head_dim, d_ff=cfg.d_ff, experts=cfg.num_experts,
+         top_k=cfg.experts_per_token, vocab=cfg.vocab_size, params=n_params,
+         masters="float32", compute_dtype=cfg.dtype, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+         num_microbatches=TRAIN_MICRO, reduced={"global_batch": f"256->{TRAIN_BATCH}"},
+         steps=TRAIN_STEPS, losses=losses, grad_norms=norms, step_walls_s=walls,
+         forward_bitwise_repeat=True,
+         step_ms_median_2_to_4=step_s * 1e3, tokens_per_s=tokens / step_s,
+         peak_memory_gb=peak_gb, launches=counts, branches=taken,
+         swa_attention_launches=counts["swa_attention"], profiled_step_s=profiled_s,
+         step_device_ms=split, step_top_device_ms=top, step_device_items=items,
+         step_device_busy_share=sum(split.values()) / (profiled_s * 1e3),
+         card_vs_cpu_one_step=slices, card_vs_cpu_tol=TRAIN_SLICE_TOL, lr_slices=TRAIN_SLICE_LR,
+         banded_grad={**TRAIN_BANDED, "bitwise_banded_flash_attention": True,
+                      "launches_under_grad": grad_launches, "launches_without_grad": 1},
+         gossip_dp=gossip, seconds=time.perf_counter() - t_phase, nvidia_smi=card)
+    return {"launches_phase26": counts["swa_attention"]}
 
 
 def main() -> int:
@@ -3150,7 +3439,8 @@ def main() -> int:
     require(lm_counts["swa_attention"] == LM_LAYERS,
             f"{lm_counts['swa_attention']} swa_attention launches in a {LM_LAYERS}-layer prefill")
     require(sum(lm_counts.values()) == LM_LAYERS, f"another kernel ran in the prefill: {lm_counts}")
-    require(taken == {"plain": 0, "flash": 0, "banded": LM_LAYERS}, f"attention branches {taken}")
+    require(taken == {"plain": 0, "flash": 0, "banded": LM_LAYERS, "banded_grad": 0},
+            f"attention branches {taken}")
     vocab_padded = params["lm_head"].shape[1]
     require(tuple(logits.shape) == (1, 1, vocab_padded) and bool(torch.isfinite(logits).all()),
             f"prefill logits {tuple(logits.shape)} or non-finite")
@@ -3472,6 +3762,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     zoo_row = zoo_phase(card)
 
+    # 26. the LM zoo's train step (Granite-MoE-1B-A400M) and gossip-DP ---------
+    torch.cuda.empty_cache()
+    train_row = train_phase(card)
+
     sources = "src/repro_torch/kernels/csrc/"
     rows = [{
         "name": "lstm_forward", "route": "cuda",
@@ -3501,7 +3795,7 @@ def main() -> int:
                  "hd256_bf16": {**hybrid["256"]["bf16"], **hybrid_row,
                                 "ptxas": next(lines for name, lines in swa_ptxas.items()
                                               if "wgmma_hd256" in name)},
-                 **zoo_row})
+                 **zoo_row, **train_row})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,18 +4,20 @@
 ``build_arch(cfg)`` dispatches on ``cfg.family`` and returns an
 :class:`Arch` with JAX's surface:
 
-    init_params(gen) -> params               (a torch.Generator; its device)
-    loss_fn(params, batch) -> scalar         (value only)
+    init_params(gen, dtype=None) -> params   (a torch.Generator; its device;
+                                             cfg.dtype, or fp32 masters)
+    loss_fn(params, batch) -> scalar         (differentiable)
     prefill_fn(params, batch) -> (logits, caches)
     decode_fn(params, caches, batch) -> (logits, caches)
     init_decode_state(params, batch_size, seq_len) -> caches
     input_specs(shape_name) -> the batch as "meta" tensors (no allocation)
+    decode_state_specs(shape_name) -> the decode state as "meta" tensors
 
 Every family is ported: dense, MoE and VLM (``arch/lm.py``), the Mamba-2
 SSM (``arch/ssm_lm.py``), the RG-LRU hybrid (``arch/hybrid_lm.py``) and
-the Whisper encoder-decoder (``arch/encdec.py``).  JAX's
-``decode_state_specs`` (an ``eval_shape`` for the dry run) has no
-counterpart until the dry run is ported.
+the Whisper encoder-decoder (``arch/encdec.py``).  The train step
+(``TrainState``, ``init_train_state``, ``make_train_step``) is
+re-exported from ``arch/common.py``, as JAX re-exports it.
 
 Input shapes (assigned):
     train_4k     seq 4096    global batch 256   train step
@@ -30,6 +32,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.config import ArchConfig
 
@@ -90,6 +93,31 @@ class Arch:
             out["labels"] = spec(b, s)
         return out
 
+    def decode_state_specs(self, shape_name: str, *, override_batch: int | None = None,
+                           override_seq: int | None = None) -> PyTree:
+        """``init_decode_state``'s state for ``shape_name`` (its batch and
+        sequence) as tensors on the meta device, the same structure:
+        JAX's ``eval_shape`` of it.  The params (enc-dec's state reads
+        them) and the state are built as fake tensors, so nothing is
+        allocated."""
+        from repro_torch.nn.attention import KVCache
+
+        sh = SHAPES[shape_name]
+        b = override_batch or sh.global_batch
+        s = override_seq or sh.seq_len
+        with FakeTensorMode():
+            params = self.init_params(torch.Generator())
+            state = self.init_decode_state(params, b, s)
+
+        def meta(tree):
+            if isinstance(tree, KVCache):
+                return KVCache(*(meta(t) for t in (tree.k, tree.v, tree.pos)))
+            if isinstance(tree, dict):
+                return {k: meta(v) for k, v in tree.items()}
+            return torch.empty(tuple(tree.shape), dtype=tree.dtype, device="meta")
+
+        return meta(state)
+
 
 def build_arch(cfg: ArchConfig) -> Arch:
     if cfg.family in ("dense", "moe", "vlm"):
@@ -97,7 +125,7 @@ def build_arch(cfg: ArchConfig) -> Arch:
 
         return Arch(
             cfg=cfg,
-            init_params=lambda gen: lm.init_params(gen, cfg),
+            init_params=lambda gen, dtype=None: lm.init_params(gen, cfg, dtype),
             loss_fn=lambda p, b: lm.loss_fn(p, cfg, b),
             prefill_fn=lambda p, b: lm.prefill(p, cfg, b),
             decode_fn=lambda p, st, b: lm.decode_step(p, cfg, st, b),
@@ -110,7 +138,7 @@ def build_arch(cfg: ArchConfig) -> Arch:
 
         return Arch(
             cfg=cfg,
-            init_params=lambda gen: ssm_lm.init_params(gen, cfg),
+            init_params=lambda gen, dtype=None: ssm_lm.init_params(gen, cfg, dtype),
             loss_fn=lambda p, b: ssm_lm.loss_fn(p, cfg, b),
             prefill_fn=lambda p, b: ssm_lm.prefill(p, cfg, b),
             decode_fn=lambda p, st, b: ssm_lm.decode_step(p, cfg, st, b),
@@ -122,7 +150,7 @@ def build_arch(cfg: ArchConfig) -> Arch:
 
         return Arch(
             cfg=cfg,
-            init_params=lambda gen: hybrid_lm.init_params(gen, cfg),
+            init_params=lambda gen, dtype=None: hybrid_lm.init_params(gen, cfg, dtype),
             loss_fn=lambda p, b: hybrid_lm.loss_fn(p, cfg, b),
             prefill_fn=lambda p, b: hybrid_lm.prefill(p, cfg, b),
             decode_fn=lambda p, st, b: hybrid_lm.decode_step(p, cfg, st, b),
@@ -135,7 +163,7 @@ def build_arch(cfg: ArchConfig) -> Arch:
 
         return Arch(
             cfg=cfg,
-            init_params=lambda gen: encdec.init_params(gen, cfg),
+            init_params=lambda gen, dtype=None: encdec.init_params(gen, cfg, dtype),
             loss_fn=lambda p, b: encdec.loss_fn(p, cfg, b),
             prefill_fn=lambda p, b: encdec.prefill(p, cfg, b),
             decode_fn=lambda p, st, b: encdec.decode_step(p, cfg, st, b),
@@ -143,3 +171,7 @@ def build_arch(cfg: ArchConfig) -> Arch:
             supports_long=False,
         )
     raise KeyError(f"unknown family {cfg.family!r}")
+
+
+# re-exported for launchers, as the JAX package does
+from repro_torch.arch.common import TrainState, init_train_state, make_train_step  # noqa: E402,F401

@@ -11,8 +11,11 @@ to the token embedding.  Attention goes through
 Whisper's 1,500 frames and 448 tokens take the plain one).
 
 The tree keeps JAX's layout (``enc_layers`` and ``dec_layers`` stacked
-over a leading L); the port holds only the compute-dtype copy of the
-params, as ``arch/lm.py`` does, and runs under ``torch.inference_mode()``.
+over a leading L).  As in ``arch/lm.py``: ``forward`` and ``loss_fn``
+are differentiable (each encoder and decoder layer under
+``arch.common.remat`` with grad mode on), ``prefill``, ``init_state``
+and ``decode_step`` run under ``torch.inference_mode()``, and the params
+are in ``cfg.dtype`` unless fp32 masters are asked for.
 
 Kept from the reference: ``init_state`` without ``frames`` (the one
 ``build_arch``'s ``init_decode_state`` calls) cross-attends a zero
@@ -26,7 +29,7 @@ from typing import Any
 import torch
 
 from repro_torch.arch.common import (cast_params, compute_dtype, cross_entropy, index_stacked,
-                                     put_stacked, sinusoidal_positions)
+                                     put_stacked, remat, sinusoidal_positions, unstack)
 from repro_torch.config import ArchConfig
 from repro_torch.nn.attention import KVCache, decode_attention, gqa_attention, plain_attention
 from repro_torch.nn.layers import (dense, embed, gelu_ffn, init_gelu_ffn, layer_norm, normal,
@@ -56,11 +59,11 @@ def _ln_init(d: int, dtype, device) -> dict:
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
 
 
-def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
-    """Random params from ``gen`` on its device, in ``cfg.dtype``, with
-    JAX's distributions (not its numbers), one layer at a time into the
-    stacked tensors."""
-    dtype, dev = compute_dtype(cfg.dtype), gen.device
+def init_params(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype | None = None) -> PyTree:
+    """Random params from ``gen`` on its device, in ``dtype`` (default
+    ``cfg.dtype``), with JAX's distributions (not its numbers), one
+    layer at a time into the stacked tensors."""
+    dtype, dev = dtype or compute_dtype(cfg.dtype), gen.device
     vp, d, h, hd = pad_vocab(cfg.vocab_size), cfg.d_model, cfg.num_heads, cfg.head_dim
     enc: dict = {}
     for i in range(cfg.encoder_layers):
@@ -107,10 +110,13 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
     dtype = compute_dtype(cfg.dtype)
     x = frames.to(dtype)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(dtype)[None]
-    for i in range(cfg.encoder_layers):
-        lp = index_stacked(params["enc_layers"], i)
+
+    def body(x, lp):
         x = x + _mha(_ln(x, lp["ln1"]), lp["attn"], cfg, causal=False)
-        x = x + gelu_ffn(_ln(x, lp["ln2"]), lp["mlp"])
+        return x + gelu_ffn(_ln(x, lp["ln2"]), lp["mlp"])
+
+    for lp in unstack(params["enc_layers"]):
+        x = remat(body, x, lp)
     return _ln(x, params["enc_final_ln"])
 
 
@@ -119,11 +125,14 @@ def _decoder(params, cfg: ArchConfig, tokens, enc_out):
     dtype = compute_dtype(cfg.dtype)
     x = embed(tokens, params["embed"], dtype)
     x = x + params["pos_embed"][:x.shape[1]].to(dtype)[None]
-    for i in range(cfg.num_layers):
-        lp = index_stacked(params["dec_layers"], i)
+
+    def body(x, lp, enc_out):
         x = x + _mha(_ln(x, lp["ln1"]), lp["self_attn"], cfg, causal=True)
         x = x + _mha(_ln(x, lp["ln2"]), lp["cross_attn"], cfg, kv=enc_out, causal=False)
-        x = x + gelu_ffn(_ln(x, lp["ln3"]), lp["mlp"])
+        return x + gelu_ffn(_ln(x, lp["ln3"]), lp["mlp"])
+
+    for lp in unstack(params["dec_layers"]):
+        x = remat(body, x, lp, enc_out)
     return _ln(x, params["dec_final_ln"])
 
 
@@ -137,16 +146,16 @@ def decode_train(params, cfg: ArchConfig, tokens, enc_out):
     return _head(_decoder(params, cfg, tokens, enc_out), params)
 
 
-@torch.inference_mode()
 def forward(params, cfg: ArchConfig, batch):
-    """Teacher-forcing logits (B, S, Vp) and the (2,) aux losses (zeros)."""
+    """Teacher-forcing logits (B, S, Vp) and the (2,) aux losses (zeros);
+    differentiable."""
     params = cast_params(params, compute_dtype(cfg.dtype))
     logits = decode_train(params, cfg, batch["tokens"], encode(params, cfg, batch["frames"]))
     return logits, torch.zeros((2,), device=logits.device)
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """Mean next-token CE against ``batch["labels"]`` (value only)."""
+    """Mean next-token CE against ``batch["labels"]``; differentiable."""
     logits, _ = forward(params, cfg, batch)
     return cross_entropy(logits, batch["labels"])
 

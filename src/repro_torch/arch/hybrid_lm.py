@@ -7,15 +7,18 @@ Layers are grouped into super-blocks of one pattern period, as in JAX:
 38 configured layers / 3 -> 13 super-blocks (39 layers).  ``blocks``
 holds one dict per kind of the pattern (rglru, rglru, attn), each leaf
 stacked over the super-blocks, and ``arch.common.params_from_numpy``
-carries a JAX tree across as it is.  The super-blocks run as a Python loop under
-``torch.inference_mode()``.  Each local-attention block's prefill goes
-through ``nn.attention.gqa_attention``, whose banded branch is the
-hand-written ``swa_attention`` kernel (hd 256, one KV head at
-RecurrentGemma's width).
+carries a JAX tree across as it is.  The super-blocks run as a Python
+loop; ``forward`` and ``loss_fn`` are differentiable (each super-block
+under ``arch.common.remat`` with grad mode on), ``prefill`` and
+``decode_step`` run under ``torch.inference_mode()``.  Each
+local-attention block goes through ``nn.attention.gqa_attention``,
+whose banded branch is the hand-written ``swa_attention`` kernel (hd
+256, one KV head at RecurrentGemma's width) without grad.
 
-As ``arch/lm.py`` does, the port holds only the compute-dtype copy of
+As ``arch/lm.py`` does, serving holds only the compute-dtype copy of
 the params (bf16 at full width, about 21 GB), the same function as
-JAX's fp32 masters cast per call.  ``prefill`` returns the last
+JAX's fp32 masters cast per call; training asks ``init_params`` or
+``params_from_numpy`` for fp32 masters.  ``prefill`` returns the last
 position's logits and no state, as JAX's ``build_arch`` does; it
 applies the final norm and head to that position only (both are per
 position; the full (1, 8192, 256,000) bf16 logits would take 4.2 GB).
@@ -33,7 +36,7 @@ from typing import Any
 import torch
 
 from repro_torch.arch.common import (cast_params, compute_dtype, cross_entropy, index_stacked,
-                                     put_stacked)
+                                     put_stacked, remat, unstack)
 from repro_torch.arch.lm import qkv
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
@@ -81,11 +84,11 @@ def _init_sub(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype: torch.dty
     }
 
 
-def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
-    """Random params from ``gen`` on its device, in ``cfg.dtype``, with
-    JAX's distributions (not its numbers), one sub-block at a time into
-    the stacked tensors."""
-    dtype = compute_dtype(cfg.dtype)
+def init_params(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype | None = None) -> PyTree:
+    """Random params from ``gen`` on its device, in ``dtype`` (default
+    ``cfg.dtype``), with JAX's distributions (not its numbers), one
+    sub-block at a time into the stacked tensors."""
+    dtype = dtype or compute_dtype(cfg.dtype)
     vp, d = pad_vocab(cfg.vocab_size), cfg.d_model
     pat, nsb = _pattern(cfg), num_super_blocks(cfg)
     blocks: list[dict] = [{} for _ in pat]
@@ -124,22 +127,21 @@ def _trunk(params, cfg: ArchConfig, tokens):
     dtype = compute_dtype(cfg.dtype)
     x = embed(tokens, params["embed"], dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    for sb in range(num_super_blocks(cfg)):
-        sub = [index_stacked(kind, sb) for kind in params["blocks"]]
-        x = _super_forward(x, sub, cfg, positions)
+    for sub in zip(*(unstack(kind) for kind in params["blocks"])):
+        x = remat(_super_forward, x, list(sub), cfg, positions)
     return x
 
 
-@torch.inference_mode()
 def forward(params, cfg: ArchConfig, batch):
-    """Teacher-forcing logits (B, S, Vp) and the (2,) aux losses (zeros)."""
+    """Teacher-forcing logits (B, S, Vp) and the (2,) aux losses (zeros);
+    differentiable."""
     params = cast_params(params, compute_dtype(cfg.dtype))
     x = rms_norm(_trunk(params, cfg, batch["tokens"]), params["final_scale"], cfg.norm_eps)
     return dense(x, params["lm_head"]), torch.zeros((2,), device=x.device)
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """Mean next-token CE against ``batch["labels"]`` (value only)."""
+    """Mean next-token CE against ``batch["labels"]``; differentiable."""
     logits, _ = forward(params, cfg, batch)
     return cross_entropy(logits, batch["labels"])
 

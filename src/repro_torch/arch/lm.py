@@ -10,18 +10,22 @@ One parameter tree, three entry points:
 The tree keeps JAX's layout: ``layers`` holds each leaf stacked over a
 leading L, and ``arch.common.params_from_numpy`` carries a JAX tree across
 as it is.
-The layers run as a Python loop (JAX scans them under ``jax.checkpoint``;
-the port takes no gradient here, so it has nothing to rematerialise) and
-everything runs under ``torch.inference_mode()``.  In each layer's
-prefill the self-attention goes through ``nn.attention.gqa_attention``,
-whose banded branch is the hand-written ``swa_attention`` kernel.
+The layers run as a Python loop.  ``forward`` (and so ``loss_fn``) is
+differentiable: with grad mode on, each layer runs under
+``arch.common.remat`` (JAX scans them under ``jax.checkpoint``), and
+``make_train_step`` differentiates it.  ``prefill`` and ``decode_step``
+run under ``torch.inference_mode()``.  The self-attention goes through
+``nn.attention.gqa_attention``, whose banded branch is the hand-written
+``swa_attention`` kernel without grad and the plain
+``banded_flash_attention`` (the function JAX differentiates) with it.
 
-Prefill and decode never update params, so the port holds only the
-compute-dtype copy: ``init_params`` and ``params_from_numpy`` give every
-leaf in ``cfg.dtype`` (bf16 for the full configs), which computes the
-same function as JAX's fp32 masters cast per call by ``cast_params``.
-At Mistral-Large's full width the fp32 masters of 4 layers alone would
-take 22 GB of the card.
+Serving never updates params, so by default ``init_params`` and
+``params_from_numpy`` give every leaf in ``cfg.dtype`` (bf16 for the
+full configs), which computes the same function as JAX's fp32 masters
+cast per call by ``cast_params`` (at Mistral-Large's full width the fp32
+masters of 4 layers alone would take 22 GB of the card).  Training asks
+for fp32 leaves (``dtype=torch.float32``), which ``forward`` casts at
+entry, as JAX does.
 
 A config with ``num_experts > 0`` runs ``nn.moe.moe_ffn`` in place of
 the SwiGLU in every layer; ``forward`` returns the layers' mean
@@ -41,8 +45,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.arch.common import (cast_params, compute_dtype, cross_entropy, index_stacked,
-                                     put_stacked)
+from repro_torch.arch.common import (cast_params, compute_dtype, cross_entropy, put_stacked, remat,
+                                     unstack)
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.nn.attention import KVCache, decode_attention, gqa_attention
@@ -85,12 +89,13 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype) -> dic
     return p
 
 
-def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
-    """Random params from ``gen`` on its device, in ``cfg.dtype``, with
-    JAX's distributions (normal at JAX's scales, zero norm gains).  Each
-    leaf is drawn in fp32 and cast, one layer at a time into the stacked
+def init_params(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype | None = None) -> PyTree:
+    """Random params from ``gen`` on its device, in ``dtype`` (default
+    ``cfg.dtype``; fp32 for a train state's masters), with JAX's
+    distributions (normal at JAX's scales, zero norm gains).  Each leaf
+    is drawn in fp32 and cast, one layer at a time into the stacked
     tensors, so the fp32 transient is one leaf."""
-    dtype = compute_dtype(cfg.dtype)
+    dtype = dtype or compute_dtype(cfg.dtype)
     vp, d = pad_vocab(cfg.vocab_size), cfg.d_model
     layers: dict = {}
     for i in range(cfg.num_layers):
@@ -163,9 +168,7 @@ def layer_decode(x, lp, cache: KVCache, cfg: ArchConfig, pos):
 
 
 def _layers(params):
-    stacked = params["layers"]
-    for i in range(stacked["wq"].shape[0]):
-        yield index_stacked(stacked, i)
+    return unstack(params["layers"])
 
 
 def _embed_inputs(params, cfg: ArchConfig, batch, dtype):
@@ -177,26 +180,31 @@ def _embed_inputs(params, cfg: ArchConfig, batch, dtype):
     return x
 
 
-@torch.inference_mode()
 def forward(params, cfg: ArchConfig, batch):
     """Teacher-forcing logits (B, S_total, Vp) and the (2,) fp32 mean
-    over layers of (load_balance, router_z) (zeros without MoE)."""
+    over layers of (load_balance, router_z) (zeros without MoE).
+    Differentiable; each layer rematerialised under grad mode."""
     dtype = compute_dtype(cfg.dtype)
     params = cast_params(params, dtype)
     x = _embed_inputs(params, cfg, batch, dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def body(x, lp):
+        x, _, aux = layer_forward(x, lp, cfg, positions)
+        return x, (torch.stack([aux["load_balance"], aux["router_z"]]) if aux
+                   else torch.zeros((2,), device=x.device))
+
     aux_rows = []
     for lp in _layers(params):
-        x, _, aux = layer_forward(x, lp, cfg, positions)
-        aux_rows.append(torch.stack([aux["load_balance"], aux["router_z"]]) if aux
-                        else torch.zeros((2,), device=x.device))
+        x, aux = remat(body, x, lp)
+        aux_rows.append(aux)
     x = rms_norm(x, params["final_scale"], cfg.norm_eps)
     return dense(x, params["lm_head"]), torch.stack(aux_rows).mean(dim=0)
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """Mean next-token CE against ``batch["labels"]`` (value only), plus
-    the MoE's weighted aux losses."""
+    """Mean next-token CE against ``batch["labels"]``, plus the MoE's
+    weighted aux losses; differentiable."""
     logits, aux = forward(params, cfg, batch)
     ce = cross_entropy(logits, batch["labels"])
     if cfg.num_experts:

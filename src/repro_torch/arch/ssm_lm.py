@@ -3,9 +3,11 @@
 
 Each layer is a pre-norm residual Mamba-2 block (``nn/ssm.py``).  The
 tree keeps JAX's layout (``layers`` holds every leaf stacked over a
-leading L), the layers run as a Python loop under
-``torch.inference_mode()``, and the port holds only the compute-dtype
-copy of the params, as ``arch/lm.py`` does.
+leading L) and the layers run as a Python loop.  As in ``arch/lm.py``:
+``forward`` and ``loss_fn`` are differentiable (each layer under
+``arch.common.remat`` with grad mode on), ``prefill`` and
+``decode_step`` run under ``torch.inference_mode()``, and the params are
+in ``cfg.dtype`` unless fp32 masters are asked for.
 
 Kept from the reference: ``prefill`` returns the last position's logits
 and the zero states of ``init_state``, not the states the prompt left
@@ -21,7 +23,7 @@ from typing import Any
 import torch
 
 from repro_torch.arch.common import (cast_params, compute_dtype, cross_entropy, index_stacked,
-                                     put_stacked)
+                                     put_stacked, remat, unstack)
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.nn.layers import dense, embed, normal, pad_vocab, rms_norm
@@ -35,11 +37,11 @@ def _dims(cfg: ArchConfig) -> dict:
     return dict(expand=cfg.ssm_expand, nheads=nheads, dstate=cfg.ssm_state)
 
 
-def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
-    """Random params from ``gen`` on its device, in ``cfg.dtype``, with
-    JAX's distributions (not its numbers), one layer at a time into the
-    stacked tensors."""
-    dtype = compute_dtype(cfg.dtype)
+def init_params(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype | None = None) -> PyTree:
+    """Random params from ``gen`` on its device, in ``dtype`` (default
+    ``cfg.dtype``), with JAX's distributions (not its numbers), one
+    layer at a time into the stacked tensors."""
+    dtype = dtype or compute_dtype(cfg.dtype)
     vp, d = pad_vocab(cfg.vocab_size), cfg.d_model
     layers: dict = {}
     for i in range(cfg.num_layers):
@@ -57,23 +59,26 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
 def _trunk(params, cfg: ArchConfig, tokens):
     """Embedding and every layer: the last hidden states (B, S, d)."""
     x = embed(tokens, params["embed"], compute_dtype(cfg.dtype))
-    for i in range(cfg.num_layers):
-        lp = index_stacked(params["layers"], i)
+
+    def body(x, lp):
         h = rms_norm(x, lp["ln_scale"], cfg.norm_eps)
-        x = x + mamba2_block(h, lp["mamba"], chunk=cfg.ssm_chunk, **_dims(cfg))
+        return x + mamba2_block(h, lp["mamba"], chunk=cfg.ssm_chunk, **_dims(cfg))
+
+    for lp in unstack(params["layers"]):
+        x = remat(body, x, lp)
     return x
 
 
-@torch.inference_mode()
 def forward(params, cfg: ArchConfig, batch):
-    """Teacher-forcing logits (B, S, Vp) and the (2,) aux losses (zeros)."""
+    """Teacher-forcing logits (B, S, Vp) and the (2,) aux losses (zeros);
+    differentiable."""
     params = cast_params(params, compute_dtype(cfg.dtype))
     x = rms_norm(_trunk(params, cfg, batch["tokens"]), params["final_scale"], cfg.norm_eps)
     return dense(x, params["lm_head"]), torch.zeros((2,), device=x.device)
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """Mean next-token CE against ``batch["labels"]`` (value only)."""
+    """Mean next-token CE against ``batch["labels"]``; differentiable."""
     logits, _ = forward(params, cfg, batch)
     return cross_entropy(logits, batch["labels"])
 

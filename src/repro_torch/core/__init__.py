@@ -8,6 +8,8 @@ the sharded mixer over ``torch.distributed`` ranks
 a sweep mesh of ranks), cold-start personalization, and the
 baselines it is compared against (FedAvg, MAML/MetaSGD, pooled
 supervised training) on their shared chunk engine (``core.chunked``).
+Gossip data-parallelism for the LM zoo lives in ``core.gossip_dp``,
+which ``repro.core`` does not export either.
 
 It exports what ``repro.core`` exports, except the Pallas-era
 ``gossip_mix_kernel``/``gossip_mix_dp_kernel`` entry points (the

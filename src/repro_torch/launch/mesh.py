@@ -27,15 +27,24 @@ that share ``ni`` form the *grid subgroup*, which only gathers results:
 no gossip collective crosses scenarios.  One process (no group) is the
 ``(1, 1)`` mesh and runs no collective.
 
+Gossip data-parallelism (``core/gossip_dp.py``) lays the ranks out as
+JAX's ``(node, data, model)`` mesh, or ``(pod, node, data, model)``
+across pods: :func:`make_gossip_dp_mesh` gives rank r the row-major
+coordinates of r, and the ranks that share every coordinate except the
+node axes form a node subgroup, whose group ranks ascend with the node
+index (``pod · per_pod + node`` for the compound axis).
+
 The plan-resolution policies ``choose_gossip_impl`` and
 ``choose_gossip_repr`` live in ``core.gossip_plan`` and are re-exported
 here, as the JAX package's ``launch.mesh`` does.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, ClassVar
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -178,6 +187,86 @@ def make_sweep_mesh(num_scenarios: int, num_nodes: int, *, grid_width: int | Non
                    for i in range(node_width)]
     node = FederationMesh(node_groups[gi], node_width, ni, num_nodes)
     return SweepMesh(grid_width, node_width, gi, node, grid_groups[ni])
+
+
+@dataclass(frozen=True)
+class GossipDPMesh:
+    """The calling rank's place on the gossip-DP layout: the axes and
+    their widths (row-major, JAX's device order), its coordinate on each
+    axis, and its node subgroups, one for each tuple of node axes a mix
+    may run over (``("node",)``, and ``("pod", "node")`` with pods; None
+    on one process)."""
+
+    axis_names: tuple[str, ...]
+    widths: tuple[int, ...]
+    coords: tuple[int, ...]
+    groups: dict
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.widths))
+
+    def node_group(self, node_axes: tuple[str, ...]):
+        """The process group of the ranks that share every coordinate of
+        this rank except those on ``node_axes``."""
+        if tuple(node_axes) not in self.groups:
+            raise ValueError(f"no node subgroup over {tuple(node_axes)}; the mesh has "
+                             f"{tuple(self.groups)}")
+        return self.groups[tuple(node_axes)]
+
+    def node_index(self, node_axes: tuple[str, ...]) -> int:
+        """This rank's node id along the (possibly compound) node axes,
+        row-major: ``pod · per_pod + node`` for ``("pod", "node")``."""
+        shape, coord = self.shape, dict(zip(self.axis_names, self.coords))
+        idx = 0
+        for a in node_axes:
+            idx = idx * shape[a] + coord[a]
+        return idx
+
+
+def make_gossip_dp_mesh(*, nodes: int = 4, multi_pod: bool = False, data: int | None = None,
+                        model: int | None = None, device=None) -> GossipDPMesh:
+    """The gossip-DP layout of the default process group's W ranks
+    (JAX's ``make_gossip_dp_mesh``): ``(node, data, model)``, or with
+    ``multi_pod`` ``(pod, node, data, model)`` with 2 pods of
+    ``max(nodes // 2, 1)`` nodes each, rank r at the row-major
+    coordinates of r, one rank standing for one JAX device.  ``data``
+    and ``model`` default to JAX's 16-wide production split (``16 //
+    nodes a pod`` and 16, so W = 256 a pod); the widths' product must
+    be W.  Every rank creates every node subgroup (``dist.new_group``)
+    in the same order.  With ``device``, the group's backend must be
+    the device's, as for :func:`make_federation_mesh`."""
+    per_pod = max(nodes // 2, 1) if multi_pod else nodes
+    data = 16 // per_pod if data is None else data
+    model = 16 if model is None else model
+    if multi_pod:
+        names, widths = ("pod", "node", "data", "model"), (2, per_pod, data, model)
+        node_axes = [("node",), ("pod", "node")]
+    else:
+        names, widths = ("node", "data", "model"), (nodes, data, model)
+        node_axes = [("node",)]
+    grouped = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if grouped else 1
+    if math.prod(widths) != world:
+        raise ValueError(f"the gossip-DP mesh {dict(zip(names, widths))} needs "
+                         f"{math.prod(widths)} ranks, not W={world}: one rank a device")
+    rank = dist.get_rank() if grouped else 0
+    coords = tuple(int(c) for c in np.unravel_index(rank, widths))
+    if not grouped:
+        return GossipDPMesh(names, widths, coords, {axes: None for axes in node_axes})
+    _check_backend(dist.group.WORLD, device)
+    groups = {}
+    for axes in node_axes:
+        others = [i for i, a in enumerate(names) if a not in axes]
+        mine = None
+        for fixed in np.ndindex(*(widths[i] for i in others)):
+            members = [r for r in range(world)
+                       if tuple(np.unravel_index(r, widths)[i] for i in others) == fixed]
+            group = dist.new_group(members)
+            if rank in members:
+                mine = group
+        groups[axes] = mine
+    return GossipDPMesh(names, widths, coords, groups)
 
 
 # the auto-knob policies are plan-resolution policies and live with the

@@ -7,19 +7,23 @@ decode against a KV cache (a port of ``repro.nn.attention``).
     is shorter than the sequence goes to the hand-written CUDA kernel
     ``swa_attention`` through ``kernels.ops`` (on a CPU tensor, its plain
     twin), and everything else to a blocked flash attention with an
-    online softmax over KV blocks.  :data:`BRANCHES` counts the branch
-    each call takes.
+    online softmax over KV blocks.  Under autograd (grad mode on and q,
+    k or v requiring grad) the banded shape takes the plain
+    ``banded_flash_attention`` instead, the function JAX's train step
+    differentiates: the kernel has no backward, as the Pallas kernel has
+    no ``custom_vjp``.  The choice is made before any launch.
+    :data:`BRANCHES` counts the branch each call takes.
   * ``decode_attention`` -- one query token against a ``KVCache``.
   * ``KVCache`` -- append-only for full attention, a ring of ``window``
     slots for sliding windows.
 
 ``plain_attention``, ``flash_attention`` and ``banded_flash_attention``
 are plain PyTorch, as JAX leaves them to XLA; the port's gqa_attention
-no longer calls ``banded_flash_attention`` (the kernel takes its place),
-which stays as the reference that tests and ``chip_smoke.py`` hold the
-kernel against.  JAX's ``constrain_attn`` sharding hints are the
-identity on one device and are left out, as is ``nn/unroll.py``'s scan
-knob: the block loops here are Python loops.
+calls ``banded_flash_attention`` only under autograd (the kernel takes
+its place without grad), and it is the reference that tests and
+``chip_smoke.py`` hold the kernel against.  JAX's ``constrain_attn``
+sharding hints are the identity on one device and are left out, as is
+``nn/unroll.py``'s scan knob: the block loops here are Python loops.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from repro_torch.kernels import ops
 
 NEG_INF = -1e30
 
-BRANCHES = {"plain": 0, "flash": 0, "banded": 0}
+BRANCHES = {"plain": 0, "flash": 0, "banded": 0, "banded_grad": 0}
 
 
 def _repeat_kv(k: torch.Tensor, q_per_kv: int) -> torch.Tensor:
@@ -126,6 +130,9 @@ def gqa_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if window > 0 and sq == skv and sq % block == 0 and block <= window and band_span < sq:
         # JAX's banded path is causal whatever ``causal`` says; so is the
         # kernel, which takes every hd (RecurrentGemma's 256 among them)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            BRANCHES["banded_grad"] += 1
+            return banded_flash_attention(q, k, v, window=window, block=block)
         BRANCHES["banded"] += 1
         return ops.swa_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=window)
     BRANCHES["flash"] += 1

@@ -38,8 +38,17 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t along dim 1 from h_{-1} = 0: every
     prefix of JAX's ``combine((a1, b1), (a2, b2)) = (a1 a2, a2 b1 + b2)``,
     by ceil(log2 S) doubling steps (position t takes t - d at step d).
-    a and b are not changed; two pairs of buffers take turns."""
+    a and b are not changed.  Without grad, two pairs of buffers take
+    turns through ``out=`` writes; under autograd, which refuses
+    ``out=``, each step concatenates the same products."""
     s = a.shape[1]
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        d = 1
+        while d < s:
+            a, b = (torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1),
+                    torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:], b[:, :-d])], dim=1))
+            d *= 2
+        return b
     bufs = [(torch.empty_like(a), torch.empty_like(b)) for _ in range(2)]
     d, step = 1, 0
     while d < s:

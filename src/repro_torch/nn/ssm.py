@@ -7,7 +7,8 @@ The chunked algorithm (Dao & Gu, 2024) turns the linear recurrence
 
 into blocks: within-chunk attention-like matmuls masked by cumulative
 decays, and an inter-chunk state recurrence over S/chunk steps (JAX's
-``lax.scan``, a loop here, one fused multiply-add a chunk).  JAX writes
+``lax.scan``, a loop here, one fused multiply-add a chunk, with no
+``out=`` write, so that autograd runs it for the train step).  JAX writes
 the block products as 4-operand einsums and leaves their order to
 ``opt_einsum``; here each is explicit steps that keep the B/C groups
 unrepeated (G of them, shared by H/G heads each), so that nothing of
@@ -75,12 +76,13 @@ def _ssd_forward(x, dt, a_log, bm, cm, d_skip, chunk):
     states = xd.transpose(-1, -2).reshape(b, nc, g, rep * p, q) @ bc  # (B, NC, G, R·P, N)
     states = states.reshape(b, nc, h, p, n)
 
-    # 3. inter-chunk recurrence: prev[c] is the state before chunk c
+    # 3. inter-chunk recurrence: prev[c] is the state before chunk c (a
+    # list stacked once, so that autograd can run it)
     chunk_decay = torch.exp(a_cum[..., -1]).permute(2, 0, 1)     # (NC, B, H)
-    prev = torch.empty((nc + 1, b, h, p, n), dtype=torch.float32, device=x.device)
-    prev[0] = 0.0
+    prev = [torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)]
     for c in range(nc):
-        torch.addcmul(states[:, c], chunk_decay[c][..., None, None], prev[c], out=prev[c + 1])
+        prev.append(torch.addcmul(states[:, c], chunk_decay[c][..., None, None], prev[c]))
+    prev = torch.stack(prev)
 
     # 4. state -> output term: C h_prev, decayed to each position
     hp = prev[:nc].permute(1, 0, 2, 3, 4).reshape(b, nc, g, rep * p, n)

@@ -10,6 +10,10 @@ The trainer keeps a whole federation in one ``(N, D)`` buffer:
 that same order, so a gossip contraction runs once on the whole matrix
 instead of once per leaf (each column's arithmetic is the same) and the
 optimizer updates the flat buffer directly.
+
+The LM zoo's params are nested dicts and lists of tensors:
+:func:`tree_leaves`, :func:`tree_map` and :func:`tree_unflatten` walk
+them in ``jax.tree``'s order (dict keys sorted, lists in order).
 """
 from __future__ import annotations
 
@@ -36,6 +40,43 @@ def vector_to_tree(vec: torch.Tensor, like: dict[str, torch.Tensor]) -> dict[str
         out[k] = vec[pos : pos + n].reshape(like[k].shape).to(like[k].dtype)
         pos += n
     return out
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, lists and tuples, dict keys sorted
+    (``jax.tree.leaves``' order)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of the trees of the same
+    structure in ``rest``, leaf by leaf; the structure kept (a tuple
+    comes back a list)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_unflatten(like, leaves):
+    """``leaves``, in :func:`tree_leaves`' order, in the structure of
+    ``like`` (its dicts keep their key order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return next(it)
+
+    return build(like)
 
 
 def tree_index(stacked: dict[str, torch.Tensor], i) -> dict[str, torch.Tensor]:

@@ -124,7 +124,8 @@ def test_banded_prefill_and_decode_match_jax():
     for got, want in pairs:
         _close(got, want)
     taken = {k: tattn.BRANCHES[k] - before[k] for k in before}
-    assert taken == {"plain": 0, "flash": 0, "banded": 2 * cfg.num_layers}  # forward + prefill
+    # forward (no param requires grad) + prefill
+    assert taken == {"plain": 0, "flash": 0, "banded": 2 * cfg.num_layers, "banded_grad": 0}
     assert tcache.k.shape == (cfg.num_layers, 1, 1024, cfg.num_kv_heads, cfg.head_dim)
 
 

@@ -13,8 +13,12 @@ Table-4 evaluation through ``lstm_forward``, at REPLACE-BG's pooled
 R=71,317 val windows too), the banded branch of ``gqa_attention``,
 a small LM prefill and a small RecurrentGemma prefill (hd 256, both
 dtypes) through ``swa_attention``, a round of the sharded mixer over a
-one-rank NCCL group bitwise the tree mixer's, and a swept-sharded sweep
-on that group's (1, 1) sweep mesh bitwise the tree sweep.
+one-rank NCCL group bitwise the tree mixer's, a swept-sharded sweep
+on that group's (1, 1) sweep mesh bitwise the tree sweep, and the LM
+zoo's train step (``chip_smoke.py`` phase 26 at small size: a reduced
+Granite-MoE trains with no kernel launched, a reduced config's step on
+the card against the CPU, the banded shape under grad bitwise the plain
+banded path with no launch and one launch without grad).
 
 These tests need a CUDA device and skip elsewhere (decided inside the
 ``cuda`` fixture).  They import neither ``jax`` nor ``repro``, so they
@@ -899,3 +903,87 @@ def test_one_rank_nccl_swept_sharded_sweep_is_bitwise_the_tree_sweep(cuda, impl,
             assert np.abs(va - vb).max() <= 1e-6 * np.abs(vb).max()
     finally:
         dist.destroy_process_group()
+
+
+# the LM zoo's train step: the CPU tests' tolerances (tests/test_torch_train_step.py)
+TRAIN_LR = 1e-3
+
+
+def _train_batch(arch, cfg, b, s, gen, device):
+    return {k: (torch.randint(0, cfg.vocab_size, tuple(v.shape), generator=gen, dtype=torch.int32)
+                if v.dtype == torch.int32 else torch.randn(tuple(v.shape), generator=gen)
+                ).to(device)
+            for k, v in arch.input_specs("train_4k", override_batch=b, override_seq=s).items()}
+
+
+def test_lm_train_step_trains_with_no_kernel_launched(cuda):
+    from repro_torch.arch.api import build_arch, init_train_state, make_train_step
+    from repro_torch.config import get_arch_config
+    from repro_torch.nn import attention
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = get_arch_config("granite-moe-1b-a400m").reduced()
+    arch = build_arch(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = init_train_state(arch.init_params(gen, torch.float32))
+    batch = _train_batch(arch, cfg, 4, 64, torch.Generator().manual_seed(1), cuda)
+    step = make_train_step(arch.loss_fn, num_microbatches=2, lr=TRAIN_LR)
+    before, branches = swa_kernel.LAUNCHES, dict(attention.BRANCHES)
+    losses = []
+    for _ in range(4):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        assert np.isfinite(float(metrics["grad_norm"])) and float(metrics["grad_norm"]) > 0
+    assert swa_kernel.LAUNCHES == before and losses[-1] < losses[0], losses
+    # the plain branch, forward and its rematerialisation, a layer a microbatch a step
+    assert attention.BRANCHES["plain"] == branches["plain"] + 2 * cfg.num_layers * 2 * 4
+    assert int(state.step) == 4 and all(leaf.device.type == cuda.type and leaf.dtype == torch.float32
+                                        for leaf in tree_leaves(state.params))
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.arch.api import build_arch, init_train_state, make_train_step
+    from repro_torch.config import get_arch_config
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    cfg = get_arch_config("mixtral-8x22b").reduced()
+    arch = build_arch(cfg)
+    gen = torch.Generator().manual_seed(2)
+    params = arch.init_params(gen, torch.float32)
+    batch = _train_batch(arch, cfg, 2, 32, gen, "cpu")
+    step = make_train_step(arch.loss_fn, num_microbatches=2, lr=TRAIN_LR)
+    (gpu, gm), (cpu, cm) = (step(init_train_state(tree_map(lambda t: t.to(dev), params)),
+                                 {k: v.to(dev) for k, v in batch.items()})
+                            for dev in (cuda, "cpu"))
+    assert abs(float(gm["loss"]) - float(cm["loss"])) <= 1e-5 * abs(float(cm["loss"]))
+    for a, b in zip(tree_leaves(gpu.m), tree_leaves(cpu.m)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for a, b, m in zip(tree_leaves(gpu.params), tree_leaves(cpu.params), tree_leaves(cpu.m)):
+        err, signal = (a.detach().cpu() - b.detach()).abs(), (m / 0.1).abs() > 1e-6
+        assert float(err[signal].max()) <= TRAIN_LR * 1e-3 and float(err.max()) <= 2 * TRAIN_LR
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gqa_attention_banded_shape_under_grad_takes_the_plain_path(cuda, dtype):
+    from repro_torch.nn import attention
+
+    q, k, v = _swa_inputs(1, 2048, 4, 2, 128, dtype, seed=4, device=cuda)
+    kw = dict(causal=True, window=512, flash_threshold=512, block=256)
+    before, branches = swa_kernel.LAUNCHES, dict(attention.BRANCHES)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attention.gqa_attention(*leaves, **kw)
+    assert swa_kernel.LAUNCHES == before
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = attention.banded_flash_attention(*refs, window=512, block=256)
+    cot = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(5),
+                      device=cuda).to(dtype)
+    assert torch.equal(out, want)
+    for got, ref_grad in zip(torch.autograd.grad(out, leaves, cot),
+                             torch.autograd.grad(want, refs, cot)):
+        assert torch.equal(got, ref_grad)
+    with torch.no_grad():
+        attention.gqa_attention(q, k, v, **kw)
+    assert swa_kernel.LAUNCHES == before + 1
+    assert {n: attention.BRANCHES[n] - branches[n] for n in branches} == {
+        "plain": 0, "flash": 0, "banded": 1, "banded_grad": 1}
+

@@ -206,7 +206,7 @@ def test_banded_forward_loss_and_prefill_match_jax_at_hd256():
     assert state is None and got.shape == want.shape == (1, 1, tl.shape[-1])
     _close(got, want, LOGITS_ATOL)
     taken = {k: tattn.BRANCHES[k] - before[k] for k in before}
-    assert taken == {"plain": 0, "flash": 0, "banded": 2}
+    assert taken == {"plain": 0, "flash": 0, "banded": 2, "banded_grad": 0}
     # the loss from the port's logits, against JAX's loss_fn
     _close(hybrid_lm.loss_fn(params, cfg, tb), jhybrid.loss_fn(jparams, jcfg, jb), LOGITS_ATOL)
 

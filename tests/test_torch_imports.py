@@ -45,7 +45,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert len(MODULES) >= 20
     assert {"repro_torch.nn.ssm", "repro_torch.nn.rglru", "repro_torch.arch.hybrid_lm",
             "repro_torch.nn.moe", "repro_torch.arch.ssm_lm",
-            "repro_torch.arch.encdec"} <= set(MODULES)
+            "repro_torch.arch.encdec", "repro_torch.core.gossip_dp"} <= set(MODULES)
 
 
 # matches `import jax`, `from jax...`, `import repro` and `from repro...`

@@ -133,7 +133,7 @@ def test_mixtral_banded_prefill_and_decode_match_jax():
     tlog, tcache = lm.prefill(params, cfg, {"tokens": torch.tensor(tokens)})
     jlog, jcache = jlm.prefill(jparams, jcfg, {"tokens": jnp.asarray(tokens)})
     taken = {kind: tattn.BRANCHES[kind] - before[kind] for kind in before}
-    assert taken == {"plain": 0, "flash": 0, "banded": cfg.num_layers}
+    assert taken == {"plain": 0, "flash": 0, "banded": cfg.num_layers, "banded_grad": 0}
     _close(tlog, jlog, LOGITS_ATOL)
     _close(tcache.k, jcache.k)
     for t in range(3):  # S % window == 0: decode from the prefill's caches is right
