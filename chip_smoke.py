@@ -361,7 +361,7 @@ Phases, each printing one JSON line:
                 norms, the loss falling from step 1 to 4, every leaf
                 moved, finite moments; two forwards of a microbatch
                 bitwise equal (the rematerialised forward is the first,
-                the MoE's ``index_add_`` combine included); ms a step (median of steps 2-4),
+                the MoE's ``scatter_add_`` combine included); ms a step (median of steps 2-4),
                 tokens/s, peak memory, and a profiled fifth step's
                 device time split and busy share; one train step (M=2,
                 lr 1e-3) of a reduced config of each family (Yi-6B,
@@ -381,6 +381,25 @@ Phases, each printing one JSON line:
                 each its input bitwise, and ``GossipDPSchedule``
                 (bernoulli, markov) drawing row-stochastic 16-node mixes
                 on the card;
+ 27. dryrun   — the multi-pod dry run (``repro_torch.launch.dryrun``),
+                traced in two processes on the CPU, started after phase
+                26 so that no timed phase shares the cores with them
+                (they see no card): its
+                ``build_step`` and tracker on a
+                (1, 1) fake mesh at phase 26's train step
+                (Granite-MoE-1B-A400M, full width and depth, S=4,096,
+                batch 4 in 2 microbatches) must predict the rise of
+                ``max_memory_allocated`` above the pre-step baseline of
+                that step's first run within 10%; the same pair, with no
+                bound, for phase 23's RecurrentGemma-9B prefill and phase
+                25's Mixtral prefill (the card launches ``swa_attention``
+                there, the trace runs ``banded_flash_attention``); and
+                the CLI on the 256-rank production mesh at full width
+                and depth for Mistral-Large-123B's ``prefill_32k``,
+                ``decode_32k`` and ``long_500k``: status ok, neither JAX
+                nor the JAX package imported; each combination's per-rank
+                bytes, their share of the card's memory, collective
+                counts and seconds;
 
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -389,6 +408,7 @@ stands alone without the repository.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
@@ -597,6 +617,19 @@ TRAIN_SLICE_LR, TRAIN_SLICE_BATCH, TRAIN_SLICE_SEQ = 1e-3, 2, 32
 TRAIN_SLICE_TOL = {"loss": 1e-5, "moment": 1e-5, "param": 1e-3, "g_noise": 1e-6}
 TRAIN_BANDED = dict(s=8_192, h=8, kh=2, hd=128, window=2_048)  # bf16
 GOSSIP_DP_NODES, GOSSIP_DP_MIXES = 16, 4
+# phase 27: the dry run's traces, in processes of their own on the CPU
+# after the card's timed phases: its memory prediction for three steps the card
+# runs (phase 26's train step, phase 23's and phase 25's Mixtral prefills)
+# on a (1, 1) fake mesh, and full-width combinations of its CLI on the
+# 256-rank production mesh
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun"
+DRYRUN_FIT_TOL = 0.10  # the train step's predicted rise against the allocator's
+DRYRUN_CLI = ["--arch", "mistral-large-123b", "--shape", "prefill_32k", "--shape", "decode_32k",
+              "--shape", "long_500k", "--jobs", "3"]
+DRYRUN_REQUIRED = ("prefill_32k", "decode_32k")
+DRYRUN_WAIT_S = 600
+# the card's rise above the pre-step baseline, filled by phases 23, 25, 26
+MEASURED_RISE: dict[str, dict[str, int]] = {}
 SWEPT_CLI = ["--fast-data", "--topology", "random", "--sweep-ratios", "0,0.3,0.7",
              "--sweep-seeds", "2", "--rounds", "4"]
 
@@ -2191,12 +2224,15 @@ def hybrid_phase(card: str) -> dict:
 
     # the main path: two prefills, counted
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     reset_launches()
     branches_before = dict(attn.BRANCHES)
     t0 = time.perf_counter()
     logits, none = arch.prefill_fn(params, prompt)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    MEASURED_RISE["hybrid_prefill"] = {"rise": torch.cuda.max_memory_allocated() - base,
+                                       "baseline": base}
     first = launches()
     again, _ = arch.prefill_fn(params, prompt)
     torch.cuda.synchronize()
@@ -2407,12 +2443,16 @@ def zoo_phase(card: str) -> dict:
         # the main path: two prefills, counted
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         reset_launches()
         branches_before = dict(attn.BRANCHES)
         t0 = time.perf_counter()
         logits, state = arch.prefill_fn(params, prompt)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
+        if is_mixtral:
+            MEASURED_RISE["mixtral_prefill"] = {"rise": torch.cuda.max_memory_allocated() - base,
+                                                "baseline": base}
         first = launches()
         again, _ = arch.prefill_fn(params, prompt)
         torch.cuda.synchronize()
@@ -2654,14 +2694,18 @@ def train_phase(card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # the state and the batch: the step's arguments
     reset_launches()
     branches_before = dict(attn.BRANCHES)
     losses, norms, walls = [], [], []
-    for _ in range(TRAIN_STEPS):
+    for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        if i == 0:
+            MEASURED_RISE["train"] = {"rise": torch.cuda.max_memory_allocated() - base,
+                                      "baseline": base}
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
     counts = launches()
@@ -2685,8 +2729,8 @@ def train_phase(card: str) -> dict:
     del initial
 
     # remat recomputes each layer in the backward pass, which must give the
-    # first forward's values: the MoE's combine is index_add_ (atomics), one
-    # an expert over distinct rows, so two forwards are bitwise equal
+    # first forward's values: the MoE's combine is scatter_add_ (atomics), one
+    # an expert over distinct positions of a row, so two forwards are bitwise equal
     from repro_torch.arch import lm
 
     micro = {key: t[:TRAIN_BATCH // TRAIN_MICRO] for key, t in batch.items()}
@@ -2796,6 +2840,139 @@ def train_phase(card: str) -> dict:
                       "launches_under_grad": grad_launches, "launches_without_grad": 1},
          gossip_dp=gossip, seconds=time.perf_counter() - t_phase, nvidia_smi=card)
     return {"launches_phase26": counts["swa_attention"]}
+
+
+def start_dryruns() -> list:
+    """Phase 27's two CPU processes, which trace side by side: this
+    script's ``--dryrun-predictions`` mode and the dry run's CLI on the
+    production mesh.  They see no card (``CUDA_VISIBLE_DEVICES``
+    empty)."""
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    cli = ("import sys, json\n"
+           "from repro_torch.launch import dryrun\n"
+           f"dryrun.main({DRYRUN_CLI + ['--out-dir', str(DRYRUN_OUT / 'cli')]!r})\n"
+           "print(json.dumps({'jax_imported': 'jax' in sys.modules or 'repro' in sys.modules}))\n")
+    commands = {"predictions": [sys.executable, str(Path(__file__).resolve()),
+                                "--dryrun-predictions", str(DRYRUN_OUT / "predictions.json")],
+                "cli": [sys.executable, "-c", cli]}
+    procs: list = []
+    atexit.register(stop_dryruns, procs)  # whatever phase fails, nothing is left running
+    for name, command in commands.items():
+        log = open(DRYRUN_OUT / f"{name}.log", "w")
+        procs.append((name, log, subprocess.Popen(
+            command, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)))
+    return procs
+
+
+def stop_dryruns(procs: list) -> None:
+    for _, log, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def dryrun_predictions(out: Path) -> None:
+    """The dry run's ``build_step`` and tracker on a (1, 1) fake mesh at
+    three steps the card runs: phase 26's train step, phase 23's and
+    phase 25's Mixtral prefill.  Writes each one's memory to ``out``."""
+    import dataclasses
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.arch import build_arch
+    from repro_torch.arch.sharding import activation_policy, data_axes
+    from repro_torch.config import get_arch_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_test_mesh
+
+    torch.set_num_threads(2)
+    mixtral, layers, seq = ZOO[0][:3]
+    steps = {"train": (TRAIN_ARCH, 0, "train_4k", dict(
+                 num_microbatches=TRAIN_MICRO, override_batch=TRAIN_BATCH, override_seq=TRAIN_SEQ)),
+             "hybrid_prefill": (HYBRID_ARCH, 0, "prefill_32k",
+                                dict(override_batch=1, override_seq=HYBRID_SEQ)),
+             "mixtral_prefill": (mixtral, layers, "prefill_32k",
+                                 dict(override_batch=1, override_seq=seq))}
+    results = {}
+    for key, (name, depth, shape, kw) in steps.items():
+        cfg = get_arch_config(name)
+        arch = build_arch(dataclasses.replace(cfg, num_layers=depth) if depth else cfg)
+        t0 = time.perf_counter()
+        with fake_world(1):
+            mesh = make_test_mesh(1)
+            with FakeTensorMode(), activation_policy(data_axes(mesh)):
+                fn, args = dryrun.build_step(arch, shape, mesh, **kw)
+                traced = dryrun.trace_step(fn, args)
+        results[key] = {"arch": name, "layers": depth or cfg.num_layers, "shape": shape, **kw,
+                        **traced["memory"], "flops": traced["flops"],
+                        "seconds": time.perf_counter() - t0}
+        print(json.dumps({key: results[key]}), flush=True)
+    out.write_text(json.dumps(results, indent=2))
+
+
+def dryrun_phase(card: str, procs: list) -> None:
+    """Phase 27 (the module docstring): wait for the two dry-run
+    processes, hold the predicted train step against the allocator, and
+    print the production mesh's combinations."""
+    t_phase = time.perf_counter()
+    deadline = time.monotonic() + DRYRUN_WAIT_S
+    try:
+        for name, log, proc in procs:
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            log.close()
+            require(rc == 0, f"the dry run's {name} process exited {rc}: "
+                             f"{(DRYRUN_OUT / f'{name}.log').read_text()[-3000:]}")
+    finally:
+        stop_dryruns(procs)
+    waited_s = time.perf_counter() - t_phase
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    # (a) the fit: predicted rise (peak less the arguments) against the card's
+    preds = json.loads((DRYRUN_OUT / "predictions.json").read_text())
+    fit = {}
+    for key, pred in preds.items():
+        measured = MEASURED_RISE[key]
+        predicted = pred["total_per_device_bytes"] - pred["argument_bytes"]
+        fit[key] = {"predicted_rise_bytes": predicted, "measured_rise_bytes": measured["rise"],
+                    "relative_error": predicted / measured["rise"] - 1,
+                    "predicted_peak_bytes": pred["total_per_device_bytes"],
+                    "argument_bytes": pred["argument_bytes"],
+                    "card_baseline_bytes": measured["baseline"], "trace_s": pred["seconds"]}
+        print(f"dryrun fit {key}: predicted rise {predicted / 1e9:.3f} GB, measured "
+              f"{measured['rise'] / 1e9:.3f} GB (max_memory_allocated above the pre-step "
+              f"baseline), {100 * fit[key]['relative_error']:+.1f}%", flush=True)
+    err = abs(fit["train"]["relative_error"])
+    require(err <= DRYRUN_FIT_TOL, f"the dry run's train-step peak is {100 * err:.1f}% off the "
+                                   f"card's (bound {100 * DRYRUN_FIT_TOL:.0f}%): {fit['train']}")
+
+    # (b) the production mesh, full width and depth, without JAX
+    log = (DRYRUN_OUT / "cli.log").read_text()
+    require("ALL DRY-RUNS OK" in log, f"the dry run's CLI: {log[-3000:]}")
+    require(json.loads(log.strip().splitlines()[-1]) == {"jax_imported": False},
+            "the dry run imported JAX or the JAX package")
+    combos = {}
+    for path in sorted((DRYRUN_OUT / "cli").glob("*.json")):
+        rec = json.loads(path.read_text())
+        mem = rec.get("memory", {})
+        combos[f"{rec['arch']}/{rec['shape']}/{rec['mesh']}"] = row = {
+            "status": rec["status"], "devices": rec.get("devices"),
+            "argument_bytes": mem.get("argument_bytes"),
+            "peak_bytes": mem.get("total_per_device_bytes"),
+            "peak_share_of_card": mem["total_per_device_bytes"] / total if mem else None,
+            "collectives": {k: v["count"] for k, v in rec.get("collectives", {}).items()
+                            if isinstance(v, dict)},
+            "seconds": rec.get("lower_s", 0) + rec.get("compile_s", 0)}
+        print(f"dryrun {path.stem}: {row}", flush=True)
+    for shape in DRYRUN_REQUIRED:
+        key = f"mistral-large-123b/{shape}/pod16x16"
+        require(combos.get(key, {}).get("status") == "ok", f"{key}: {combos.get(key)}")
+    emit("dryrun", fit=fit, fit_tol=DRYRUN_FIT_TOL, card_total_memory=total,
+         production=combos, waited_s=waited_s, seconds=time.perf_counter() - t_phase,
+         nvidia_smi=card)
 
 
 def main() -> int:
@@ -3766,6 +3943,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_row = train_phase(card)
 
+    # 27. the multi-pod dry run: its memory fit, and the production mesh -------
+    dryrun_phase(card, start_dryruns())
+
     sources = "src/repro_torch/kernels/csrc/"
     rows = [{
         "name": "lstm_forward", "route": "cuda",
@@ -3805,4 +3985,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-predictions"]:
+        dryrun_predictions(Path(sys.argv[2]))
+        sys.exit(0)
     sys.exit(main())

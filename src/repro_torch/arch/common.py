@@ -21,7 +21,9 @@ from typing import Any, Callable
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.arch.sharding import P, axes_size, placements
 from repro_torch.device import resolve_device
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 
@@ -101,7 +103,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits = logits.float()
     labels = labels.long()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # a gather along a sharded vocab dim leaves DTensor a masked
+        # partial, and its backward a (B, S, V) zeros on every rank: the
+        # same pick as a masked sum, sharded as the logits are
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        ll = torch.where(vocab == labels.clamp(min=0)[..., None], logits, 0.0).sum(dim=-1)
+    else:
+        ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     return ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
@@ -177,10 +186,30 @@ def make_train_step(loss_fn: Callable[[PyTree, PyTree], torch.Tensor], *,
     (averaged) gradient's leaves.  The remat policy lives in
     ``loss_fn``, as in JAX.
 
-    ``data_axes`` is JAX's sharding constraint on the microbatch, which
-    has no meaning on one rank: it is accepted and ignored."""
-    del data_axes
+    ``data_axes``: the mesh axes that carry the batch dim.  The
+    microbatch reshape (B,) -> (M, B/M) must KEEP the batch shard on
+    dim 1 (JAX's explicit constraint): on DTensor leaves, the reshaped
+    batch is redistributed to ``(None, data_axes, None, ...)`` (an
+    all-to-all), so each microbatch is spread over the data ranks; when
+    M does not split over the data ranks, the batch rows are gathered
+    before the reshape (DTensor cannot unflatten the shard there).  On
+    plain tensors it is the plain reshape."""
     mb = num_microbatches
+
+    def split(leaf):
+        """(B, ...) -> (M, B/M, ...), the batch shard kept on dim 1."""
+        shape = (mb, leaf.shape[0] // mb) + tuple(leaf.shape[1:])
+        if not data_axes or not isinstance(leaf, DTensor):
+            return leaf.reshape(shape)
+        mesh = leaf.device_mesh
+        if mb % axes_size(mesh, data_axes):
+            # DTensor keeps a reshaped shard on dim 0 only if M splits
+            # over the data ranks: gather the batch rows first
+            leaf = leaf.redistribute(mesh, [Replicate() if isinstance(p, Shard) and p.dim == 0
+                                            else p for p in leaf.placements])
+        leaf = leaf.reshape(shape)
+        want = placements(P(None, data_axes, *([None] * (leaf.ndim - 2))), mesh)
+        return leaf if tuple(leaf.placements) == want else leaf.redistribute(mesh, want)
 
     def value_and_grad(params, batch):
         leaves = tree_leaves(params)
@@ -196,11 +225,10 @@ def make_train_step(loss_fn: Callable[[PyTree, PyTree], torch.Tensor], *,
             loss, grads = value_and_grad(params, batch)
         else:
             loss = torch.zeros((), dtype=torch.float32, device=state.step.device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in tree_leaves(params)]
+            grads = [torch.zeros_like(p, dtype=torch.float32) for p in tree_leaves(params)]
+            micros = tree_map(split, batch)
             for i in range(mb):
-                micro = tree_map(lambda leaf: leaf.reshape(
-                    (mb, leaf.shape[0] // mb) + tuple(leaf.shape[1:]))[i], batch)
+                micro = tree_map(lambda leaf: leaf[i], micros)
                 loss_i, grads_i = value_and_grad(params, micro)
                 loss = loss + loss_i
                 torch._foreach_add_(grads, grads_i)  # in place: JAX's sums, one buffer

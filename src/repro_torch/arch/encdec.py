@@ -14,8 +14,15 @@ The tree keeps JAX's layout (``enc_layers`` and ``dec_layers`` stacked
 over a leading L).  As in ``arch/lm.py``: ``forward`` and ``loss_fn``
 are differentiable (each encoder and decoder layer under
 ``arch.common.remat`` with grad mode on), ``prefill``, ``init_state``
-and ``decode_step`` run under ``torch.inference_mode()``, and the params
-are in ``cfg.dtype`` unless fp32 masters are asked for.
+and ``decode_step`` run under ``arch.sharding.serving_mode``
+(``torch.inference_mode()``; ``torch.no_grad()`` on DTensor params),
+``constrain_act`` pins the residual stream before and after each layer
+and after each residual add, ``split_heads`` and ``merge_heads`` split
+and merge the attention's heads, ``gather_fsdp`` gathers a layer's FSDP
+weight shards inside its body, and the decode's cross attention runs on
+each rank's heads (``keep_batch``, ``match_heads``, ``on_shards``; all
+the identity on plain tensors),
+and the params are in ``cfg.dtype`` unless fp32 masters are asked for.
 
 Kept from the reference: ``init_state`` without ``frames`` (the one
 ``build_arch``'s ``init_decode_state`` calls) cross-attends a zero
@@ -30,8 +37,11 @@ import torch
 
 from repro_torch.arch.common import (cast_params, compute_dtype, cross_entropy, index_stacked,
                                      put_stacked, remat, sinusoidal_positions, unstack)
+from repro_torch.arch.sharding import (constrain_act, gather_fsdp, keep_batch, match_heads,
+                                      merge_heads, serving_mode, split_heads)
 from repro_torch.config import ArchConfig
-from repro_torch.nn.attention import KVCache, decode_attention, gqa_attention, plain_attention
+from repro_torch.nn.attention import (KVCache, decode_attention, gqa_attention, on_shards,
+                                     plain_attention)
 from repro_torch.nn.layers import (dense, embed, gelu_ffn, init_gelu_ffn, layer_norm, normal,
                                    pad_vocab)
 
@@ -94,14 +104,13 @@ def _ln(x, p):
 
 
 def _mha(x, ap, cfg: ArchConfig, *, kv=None, causal: bool):
-    b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     src = x if kv is None else kv
-    q = dense(x, ap["wq"], ap["bq"]).reshape(b, s, h, hd)
-    k = dense(src, ap["wk"]).reshape(b, src.shape[1], h, hd)
-    v = dense(src, ap["wv"], ap["bv"]).reshape(b, src.shape[1], h, hd)
+    q = split_heads(dense(x, ap["wq"], ap["bq"]), h, hd)
+    k = split_heads(dense(src, ap["wk"]), h, hd)
+    v = split_heads(dense(src, ap["wv"], ap["bv"]), h, hd)
     out = gqa_attention(q, k, v, causal=causal)
-    return dense(out.reshape(b, s, -1), ap["wo"], ap["bo"])
+    return dense(merge_heads(out), ap["wo"], ap["bo"])
 
 
 def encode(params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
@@ -112,8 +121,9 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(dtype)[None]
 
     def body(x, lp):
-        x = x + _mha(_ln(x, lp["ln1"]), lp["attn"], cfg, causal=False)
-        return x + gelu_ffn(_ln(x, lp["ln2"]), lp["mlp"])
+        lp, x = gather_fsdp(lp), constrain_act(x)
+        x = constrain_act(x + _mha(_ln(x, lp["ln1"]), lp["attn"], cfg, causal=False))
+        return constrain_act(x + gelu_ffn(_ln(x, lp["ln2"]), lp["mlp"]))
 
     for lp in unstack(params["enc_layers"]):
         x = remat(body, x, lp)
@@ -127,9 +137,11 @@ def _decoder(params, cfg: ArchConfig, tokens, enc_out):
     x = x + params["pos_embed"][:x.shape[1]].to(dtype)[None]
 
     def body(x, lp, enc_out):
-        x = x + _mha(_ln(x, lp["ln1"]), lp["self_attn"], cfg, causal=True)
-        x = x + _mha(_ln(x, lp["ln2"]), lp["cross_attn"], cfg, kv=enc_out, causal=False)
-        return x + gelu_ffn(_ln(x, lp["ln3"]), lp["mlp"])
+        lp, x = gather_fsdp(lp), constrain_act(x)
+        x = constrain_act(x + _mha(_ln(x, lp["ln1"]), lp["self_attn"], cfg, causal=True))
+        x = constrain_act(x + _mha(_ln(x, lp["ln2"]), lp["cross_attn"], cfg, kv=enc_out,
+                                   causal=False))
+        return constrain_act(x + gelu_ffn(_ln(x, lp["ln3"]), lp["mlp"]))
 
     for lp in unstack(params["dec_layers"]):
         x = remat(body, x, lp, enc_out)
@@ -149,7 +161,7 @@ def decode_train(params, cfg: ArchConfig, tokens, enc_out):
 def forward(params, cfg: ArchConfig, batch):
     """Teacher-forcing logits (B, S, Vp) and the (2,) aux losses (zeros);
     differentiable."""
-    params = cast_params(params, compute_dtype(cfg.dtype))
+    params = gather_fsdp(cast_params(params, compute_dtype(cfg.dtype)))
     logits = decode_train(params, cfg, batch["tokens"], encode(params, cfg, batch["frames"]))
     return logits, torch.zeros((2,), device=logits.device)
 
@@ -160,11 +172,11 @@ def loss_fn(params, cfg: ArchConfig, batch):
     return cross_entropy(logits, batch["labels"])
 
 
-@torch.inference_mode()
+@serving_mode
 def prefill(params, cfg: ArchConfig, batch):
     """(last-position logits (B, 1, Vp), None): JAX's
     ``forward(...)[0][:, -1:]``, with the head on that position only."""
-    params = cast_params(params, compute_dtype(cfg.dtype))
+    params = gather_fsdp(cast_params(params, compute_dtype(cfg.dtype)))
     x = _decoder(params, cfg, batch["tokens"], encode(params, cfg, batch["frames"]))
     return _head(x[:, -1:], params), None
 
@@ -172,14 +184,14 @@ def prefill(params, cfg: ArchConfig, batch):
 # -- serving -----------------------------------------------------------------
 
 
-@torch.inference_mode()
+@serving_mode
 def init_state(params, cfg: ArchConfig, batch: int, seq_len: int, frames=None) -> PyTree:
     """Decode state: {"self": L-stacked ``KVCache`` of seq_len slots,
     "cross": {"k", "v"} (L, B, S_enc, H, hd)}, the cross K/V computed once
     from ``encode(frames)``, or from a zero encoder output without frames
     (as JAX does)."""
     dtype, dev = compute_dtype(cfg.dtype), params["embed"].device
-    params = cast_params(params, dtype)
+    params = gather_fsdp(cast_params(params, dtype))
     h, hd, n = cfg.num_heads, cfg.head_dim, cfg.num_layers
     shape = (n, batch, seq_len, h, hd)
     self_caches = KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
@@ -191,20 +203,20 @@ def init_state(params, cfg: ArchConfig, batch: int, seq_len: int, frames=None) -
         enc_out = encode(params, cfg, frames)
     ks, vs = [], []
     for i in range(n):
-        ca = index_stacked(params["dec_layers"], i)["cross_attn"]
+        ca = gather_fsdp(index_stacked(params["dec_layers"], i)["cross_attn"])
         ks.append(dense(enc_out, ca["wk"]).reshape(batch, -1, h, hd))
         vs.append(dense(enc_out, ca["wv"], ca["bv"]).reshape(batch, -1, h, hd))
     return {"self": self_caches, "cross": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
 
-@torch.inference_mode()
+@serving_mode
 def decode_step(params, cfg: ArchConfig, state, batch):
     """One decode step.  batch = {"token": (B, 1) int, "pos": the absolute
     position, an int or a 0-d tensor}; ``state`` as :func:`init_state`
     gives it.  Returns (logits (B, 1, Vp), new state); the given state is
     not changed."""
     dtype = compute_dtype(cfg.dtype)
-    params = cast_params(params, dtype)
+    params = gather_fsdp(cast_params(params, dtype))
     x = embed(batch["token"], params["embed"], dtype)
     pos = torch.as_tensor(batch["pos"], device=x.device)
     x = x + params["pos_embed"][(pos % MAX_DECODER_POS).reshape(1).long()].to(dtype)[None]
@@ -212,7 +224,7 @@ def decode_step(params, cfg: ArchConfig, state, batch):
     caches = state["self"]
     new = []
     for i in range(cfg.num_layers):
-        lp = index_stacked(params["dec_layers"], i)
+        lp = gather_fsdp(index_stacked(params["dec_layers"], i))
         sa, ca = lp["self_attn"], lp["cross_attn"]
         hst = _ln(x, lp["ln1"])
         q = dense(hst, sa["wq"], sa["bq"]).reshape(b, 1, h, hd)
@@ -220,11 +232,15 @@ def decode_step(params, cfg: ArchConfig, state, batch):
         v = dense(hst, sa["wv"], sa["bv"]).reshape(b, 1, h, hd)
         cache = KVCache(caches.k[i], caches.v[i], caches.pos[i]).append(k, v)
         new.append(cache)
-        x = x + dense(decode_attention(q, cache).reshape(b, 1, -1), sa["wo"], sa["bo"])
-        qc = dense(_ln(x, lp["ln2"]), ca["wq"], ca["bq"]).reshape(b, 1, h, hd)
-        cattn = plain_attention(qc, state["cross"]["k"][i], state["cross"]["v"][i], causal=False)
-        x = x + dense(cattn.reshape(b, 1, -1), ca["wo"], ca["bo"])
-        x = x + gelu_ffn(_ln(x, lp["ln3"]), lp["mlp"])
+        x = constrain_act(x + dense(decode_attention(q, cache).reshape(b, 1, -1), sa["wo"],
+                                    sa["bo"]))
+        # on DTensors: the cross K/V on heads (the state may split their hd
+        # or frames), the query placed as they are, each rank its own heads
+        ck, cv = (keep_batch(t[i], 2) for t in (state["cross"]["k"], state["cross"]["v"]))
+        qc = match_heads(dense(_ln(x, lp["ln2"]), ca["wq"], ca["bq"]).reshape(b, 1, h, hd), ck)
+        cattn = on_shards(plain_attention, qc, ck, cv, causal=False)
+        x = constrain_act(x + dense(cattn.reshape(b, 1, -1), ca["wo"], ca["bo"]))
+        x = constrain_act(x + gelu_ffn(_ln(x, lp["ln3"]), lp["mlp"]))
     x = _ln(x, params["dec_final_ln"])
     caches = KVCache(*(torch.stack([getattr(c, f) for c in new]) for f in ("k", "v", "pos")))
     return _head(x, params), {"self": caches, "cross": state["cross"]}

@@ -10,7 +10,12 @@ stacked over the super-blocks, and ``arch.common.params_from_numpy``
 carries a JAX tree across as it is.  The super-blocks run as a Python
 loop; ``forward`` and ``loss_fn`` are differentiable (each super-block
 under ``arch.common.remat`` with grad mode on), ``prefill`` and
-``decode_step`` run under ``torch.inference_mode()``.  Each
+``decode_step`` run under ``arch.sharding.serving_mode``
+(``torch.inference_mode()``; ``torch.no_grad()`` on DTensor params),
+``constrain_act`` pins the residual stream before and after each
+super-block and after each residual add inside it, and ``gather_fsdp``
+gathers a super-block's FSDP weight shards inside its body (all the
+identity on plain tensors).  Each
 local-attention block goes through ``nn.attention.gqa_attention``,
 whose banded branch is the hand-written ``swa_attention`` kernel (hd
 256, one KV head at RecurrentGemma's width) without grad.
@@ -38,6 +43,7 @@ import torch
 from repro_torch.arch.common import (cast_params, compute_dtype, cross_entropy, index_stacked,
                                      put_stacked, remat, unstack)
 from repro_torch.arch.lm import qkv
+from repro_torch.arch.sharding import constrain_act, gather_fsdp, merge_heads, serving_mode
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.nn import rglru
@@ -116,9 +122,9 @@ def _super_forward(x, sub: list, cfg: ArchConfig, positions):
         else:
             q, k, v = qkv(h, bp["mix"], cfg, positions)
             attn = gqa_attention(q, k, v, causal=True, window=cfg.local_attn_window)
-            mix = dense(attn.reshape(x.shape[0], x.shape[1], -1), bp["mix"]["wo"])
-        x = x + mix
-        x = x + swiglu_ffn(rms_norm(x, bp["ln2_scale"], cfg.norm_eps), bp["mlp"])
+            mix = dense(merge_heads(attn), bp["mix"]["wo"])
+        x = constrain_act(x + mix)
+        x = constrain_act(x + swiglu_ffn(rms_norm(x, bp["ln2_scale"], cfg.norm_eps), bp["mlp"]))
     return x
 
 
@@ -127,15 +133,19 @@ def _trunk(params, cfg: ArchConfig, tokens):
     dtype = compute_dtype(cfg.dtype)
     x = embed(tokens, params["embed"], dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def body(x, sub):
+        return constrain_act(_super_forward(constrain_act(x), gather_fsdp(sub), cfg, positions))
+
     for sub in zip(*(unstack(kind) for kind in params["blocks"])):
-        x = remat(_super_forward, x, list(sub), cfg, positions)
+        x = remat(body, x, list(sub))
     return x
 
 
 def forward(params, cfg: ArchConfig, batch):
     """Teacher-forcing logits (B, S, Vp) and the (2,) aux losses (zeros);
     differentiable."""
-    params = cast_params(params, compute_dtype(cfg.dtype))
+    params = gather_fsdp(cast_params(params, compute_dtype(cfg.dtype)))
     x = rms_norm(_trunk(params, cfg, batch["tokens"]), params["final_scale"], cfg.norm_eps)
     return dense(x, params["lm_head"]), torch.zeros((2,), device=x.device)
 
@@ -146,12 +156,12 @@ def loss_fn(params, cfg: ArchConfig, batch):
     return cross_entropy(logits, batch["labels"])
 
 
-@torch.inference_mode()
+@serving_mode
 def prefill(params, cfg: ArchConfig, batch):
     """(last-position logits (B, 1, Vp), None): JAX's
     ``forward(...)[0][:, -1:]``, with the final norm and head on that
     position only."""
-    params = cast_params(params, compute_dtype(cfg.dtype))
+    params = gather_fsdp(cast_params(params, compute_dtype(cfg.dtype)))
     x = _trunk(params, cfg, batch["tokens"])[:, -1:]
     x = rms_norm(x, params["final_scale"], cfg.norm_eps)
     return dense(x, params["lm_head"]), None
@@ -197,26 +207,26 @@ def _super_decode(x, sub: list, cfg: ArchConfig, st: dict, pos):
             attn = decode_attention(q, cache, window=cfg.local_attn_window)
             new[f"kv{i}"] = cache
             mix = dense(attn.reshape(x.shape[0], 1, -1), bp["mix"]["wo"])
-        x = x + mix
-        x = x + swiglu_ffn(rms_norm(x, bp["ln2_scale"], cfg.norm_eps), bp["mlp"])
+        x = constrain_act(x + mix)
+        x = constrain_act(x + swiglu_ffn(rms_norm(x, bp["ln2_scale"], cfg.norm_eps), bp["mlp"]))
     return x, new
 
 
-@torch.inference_mode()
+@serving_mode
 def decode_step(params, cfg: ArchConfig, states, batch):
     """One decode step.  batch = {"token": (B, 1) int, "pos": the absolute
     position, an int or a 0-d tensor}; ``states`` as :func:`init_state`
     gives them.  Returns (logits (B, 1, Vp), new states); the given
     states are not changed."""
     dtype = compute_dtype(cfg.dtype)
-    params = cast_params(params, dtype)
+    params = gather_fsdp(cast_params(params, dtype))
     x = embed(batch["token"], params["embed"], dtype)
     pos = torch.as_tensor(batch["pos"], device=x.device)
     steps = []
     for sb in range(num_super_blocks(cfg)):
         st = {key: (KVCache(s.k[sb], s.v[sb], s.pos[sb]) if isinstance(s, KVCache)
                     else index_stacked(s, sb)) for key, s in states.items()}
-        sub = [index_stacked(kind, sb) for kind in params["blocks"]]
+        sub = gather_fsdp([index_stacked(kind, sb) for kind in params["blocks"]])
         x, new = _super_decode(x, sub, cfg, st, pos)
         steps.append(new)
     stacked = {}

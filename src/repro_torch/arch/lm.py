@@ -14,7 +14,8 @@ The layers run as a Python loop.  ``forward`` (and so ``loss_fn``) is
 differentiable: with grad mode on, each layer runs under
 ``arch.common.remat`` (JAX scans them under ``jax.checkpoint``), and
 ``make_train_step`` differentiates it.  ``prefill`` and ``decode_step``
-run under ``torch.inference_mode()``.  The self-attention goes through
+run under ``arch.sharding.serving_mode`` (``torch.inference_mode()``;
+``torch.no_grad()`` on DTensor params).  The self-attention goes through
 ``nn.attention.gqa_attention``, whose banded branch is the hand-written
 ``swa_attention`` kernel without grad and the plain
 ``banded_flash_attention`` (the function JAX differentiates) with it.
@@ -29,9 +30,19 @@ entry, as JAX does.
 
 A config with ``num_experts > 0`` runs ``nn.moe.moe_ffn`` in place of
 the SwiGLU in every layer; ``forward`` returns the layers' mean
-(load_balance, router_z) and ``loss_fn`` adds them as JAX does.  JAX's
-sharding hints (``constrain_act``, ``constrain_attn``) are the identity
-on one device and come back with multi-GPU.
+(load_balance, router_z) and ``loss_fn`` adds them as JAX does.
+
+JAX's sharding hints sit where JAX has them (``arch.sharding``): the
+residual stream is pinned by ``constrain_act`` before and after each
+layer, q/k/v by ``constrain_attn``.  Where DTensor, unlike GSPMD, must
+be told, the module redistributes explicitly (all the identity on plain
+tensors): ``split_heads`` splits the q/k/v projections into heads (a
+fused projection replicated on "model" where its shard would not fall
+on head boundaries), ``merge_heads`` merges them for the output
+projection, ``constrain_act`` also resolves the residual's pending sums
+after the attention's add, and ``gather_fsdp`` gathers a layer's FSDP
+weight shards inside its body (JAX's "weights all-gather per layer on
+use"), the embedding's and head's at entry.
 
 Known fault, kept from the reference: ``prefill`` returns caches of
 ``min(S, window)`` slots (S for full attention) in plain order, and the
@@ -47,6 +58,8 @@ import torch
 
 from repro_torch.arch.common import (cast_params, compute_dtype, cross_entropy, put_stacked, remat,
                                      unstack)
+from repro_torch.arch.sharding import (constrain_act, constrain_attn, gather_fsdp, merge_heads,
+                                      serving_mode, split_heads)
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.nn.attention import KVCache, decode_attention, gqa_attention
@@ -119,12 +132,13 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype: torch.dtype | None
 def qkv(x, lp, cfg: ArchConfig, positions):
     """q, k (rotated) and v of an attention layer's weights ``lp`` (its
     optional biases too; the hybrid's attention blocks have none)."""
-    b, s, _ = x.shape
     h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(x, lp["wq"], lp.get("bq")).reshape(b, s, h, hd)
-    kk = dense(x, lp["wk"], lp.get("bk")).reshape(b, s, k, hd)
-    v = dense(x, lp["wv"], lp.get("bv")).reshape(b, s, k, hd)
-    return rope(q, positions, cfg.rope_theta), rope(kk, positions, cfg.rope_theta), v
+    q = split_heads(dense(x, lp["wq"], lp.get("bq")), h, hd)
+    kk = split_heads(dense(x, lp["wk"], lp.get("bk")), k, hd)
+    v = split_heads(dense(x, lp["wv"], lp.get("bv")), k, hd)
+    q = constrain_attn(rope(q, positions, cfg.rope_theta), "bshd")
+    kk = constrain_attn(rope(kk, positions, cfg.rope_theta), "bshd", kv=True)
+    return q, kk, constrain_attn(v, "bshd", kv=True)
 
 
 def ffn(h, lp, cfg: ArchConfig):
@@ -143,11 +157,11 @@ def layer_forward(x, lp, cfg: ArchConfig, positions):
     h = rms_norm(x, lp["ln1_scale"], cfg.norm_eps)
     q, k, v = qkv(h, lp, cfg, positions)
     attn = gqa_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    attn_out = dense(attn.reshape(x.shape[0], x.shape[1], -1), lp["wo"])
+    attn_out = dense(merge_heads(attn), lp["wo"])
     if cfg.parallel_block:
         ff, aux = ffn(h, lp, cfg)
         return x + attn_out + ff, (k, v), aux
-    x = x + attn_out
+    x = constrain_act(x + attn_out)  # the residual's pending sums over "model" resolved
     ff, aux = ffn(rms_norm(x, lp["ln2_scale"], cfg.norm_eps), lp, cfg)
     return x + ff, (k, v), aux
 
@@ -158,7 +172,7 @@ def layer_decode(x, lp, cache: KVCache, cfg: ArchConfig, pos):
     q, k, v = qkv(h, lp, cfg, pos.reshape(1))
     cache = cache.append(k, v)
     attn = decode_attention(q, cache, window=cfg.sliding_window)
-    x = x + dense(attn.reshape(x.shape[0], 1, -1), lp["wo"])
+    x = constrain_act(x + dense(attn.reshape(x.shape[0], 1, -1), lp["wo"]))
     return x + ffn(rms_norm(x, lp["ln2_scale"], cfg.norm_eps), lp, cfg)[0], cache
 
 
@@ -185,16 +199,17 @@ def forward(params, cfg: ArchConfig, batch):
     over layers of (load_balance, router_z) (zeros without MoE).
     Differentiable; each layer rematerialised under grad mode."""
     dtype = compute_dtype(cfg.dtype)
-    params = cast_params(params, dtype)
+    params = gather_fsdp(cast_params(params, dtype))
     x = _embed_inputs(params, cfg, batch, dtype)
     positions = torch.arange(x.shape[1], device=x.device)
 
     def body(x, lp):
-        x, _, aux = layer_forward(x, lp, cfg, positions)
-        return x, (torch.stack([aux["load_balance"], aux["router_z"]]) if aux
+        x, _, aux = layer_forward(constrain_act(x), gather_fsdp(lp), cfg, positions)
+        return constrain_act(x), (torch.stack([aux["load_balance"], aux["router_z"]]) if aux
                    else torch.zeros((2,), device=x.device))
 
     aux_rows = []
+    x = constrain_act(x)
     for lp in _layers(params):
         x, aux = remat(body, x, lp)
         aux_rows.append(aux)
@@ -226,19 +241,20 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None) -> KVCach
                    pos=torch.zeros((cfg.num_layers,), dtype=torch.int32, device=dev))
 
 
-@torch.inference_mode()
+@serving_mode
 def prefill(params, cfg: ArchConfig, batch):
     """Prefill: (last-position logits (B, 1, Vp), stacked KV caches with
     leaves (L, B, cap, K, hd) and pos (L,) = S)."""
     dtype = compute_dtype(cfg.dtype)
-    params = cast_params(params, dtype)
+    params = gather_fsdp(cast_params(params, dtype))
     x = _embed_inputs(params, cfg, batch, dtype)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     cap = cache_capacity(cfg, s)
     ks, vs = [], []
     for lp in _layers(params):
-        x, (k, v), _ = layer_forward(x, lp, cfg, positions)
+        x, (k, v), _ = layer_forward(constrain_act(x), gather_fsdp(lp), cfg, positions)
+        x = constrain_act(x)
         ks.append(k[:, s - cap:])  # the last `cap` positions, in plain order
         vs.append(v[:, s - cap:])
     x = rms_norm(x[:, -1:], params["final_scale"], cfg.norm_eps)
@@ -247,19 +263,20 @@ def prefill(params, cfg: ArchConfig, batch):
     return dense(x, params["lm_head"]), caches
 
 
-@torch.inference_mode()
+@serving_mode
 def decode_step(params, cfg: ArchConfig, caches: KVCache, batch):
     """One decode step.  batch = {"token": (B, 1) int, "pos": the absolute
     position, an int or a 0-d tensor}; ``caches`` leaves have a leading L.
     Returns (logits (B, 1, Vp), new caches); the given caches are not
     changed."""
     dtype = compute_dtype(cfg.dtype)
-    params = cast_params(params, dtype)
+    params = gather_fsdp(cast_params(params, dtype))
     x = embed(batch["token"], params["embed"], dtype)
     pos = torch.as_tensor(batch["pos"], device=x.device)
     new = []
     for i, lp in enumerate(_layers(params)):
-        x, cache = layer_decode(x, lp, KVCache(caches.k[i], caches.v[i], caches.pos[i]), cfg, pos)
+        x, cache = layer_decode(x, gather_fsdp(lp), KVCache(caches.k[i], caches.v[i], caches.pos[i]),
+                                cfg, pos)
         new.append(cache)
     x = rms_norm(x, params["final_scale"], cfg.norm_eps)
     caches = KVCache(k=torch.stack([c.k for c in new]), v=torch.stack([c.v for c in new]),

@@ -6,8 +6,12 @@ tree keeps JAX's layout (``layers`` holds every leaf stacked over a
 leading L) and the layers run as a Python loop.  As in ``arch/lm.py``:
 ``forward`` and ``loss_fn`` are differentiable (each layer under
 ``arch.common.remat`` with grad mode on), ``prefill`` and
-``decode_step`` run under ``torch.inference_mode()``, and the params are
-in ``cfg.dtype`` unless fp32 masters are asked for.
+``decode_step`` run under ``arch.sharding.serving_mode``
+(``torch.inference_mode()``; ``torch.no_grad()`` on DTensor params),
+``constrain_act`` pins the residual stream before and after each layer
+and ``gather_fsdp`` gathers a layer's FSDP weight shards inside its body
+(both the identity on plain tensors), and the params are in
+``cfg.dtype`` unless fp32 masters are asked for.
 
 Kept from the reference: ``prefill`` returns the last position's logits
 and the zero states of ``init_state``, not the states the prompt left
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.arch.common import (cast_params, compute_dtype, cross_entropy, index_stacked,
                                      put_stacked, remat, unstack)
+from repro_torch.arch.sharding import constrain_act, gather_fsdp, serving_mode
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.nn.layers import dense, embed, normal, pad_vocab, rms_norm
@@ -61,8 +66,9 @@ def _trunk(params, cfg: ArchConfig, tokens):
     x = embed(tokens, params["embed"], compute_dtype(cfg.dtype))
 
     def body(x, lp):
+        lp, x = gather_fsdp(lp), constrain_act(x)
         h = rms_norm(x, lp["ln_scale"], cfg.norm_eps)
-        return x + mamba2_block(h, lp["mamba"], chunk=cfg.ssm_chunk, **_dims(cfg))
+        return constrain_act(x + mamba2_block(h, lp["mamba"], chunk=cfg.ssm_chunk, **_dims(cfg)))
 
     for lp in unstack(params["layers"]):
         x = remat(body, x, lp)
@@ -72,7 +78,7 @@ def _trunk(params, cfg: ArchConfig, tokens):
 def forward(params, cfg: ArchConfig, batch):
     """Teacher-forcing logits (B, S, Vp) and the (2,) aux losses (zeros);
     differentiable."""
-    params = cast_params(params, compute_dtype(cfg.dtype))
+    params = gather_fsdp(cast_params(params, compute_dtype(cfg.dtype)))
     x = rms_norm(_trunk(params, cfg, batch["tokens"]), params["final_scale"], cfg.norm_eps)
     return dense(x, params["lm_head"]), torch.zeros((2,), device=x.device)
 
@@ -92,27 +98,27 @@ def init_state(cfg: ArchConfig, batch: int, device=None) -> PyTree:
     return {k: torch.stack([t] * cfg.num_layers) for k, t in one.items()}
 
 
-@torch.inference_mode()
+@serving_mode
 def prefill(params, cfg: ArchConfig, batch):
     """(last-position logits (B, 1, Vp), ``init_state``'s zero states)."""
-    params = cast_params(params, compute_dtype(cfg.dtype))
+    params = gather_fsdp(cast_params(params, compute_dtype(cfg.dtype)))
     x = _trunk(params, cfg, batch["tokens"])[:, -1:]
     x = rms_norm(x, params["final_scale"], cfg.norm_eps)
     tokens = batch["tokens"]
     return dense(x, params["lm_head"]), init_state(cfg, tokens.shape[0], tokens.device)
 
 
-@torch.inference_mode()
+@serving_mode
 def decode_step(params, cfg: ArchConfig, states, batch):
     """One decode step.  batch = {"token": (B, 1) int, "pos": unused};
     ``states`` as :func:`init_state` gives them.  Returns (logits (B, 1,
     Vp), new states); the given states are not changed."""
     dtype = compute_dtype(cfg.dtype)
-    params = cast_params(params, dtype)
+    params = gather_fsdp(cast_params(params, dtype))
     x = embed(batch["token"], params["embed"], dtype)[:, 0, :]  # (B, d)
     new = []
     for i in range(cfg.num_layers):
-        lp = index_stacked(params["layers"], i)
+        lp = gather_fsdp(index_stacked(params["layers"], i))
         h = rms_norm(x, lp["ln_scale"], cfg.norm_eps)
         out, st = mamba2_decode(h, lp["mamba"], index_stacked(states, i), **_dims(cfg))
         x = x + out

@@ -30,9 +30,11 @@ Its group ranks ascend with the node index, so group rank i is node i.
     or draws them from a ``torch.Generator`` it owns.
 
 Without a process group (one process) the mesh has width 1 and every
-mix is the identity on the params, bitwise.  The port has no
-tensor-parallel ("model"-sharded) leaves until ``arch/sharding.py`` is
-ported: every leaf is replicated over the node's ranks.
+mix is the identity on the params, bitwise.  :func:`ring_mix_params`
+takes tensor-parallel leaves (JAX's ``specs`` from
+``arch.sharding.param_pspecs``): each rank exchanges and averages only
+its local shard over its node subgroup, whose members hold the same
+shard of the same leaf, as JAX's ``shard_map`` body does.
 """
 from __future__ import annotations
 
@@ -41,7 +43,9 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.arch.sharding import PartitionSpec
 from repro_torch.core.async_sched import bernoulli_active, markov_active
 from repro_torch.core.topology import mixing_matrix, round_adjacency
 from repro_torch.device import resolve_device
@@ -113,22 +117,22 @@ def ring_mix_params(params: PyTree, mesh, node_axes: tuple[str, ...],
     ``mixing_matrix(ring_adjacency(2), ...)``); at N <= 1 the params
     unchanged.
 
-    ``specs``: one entry per leaf (None: replicated), JAX's
-    PartitionSpec tree.  A tree of another leaf count raises
-    ``ValueError``, as JAX's does; the port has no tensor-parallel
-    leaves until ``arch/sharding.py`` is ported, so any other entry than
-    None raises ``NotImplementedError``."""
+    ``specs``: one entry per leaf (None: replicated), the
+    ``arch.sharding.PartitionSpec`` tree of the params' tensor-parallel
+    sharding (JAX's ``specs``).  A leaf whose spec shards it is the
+    rank's local shard (a plain tensor), or a DTensor, whose local shard
+    is exchanged and which comes back with its placements: either way
+    only the shard crosses the node subgroup, never the whole leaf.  A
+    tree of another leaf count raises ``ValueError``, as JAX's does."""
     n = node_count(mesh, node_axes)
     p_leaves = tree_leaves(params)
     if specs is not None:
-        s_leaves = tree_leaves(specs)
+        s_leaves = tree_leaves(specs, is_leaf=lambda s: isinstance(s, PartitionSpec))
         if len(s_leaves) != len(p_leaves):
             raise ValueError(
                 f"specs tree has {len(s_leaves)} leaves but params has "
                 f"{len(p_leaves)} — a zip would silently truncate; pass "
                 f"one PartitionSpec per parameter leaf")
-        if any(s is not None for s in s_leaves):
-            raise NotImplementedError("tensor-parallel leaves need arch/sharding.py's port")
     if n <= 1:
         return params
     group, idx = mesh.node_group(node_axes), mesh.node_index(node_axes)
@@ -143,13 +147,19 @@ def ring_mix_params(params: PyTree, mesh, node_axes: tuple[str, ...],
             req.wait()
         return got
 
-    def leaf(w):
+    def mix(w):
         w = w.contiguous()
         w_prev = exchange(w, nxt, prv)
         if n == 2:
             return (w + w_prev) / 2.0
         w_next = exchange(w, prv, nxt)
         return (w + w_prev + w_next) / 3.0
+
+    def leaf(w):
+        if not isinstance(w, DTensor):
+            return mix(w)
+        return DTensor.from_local(mix(w.to_local()), w.device_mesh, w.placements,
+                                  run_check=False, shape=w.shape, stride=w.stride())
 
     return tree_unflatten(params, [leaf(w) for w in p_leaves])
 

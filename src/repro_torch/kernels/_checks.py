@@ -4,6 +4,7 @@ CUDA tensors on one device, of the right dtype and contiguous."""
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def refuse_autograd(kernel: str, named: dict[str, torch.Tensor]) -> None:
@@ -28,6 +29,9 @@ def check_operands(kernel: str, named: dict[str, torch.Tensor],
     dtypes = dtypes or {}
     first = next(iter(named.values())).device
     for name, t in named.items():
+        if isinstance(t, DTensor):  # its pointer would be the local shard's, its shape global
+            raise TypeError(f"{kernel}: {name} is a DTensor, the kernel takes a rank's local "
+                            f"tensor")
         if t.device.type != "cuda":
             raise ValueError(f"{kernel}: {name} is on {t.device}, the kernel takes CUDA tensors")
         if t.device != first:

@@ -34,6 +34,17 @@ coordinates of r, and the ranks that share every coordinate except the
 node axes form a node subgroup, whose group ranks ascend with the node
 index (``pod · per_pod + node`` for the compound axis).
 
+The LM zoo's production meshes, :func:`make_production_mesh` (16 data
+x 16 model, or 2 pods x 16 x 16) and :func:`make_test_mesh`, are
+DTensor ``DeviceMesh``es with JAX's shapes and axis names over the
+default group's ranks.  The multi-pod dry run (``launch/dryrun.py``)
+builds them inside :func:`fake_world`, a process group of W fake ranks
+in this one process (``torch.distributed``'s ``"fake"`` backend, whose
+collectives move nothing), where JAX forces 512 host devices.  Their
+device type is ``"cpu"``: a DTensor reports it as its device, so every
+kernel wrapper of ``kernels/ops.py`` takes its plain twin there, never
+a CUDA kernel on a fake tensor.
+
 The plan-resolution policies ``choose_gossip_impl`` and
 ``choose_gossip_repr`` live in ``core.gossip_plan`` and are re-exported
 here, as the JAX package's ``launch.mesh`` does.
@@ -41,6 +52,7 @@ here, as the JAX package's ``launch.mesh`` does.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, ClassVar
 
@@ -267,6 +279,70 @@ def make_gossip_dp_mesh(*, nodes: int = 4, multi_pod: bool = False, data: int | 
                 mine = group
         groups[axes] = mine
     return GossipDPMesh(names, widths, coords, groups)
+
+
+@contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """A process group of ``world_size`` fake ranks, this process rank
+    ``rank`` (``torch.distributed``'s ``"fake"`` backend over its ``FakeStore``:
+    every collective returns at once and moves nothing).  Refuses when a
+    process group already exists (a real multi-rank run, or a fake world
+    not left), and destroys the group on exit, whatever happened inside:
+    ``make_federation_mesh`` reads an initialized group as more than one
+    process."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group already exists; a fake world needs a process "
+                           "without one (destroy it first)")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _device_mesh(shape: tuple[int, ...], names: tuple[str, ...]):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if math.prod(shape) != world:
+        raise ValueError(f"the mesh {dict(zip(names, shape))} needs {math.prod(shape)} ranks, "
+                         f"not W={world}: one rank a device")
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """Single pod: 256 ranks (16 data x 16 model).  Multi-pod: 2 pods of
+    256 (pod x data x model).  A ``DeviceMesh`` over the default group,
+    whose world must be 256 or 512 ranks (:func:`fake_world`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _device_mesh(shape, axes)
+
+
+def flatten_data_axes(mesh):
+    """The multi-pod mesh with its pod and data dims flattened into one
+    dim named ``"pod+data"`` (pod-major, the same ranks in the same
+    order), the mesh unchanged without a pod dim.  Every spec of the
+    zoo shards pod and data together (``arch.sharding.data_axes``), and
+    on three mesh dims DTensor's sharding propagation enumerates many
+    times more strategies: the dry run traces on this two-dim view."""
+    names = mesh.mesh_dim_names
+    if "pod" not in names:
+        return mesh
+    widths = dict(zip(names, mesh.shape))
+    return _device_mesh((widths["pod"] * widths["data"], widths["model"]), ("pod+data", "model"))
+
+
+def make_test_mesh(devices: int | None = None):
+    """A small ``("data", "model")`` mesh over the default group's ranks
+    (``devices`` of them, by default the world): (n // 2, 2) from 4
+    ranks, else (n, 1)."""
+    n = devices or (dist.get_world_size() if dist.is_initialized() else 1)
+    if n >= 4:
+        return _device_mesh((n // 2, 2), ("data", "model"))
+    return _device_mesh((n, 1), ("data", "model"))
 
 
 # the auto-knob policies are plan-resolution policies and live with the

@@ -11,8 +11,15 @@ decode against a KV cache (a port of ``repro.nn.attention``).
     k or v requiring grad) the banded shape takes the plain
     ``banded_flash_attention`` instead, the function JAX's train step
     differentiates: the kernel has no backward, as the Pallas kernel has
-    no ``custom_vjp``.  The choice is made before any launch.
-    :data:`BRANCHES` counts the branch each call takes.
+    no ``custom_vjp``.  On DTensors (the multi-GPU layout of
+    ``arch/sharding.py``) sharded on batch and heads, each branch runs
+    on the rank's own shards (``on_shards``): the banded shape launches
+    the kernel on a CUDA mesh's shards and takes the twin on a CPU
+    mesh's, as a plain tensor does.  Only a fake tensor (the dry run's
+    trace, which has no data and no card) takes ``banded_flash_attention``
+    there, the function JAX's dry run lowers (:func:`_banded`).  The
+    choice is made before any launch.  :data:`BRANCHES` counts the
+    branch each call takes.
   * ``decode_attention`` -- one query token against a ``KVCache``.
   * ``KVCache`` -- append-only for full attention, a ring of ``window``
     slots for sliding windows.
@@ -22,15 +29,20 @@ are plain PyTorch, as JAX leaves them to XLA; the port's gqa_attention
 calls ``banded_flash_attention`` only under autograd (the kernel takes
 its place without grad), and it is the reference that tests and
 ``chip_smoke.py`` hold the kernel against.  JAX's ``constrain_attn``
-sharding hints are the identity on one device and are left out, as is
-``nn/unroll.py``'s scan knob: the block loops here are Python loops.
+sharding hints sit where JAX has them in the flash attention (the
+identity on plain tensors and under the dry run's policy, which pins
+no attention axis); ``nn/unroll.py``'s scan knob is left out: the
+block loops here are Python loops.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.arch.sharding import constrain_attn, keep_batch, match_heads
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -69,15 +81,17 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0, block: int = 1024
     ``block`` keys, in fp32; never materialises (Sq, Skv), only
     (B, H, Sq, block).  With a window, blocks wholly outside it still run
     and contribute zero (the banded branch skips them)."""
-    b, sq, h, hd = q.shape
+    _, sq, h, hd = q.shape
     skv = k.shape[1]
     assert skv % block == 0 or skv < block, (skv, block)
     block = min(block, skv)
     qpk = h // k.shape[2]
-    qf = (q.float() * (hd ** -0.5)).transpose(1, 2)  # (B, H, Sq, hd)
-    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=q.device)
-    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    qf = constrain_attn((q.float() * (hd ** -0.5)).transpose(1, 2), "bhsd")  # (B, H, Sq, hd)
+    # the carries made like qf, so that on DTensors they take its shards
+    contiguous = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    acc = constrain_attn(torch.zeros_like(qf, **contiguous), "bhsd")
+    m = constrain_attn(torch.full_like(qf[..., 0], NEG_INF, **contiguous), "bhs")
+    l = constrain_attn(torch.zeros_like(qf[..., 0], **contiguous), "bhs")
     qpos = torch.arange(sq, device=q.device)[:, None]
     for start in range(0, skv, block):
         kb = _repeat_kv(k[:, start:start + block], qpk).transpose(1, 2).float()
@@ -93,9 +107,10 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0, block: int = 1024
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         scale = torch.exp(m - m_new)
-        l = l * scale + p.sum(dim=-1)
-        acc = acc * scale[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
-        m = m_new
+        l = constrain_attn(l * scale + p.sum(dim=-1), "bhs")
+        acc = constrain_attn(acc * scale[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb),
+                             "bhsd")
+        m = constrain_attn(m_new, "bhs")
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.transpose(1, 2).to(q.dtype)
 
@@ -125,18 +140,55 @@ def gqa_attention(q, k, v, *, causal: bool = True, window: int = 0,
     skv, sq = k.shape[1], q.shape[1]
     if skv <= flash_threshold:
         BRANCHES["plain"] += 1
-        return plain_attention(q, k, v, causal=causal, window=window)
+        return on_shards(plain_attention, q, k, v, causal=causal, window=window)
     band_span = (-(-window // block) + 1) * block if window > 0 else 0
     if window > 0 and sq == skv and sq % block == 0 and block <= window and band_span < sq:
         # JAX's banded path is causal whatever ``causal`` says; so is the
         # kernel, which takes every hd (RecurrentGemma's 256 among them)
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             BRANCHES["banded_grad"] += 1
-            return banded_flash_attention(q, k, v, window=window, block=block)
+            return on_shards(banded_flash_attention, q, k, v, window=window, block=block)
         BRANCHES["banded"] += 1
-        return ops.swa_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=window)
+        return on_shards(_banded, q, k, v, window=window, block=block)
     BRANCHES["flash"] += 1
-    return flash_attention(q, k, v, causal=causal, window=window, block=block)
+    return on_shards(flash_attention, q, k, v, causal=causal, window=window, block=block)
+
+
+def _banded(q, k, v, *, window: int, block: int):
+    """The banded shape on one rank's tensors: ``swa_attention`` through
+    ``kernels.ops`` (the kernel on a CUDA tensor, its plain twin on a CPU
+    one).  A fake tensor (the dry run's trace) takes
+    ``banded_flash_attention``: the twin's (B, H, S, S) fp32 scores would
+    set a peak that the card, whose kernel holds only its output, never
+    reaches (at Mistral-Large's ``prefill_32k`` on the (16, 16) mesh,
+    52 GB a rank for one copy of them)."""
+    if is_fake(q):
+        return banded_flash_attention(q, k, v, window=window, block=block)
+    return ops.swa_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=window)
+
+
+def on_shards(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)``; on DTensors, on each rank's own shards.
+    Attention is independent per batch row and per head, and no ``fn``
+    here reads across either: with k and v repeated to q's heads and
+    placed as q (``arch.sharding.match_heads``, a local slice), a rank
+    whose q is sharded on batch and heads only runs ``fn`` on its rows
+    and heads, as GSPMD partitions it, and the result is placed as q.
+    DTensor would instead flatten the sharded batch and head dims into
+    its batched matmuls, which older releases refuse and newer ones
+    plan at length.  Any other layout (a sharded sequence) keeps the
+    DTensor ops."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, **kw)
+    h = q.shape[2]
+    k = match_heads(_repeat_kv(k, h // k.shape[2]), q)
+    v = match_heads(_repeat_kv(v, h // v.shape[2]), q)
+    rows_heads = all(p == Replicate() or (isinstance(p, Shard) and p.dim in (0, 2))
+                     for p in q.placements)
+    if not (rows_heads and tuple(k.placements) == tuple(q.placements) == tuple(v.placements)):
+        return fn(q, k, v, **kw)
+    out = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +220,15 @@ class KVCache:
         """One token's K/V (B, 1, K, hd) at slot ``pos % capacity`` (ring
         semantics when full); returns a new cache, as JAX does."""
         slot = (self.pos % self.k.shape[1]).reshape(1).long()
+        if isinstance(self.k, DTensor):
+            # DTensor has no rule for index_copy along a sharded dim (the
+            # dry run shards the slots on "model"): the same write as a
+            # select against the slot, local on every shard of the slots
+            # (the new token's K/V whole beside its batch shard)
+            hit = (torch.arange(self.k.shape[1], device=slot.device) == slot).reshape(1, -1, 1, 1)
+            return KVCache(k=torch.where(hit, keep_batch(k_new).to(self.k.dtype), self.k),
+                           v=torch.where(hit, keep_batch(v_new).to(self.v.dtype), self.v),
+                           pos=self.pos + 1)
         return KVCache(k=self.k.index_copy(1, slot, k_new.to(self.k.dtype)),
                        v=self.v.index_copy(1, slot, v_new.to(self.v.dtype)),
                        pos=self.pos + 1)
@@ -179,6 +240,8 @@ def decode_attention(q, cache: KVCache, *, window: int = 0):
     written slot is inside the window by construction, so ``window``
     changes nothing (as in JAX)."""
     h, hd = q.shape[2], q.shape[3]
+    # on DTensors the cache's slots are split over "model": the heads whole
+    q = keep_batch(q)
     k = _repeat_kv(cache.k, h // cache.k.shape[2])
     v = _repeat_kv(cache.v, h // cache.v.shape[2])
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (hd ** -0.5)

@@ -6,11 +6,22 @@ heads (B, S, H, hd), ``dense(x, w)`` with ``w`` (d_in, d_out), and every
 vocabulary-sized dimension padded to a multiple of 128 (``pad_vocab``).
 The ``init_*`` helpers draw from a ``torch.Generator`` (the same
 distributions as JAX's, not the same numbers).
+
+The norms' outputs go through ``arch.sharding.constrain_act`` (the
+identity on plain tensors and without a policy): on DTensors a norm's
+output is pinned to the residual stream's layout (batch on the data
+axes, d whole), which DTensor would otherwise leave split on d, so that
+the projection after it takes its weight's column split (Megatron's
+layout, as GSPMD chooses it) instead of gathering the weight.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.arch.sharding import constrain_act, resolve_partial
 
 
 def pad_vocab(v: int, multiple: int = 128) -> int:
@@ -21,7 +32,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     """RMS norm in fp32 with the (1 + scale) gain, back in x's dtype."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+    return constrain_act((xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype))
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -31,17 +42,30 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    return constrain_act((y * scale.float() + bias.float()).to(x.dtype))
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     y = x @ w.to(x.dtype)
     if b is not None:
-        y = y + b.to(x.dtype)
+        # (on DTensors a row-split product's pending sums are reduced
+        # before the bias, which may be sharded itself)
+        y = resolve_partial(y) + b.to(x.dtype)
     return y
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if isinstance(table, DTensor):
+        # the table's vocab shards gathered first: DTensor's masked-sum
+        # rule for a split vocab cannot be reduced twice (a layer's
+        # recomputation under remat) and some torch releases cannot
+        # turn its gradient back; its advanced-indexing rule fails in
+        # some releases' backward
+        whole = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+                 for p in table.placements]
+        if whole != list(table.placements):
+            table = table.redistribute(table.device_mesh, whole)
+        return F.embedding(tokens.long(), table).to(dtype)
     return table[tokens.long()].to(dtype)
 
 

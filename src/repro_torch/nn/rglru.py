@@ -21,6 +21,12 @@ cast to fp32 for the product (JAX promotes the bf16 operand; torch's
 matmul takes one dtype), while ``softplus(lam)`` runs in lam's own dtype,
 op by op as JAX's does (:func:`softplus`), before it meets the fp32
 gate.  TF32 stays off: the gate products are fp32.
+
+On DTensors (the multi-GPU layout of ``arch/sharding.py``) the scan's
+inputs are redistributed explicitly before it (``keep_batch``: sharded
+on the channels beside the batch shard) and each rank scans its own
+local shards, so that the doubling steps never slice a sharded dim.
+Plain tensors scan directly.
 """
 from __future__ import annotations
 
@@ -28,6 +34,9 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.arch.sharding import keep_batch, local_like
 from repro_torch.nn.layers import normal
 from repro_torch.nn.ssm import CONV_K, causal_conv
 
@@ -85,7 +94,13 @@ def rglru_forward(x: torch.Tensor, p: dict, *, h0: torch.Tensor | None = None):
     if h0 is not None:
         gated[:, 0] += a[:, 0] * h0.float()
     with record_function("rglru.scan"):  # the profiler's span of the scan's passes
-        h = linear_scan(a, gated)
+        if isinstance(a, DTensor):
+            # channels sharded beside the batch: each rank scans its own
+            a, gated = keep_batch(a, -1), keep_batch(gated, -1)
+            h = DTensor.from_local(linear_scan(a.to_local(), local_like(gated, a, {0: 0, 2: 2})),
+                                   a.device_mesh, a.placements, run_check=False)
+        else:
+            h = linear_scan(a, gated)
     return h.to(x.dtype), h[:, -1]
 
 

@@ -18,6 +18,13 @@ back to x's dtype.
 
 Shapes: x (B, S, H, P) heads x headdim, dt (B, S, H), A (H,) (negative),
 Bm/Cm (B, S, G, N), D (H,).  Decode keeps h (B, H, P, N): O(1) a token.
+
+On DTensors (the multi-GPU layout of ``arch/sharding.py``) the SSD's
+inputs are redistributed explicitly at its entry (``keep_batch``: x and
+dt sharded on heads, B and C replicated, beside the batch shard) and
+the SSD runs on each rank's local shards (:func:`_ssd_on_shards`), so
+that the chunk loop never slices a sharded dim.  Plain tensors take
+:func:`_ssd_forward` directly.
 """
 from __future__ import annotations
 
@@ -25,6 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from torch.distributed.tensor import DTensor, Shard
+
+from repro_torch.arch.sharding import keep_batch, local_like
 from repro_torch.nn.layers import normal, rms_norm
 
 CONV_K = 4
@@ -45,7 +55,30 @@ def ssd_forward(x, dt, a_log, bm, cm, d_skip, *, chunk: int = 64):
     """Chunked SSD.  Returns (y (B, S, H, P) in x's dtype, final state
     (B, H, P, N) fp32)."""
     with record_function("ssm.ssd"):  # the profiler's span of the SSD's passes
+        if isinstance(x, DTensor):
+            return _ssd_on_shards(x, dt, a_log, bm, cm, d_skip, chunk)
         return _ssd_forward(x, dt, a_log, bm, cm, d_skip, chunk)
+
+
+def _ssd_on_shards(x, dt, a_log, bm, cm, d_skip, chunk):
+    """The SSD of DTensors on each rank's own shards: it is independent
+    per batch row and per head, and every head reads the one group's B
+    and C (G=1, every config of the zoo).  x and dt are sharded on batch
+    and heads alike, B and C on batch only, ``a_log`` and ``d_skip`` on
+    the same heads (``arch.sharding.keep_batch``, ``local_like``), and
+    the chunked SSD runs on the local tensors; y comes back placed as x,
+    the final state (B, H, P, N) on the same batch and heads."""
+    if bm.shape[2] != 1:
+        raise NotImplementedError("the SSD on shards takes one B/C group")
+    x, dt, bm, cm = keep_batch(x, 2), keep_batch(dt, 2), keep_batch(bm), keep_batch(cm)
+    y, state = _ssd_forward(
+        x.to_local(), local_like(dt, x, {0: 0, 2: 2}), local_like(a_log, x, {2: 0}),
+        local_like(bm, x, {0: 0}), local_like(cm, x, {0: 0}), local_like(d_skip, x, {2: 0}),
+        chunk)
+    mesh = x.device_mesh
+    state_pl = [Shard({0: 0, 2: 1}[p.dim]) if isinstance(p, Shard) else p for p in x.placements]
+    return (DTensor.from_local(y, mesh, x.placements, run_check=False),
+            DTensor.from_local(state, mesh, state_pl, run_check=False))
 
 
 def _ssd_forward(x, dt, a_log, bm, cm, d_skip, chunk):
@@ -79,7 +112,7 @@ def _ssd_forward(x, dt, a_log, bm, cm, d_skip, chunk):
     # 3. inter-chunk recurrence: prev[c] is the state before chunk c (a
     # list stacked once, so that autograd can run it)
     chunk_decay = torch.exp(a_cum[..., -1]).permute(2, 0, 1)     # (NC, B, H)
-    prev = [torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)]
+    prev = [torch.zeros_like(states[:, 0], memory_format=torch.contiguous_format)]
     for c in range(nc):
         prev.append(torch.addcmul(states[:, c], chunk_decay[c][..., None, None], prev[c]))
     prev = torch.stack(prev)
@@ -97,7 +130,10 @@ def _ssd_forward(x, dt, a_log, bm, cm, d_skip, chunk):
 
 def ssd_decode_step(x_t, dt_t, a_log, b_t, c_t, d_skip, h_state):
     """One decode step.  x_t (B, H, P), dt_t (B, H), b_t/c_t (B, G, N),
-    h_state (B, H, P, N) fp32 -> (y_t (B, H, P), new state)."""
+    h_state (B, H, P, N) fp32 -> (y_t (B, H, P), new state).  On
+    DTensors every input is whole beside its batch shard (a token's
+    worth; the batched products flatten the heads)."""
+    x_t, dt_t, b_t, c_t, h_state = (keep_batch(t) for t in (x_t, dt_t, b_t, c_t, h_state))
     h = x_t.shape[1]
     rep = h // b_t.shape[1]
     dt = F.softplus(dt_t.float())
@@ -140,7 +176,16 @@ def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     """Depthwise causal conv of kernel ``w.shape[0]``, then SiLU, in u's
     dtype (``repro.nn.ssm._causal_conv``): u (B, S, C), w (K, C), b (C,).
     Position t sums ``u[t - K + 1 + i] * w[i]`` over i in order, with
-    zeros before the start."""
+    zeros before the start.  On DTensors, on each rank's own batch rows
+    and channels (the sequence whole), as the SSD runs."""
+    if isinstance(u, DTensor):
+        u = keep_batch(u, -1)
+        out = _causal_conv(u.to_local(), local_like(w, u, {2: 1}), local_like(b, u, {2: 0}))
+        return DTensor.from_local(out, u.device_mesh, u.placements, run_check=False)
+    return _causal_conv(u, w, b)
+
+
+def _causal_conv(u, w, b):
     k, s = w.shape[0], u.shape[1]
     pad = F.pad(u, (0, 0, k - 1, 0))
     out = sum(pad[:, i:i + s] * w[i].to(u.dtype) for i in range(k))

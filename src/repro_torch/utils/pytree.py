@@ -17,6 +17,7 @@ them in ``jax.tree``'s order (dict keys sorted, lists in order).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -42,13 +43,16 @@ def vector_to_tree(vec: torch.Tensor, like: dict[str, torch.Tensor]) -> dict[str
     return out
 
 
-def tree_leaves(tree) -> list:
+def tree_leaves(tree, *, is_leaf=None) -> list:
     """The leaves of nested dicts, lists and tuples, dict keys sorted
-    (``jax.tree.leaves``' order)."""
+    (``jax.tree.leaves``' order); a node for which ``is_leaf`` is true
+    is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k], is_leaf=is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [leaf for t in tree for leaf in tree_leaves(t)]
+        return [leaf for t in tree for leaf in tree_leaves(t, is_leaf=is_leaf)]
     return [tree]
 
 
@@ -61,6 +65,29 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, (list, tuple)):
         return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, *, is_leaf=None):
+    """``fn(path, leaf)`` over the leaves of nested dicts, lists, tuples
+    and dataclasses, ``path`` the tuple of keys from the root (a dict's
+    key, a list's index, a dataclass's field name), as
+    ``jax.tree_util.tree_map_with_path`` gives them; the structure kept
+    (a tuple comes back a tuple, a dataclass as its class).  A node for
+    which ``is_leaf`` is true is a leaf."""
+
+    def walk(path, t):
+        if is_leaf is not None and is_leaf(t):
+            return fn(path, t)
+        if isinstance(t, dict):
+            return {k: walk(path + (k,), v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(path + (i,), v) for i, v in enumerate(t))
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            return type(t)(**{f.name: walk(path + (f.name,), getattr(t, f.name))
+                              for f in dataclasses.fields(t)})
+        return fn(path, t)
+
+    return walk((), tree)
 
 
 def tree_unflatten(like, leaves):

@@ -987,3 +987,64 @@ def test_gqa_attention_banded_shape_under_grad_takes_the_plain_path(cuda, dtype)
     assert {n: attention.BRANCHES[n] - branches[n] for n in branches} == {
         "plain": 0, "flash": 0, "banded": 1, "banded_grad": 1}
 
+
+
+def test_dry_run_traces_without_jax_beside_the_card(cuda):
+    """One reduced combination of the multi-pod dry run on the GPU
+    machine (a fake 8-rank world; the trace runs on the CPU and launches
+    nothing): status ok, FLOPs counted, the fit given as a share of the
+    card, no process group left, and JAX not imported."""
+    import sys
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.dryrun_one("yi-6b", "train_4k", reduced=True, test_mesh=8, override_batch=8,
+                            override_seq=64, num_microbatches=2, save=False, verbose=False)
+    assert rec["status"] == "ok" and rec["raw_cost"]["flops"] > 0 and rec["devices"] == 8
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert rec["fit"] == rec["memory"]["total_per_device_bytes"] / total
+    assert rec["collectives"]["total_wire_bytes"] > 0
+    assert not dist.is_initialized() and "jax" not in sys.modules
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gqa_attention_banded_shape_on_a_cuda_mesh_launches_the_kernel(cuda, dtype):
+    """The banded shape on DTensors of a one-rank NCCL (1, 1) mesh: the
+    kernel launched once on the rank's local tensors, the result placed
+    as q and within the kernel's tolerance of the plain twin; the
+    kernel itself refuses a DTensor."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from repro_torch.nn import attention
+
+    q, k, v = _swa_inputs(2, 2048, 4, 2, 128, dtype, seed=6, device=cuda)
+    kw = dict(causal=True, window=512, flash_threshold=512, block=256)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                            timeout=timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        placed = [distribute_tensor(t, mesh, [Replicate(), Replicate()]) for t in (q, k, v)]
+        before, branches = swa_kernel.LAUNCHES, dict(attention.BRANCHES)
+        with torch.no_grad():
+            out = attention.gqa_attention(*placed, **kw)
+        torch.cuda.synchronize()
+        assert swa_kernel.LAUNCHES == before + 1
+        assert {n: attention.BRANCHES[n] - branches[n] for n in branches} == {
+            "plain": 0, "flash": 0, "banded": 1, "banded_grad": 0}
+        assert isinstance(out, DTensor) and out.placements == placed[0].placements
+        want = ref.swa_attention_plain(q, k, v, window=512)
+        assert float((out.to_local().float() - want.float()).abs().max()) <= SWA_ATOL[dtype]
+        with torch.no_grad(), pytest.raises(TypeError, match="DTensor"):
+            swa_kernel.swa_attention(*placed, window=512)
+    finally:
+        dist.destroy_process_group()
