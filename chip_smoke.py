@@ -100,23 +100,27 @@ Phases, each printing one JSON line:
                 elementwise within ``ref.swa_bf16_bound`` of the fp32
                 twin: the rounding of P and of the output), TF32 off;
                 then hd 256 (bf16 on the ``wgmma`` kernel's 64-key
-                tiles, fp32 on the scalar kernel), 512 (the scalar
-                kernel in two chunks of 256 columns), 96 and 288
-                (zero-padded to 128 and 512) at S in {1024, 3072} x
-                window in {100, 2048}, with 0 bytes of spill in the
-                three ``wgmma`` and the four scalar kernels; at
-                RecurrentGemma-9B's local attention (B=1, S=8,192, H=16,
-                K=1, window 2048) at its hd 256 (bf16 launched on the
-                ``wgmma`` build, counted by build) and at hd 288 and 512
-                against the fp32 ``banded_flash_attention``: fp32 within
-                3e-5, bf16 elementwise within ``swa_bf16_bound``; at hd
-                256 and 512 in both dtypes its time (bf16 at hd 256 also
-                L2-flushed), the banded path's,
+                tiles, fp32 on the scalar kernel), 512 and 768 (clusters
+                of two and three CTAs splitting the head dim), 2,304
+                (above the largest cluster: the scalar kernel in nine
+                chunks of 256 columns), 96 and 288 (zero-padded to 128
+                and 512) at S in {1024, 3072} x window in {100, 2048},
+                with 0 bytes of spill in the five ``wgmma`` kernels (none
+                of them serialized by ptxas), the four scalar kernels and
+                the fp32 cluster kernel; at RecurrentGemma-9B's local
+                attention (B=1, S=8,192, H=16, K=1, window 2048) at its
+                hd 256 and at hd 288 and 512 (each launch's build checked
+                by name: the one-block builds at 256, the clusters of two
+                above) against the fp32 ``banded_flash_attention``: fp32
+                within 3e-5, bf16 elementwise within ``swa_bf16_bound``;
+                at hd 256 and 512 in both dtypes its time (bf16 at hd 256
+                also L2-flushed), the banded path's,
                 ``scaled_dot_product_attention``'s and its bound; at
                 the LM prefill's shape (B=1, S=32,768, H=96, K=8, hd=128,
                 window 4096) against the plain ``banded_flash_attention``
-                in fp32 on the same inputs: the kernel's fp32 build
-                within 3e-5, its bf16 build elementwise within
+                in fp32 on the same inputs (the fp32 build also timed
+                there beside the banded path and SDPA in fp32): the
+                kernel's fp32 build within 3e-5, its bf16 build elementwise within
                 ``swa_bf16_bound`` (given the banded path); and against
                 the banded path in bf16, as JAX runs it (<= 5e-2); two
                 launches bitwise equal;
@@ -500,9 +504,11 @@ SWA_TOL = {torch.float32: 3e-5, torch.bfloat16: 5e-2}
 SWA_SEQS = (128, 256, 1024, 3072)
 SWA_WINDOWS = (64, 100, 300, 1024, 4096)
 # the head dims beyond the hd 64/128 builds: 256 (bf16 on the wgmma
-# kernel's 64-key tiles, fp32 on the scalar kernel), 512 on the scalar
-# kernel in two chunks, 96 zero-padded to 128 and 288 to 512
-SWA_WIDE = {"seqs": (1024, 3072), "windows": (100, 2048), "hds": (256, 512, 96, 288)}
+# kernel's 64-key tiles, fp32 on the scalar kernel), 512 on clusters of
+# two CTAs, 768 on clusters of three, 2,304 above the largest cluster (the
+# scalar kernel in 9 chunks), 96 zero-padded to 128 and 288 to 512
+SWA_WIDE = {"seqs": (1024, 3072), "windows": (100, 2048),
+            "hds": (256, 512, 96, 288, 768, 2304)}
 HYBRID_ARCH = "recurrentgemma-9b"  # local attention at hd 256, one KV head
 HYBRID_SEQ = 8192
 HYBRID_HDS = (256, 288, 512)  # its own hd, one padded to 512, and 512 itself
@@ -876,6 +882,16 @@ def band_sdpa(q, k, v, window: int, block: int = 1024):
             for rows, keys, mask in calls], dim=2)
 
     return run
+
+
+def launched_build(before: dict[str, int]) -> str:
+    """The one ``swa_attention`` build launched since ``before``, a copy
+    of ``BUILD_LAUNCHES``."""
+    from repro_torch.kernels import swa_attention as swa_kernel
+
+    ran = [b for b, n in swa_kernel.BUILD_LAUNCHES.items() if n != before.get(b, 0)]
+    require(len(ran) == 1, f"swa_attention builds launched: {ran}")
+    return ran[0]
 
 
 def swa_timing(q, k, v, window: int, ops_per_s: float) -> dict:
@@ -2673,6 +2689,7 @@ def train_phase(card: str) -> dict:
     from repro_torch.core.gossip_dp import GossipDPSchedule, gossip_mix_params, ring_mix_params
     from repro_torch.launch.arch_demo import leaf_count
     from repro_torch.launch.mesh import make_gossip_dp_mesh
+    from repro_torch.kernels import swa_attention as swa_kernel
     from repro_torch.nn import attention as attn
     from repro_torch.utils.pytree import tree_leaves
 
@@ -2708,7 +2725,7 @@ def train_phase(card: str) -> dict:
                                       "baseline": base}
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
-    counts = launches()
+    counts, builds = launches(), dict(swa_kernel.BUILD_LAUNCHES)
     taken = {kind: attn.BRANCHES[kind] - branches_before[kind] for kind in attn.BRANCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     require(sum(counts.values()) == 0, f"the train step launched a kernel of ours: {counts}")
@@ -2839,7 +2856,7 @@ def train_phase(card: str) -> dict:
          banded_grad={**TRAIN_BANDED, "bitwise_banded_flash_attention": True,
                       "launches_under_grad": grad_launches, "launches_without_grad": 1},
          gossip_dp=gossip, seconds=time.perf_counter() - t_phase, nvidia_smi=card)
-    return {"launches_phase26": counts["swa_attention"]}
+    return {"launches_phase26": counts["swa_attention"], "builds_phase26": builds}
 
 
 def start_dryruns() -> list:
@@ -3452,16 +3469,22 @@ def main() -> int:
 
     swa_log = _build.build_log("swa_attention")
     swa_ptxas = ptxas_report(swa_log, "wgmma")
-    # the bf16 builds at hd 64, 128 and 256
-    require(sum(k != "warnings" for k in swa_ptxas) == 3 and spill_free(swa_ptxas),
-            f"a wgmma swa_attention kernel spills or is missing: {swa_ptxas}")
+    # the bf16 builds: hd 64, 128 and 256, and the clusters above hd 256
+    # (wgmma_cluster2 at hd 512, wgmma_cluster to hd 2,048); none spills,
+    # and ptxas serializes the products of none
+    require(sum(k != "warnings" for k in swa_ptxas) == 5 and spill_free(swa_ptxas)
+            and "warnings" not in swa_ptxas,
+            f"a wgmma swa_attention kernel spills, is serialized or is missing: {swa_ptxas}")
     # the scalar builds: fp32 at hd 64, 128 and 256, and bf16 at hd 256
-    # (which runs only the chunked head dims above 256; fp32's also runs
-    # them)
+    # (which runs only the chunked head dims above 2,048; fp32's also runs
+    # them), and fp32's clusters (hd 512 to 2,048)
     scalar_ptxas = ptxas_report(swa_log, "swa_attention_kernelI")
     require(sum(k != "warnings" for k in scalar_ptxas) == 4 and spill_free(scalar_ptxas),
             f"a scalar swa_attention kernel spills or is missing: {scalar_ptxas}")
-    for name, lines in {**swa_ptxas, **scalar_ptxas}.items():
+    cluster_ptxas = ptxas_report(swa_log, "scalar_cluster")
+    require(sum(k != "warnings" for k in cluster_ptxas) == 1 and spill_free(cluster_ptxas),
+            f"the fp32 cluster swa_attention kernel spills or is missing: {cluster_ptxas}")
+    for name, lines in {**swa_ptxas, **scalar_ptxas, **cluster_ptxas}.items():
         print(f"ptxas {name}: " + " | ".join(lines), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(77)
     swa_err = {str(dtype): 0.0 for dtype in SWA_TOL}
@@ -3518,15 +3541,20 @@ def main() -> int:
         q, k, v = swa_inputs(gen, 1, HYBRID_SEQ, rg_cfg.num_heads, rg_cfg.num_kv_heads, hd,
                              torch.float32)
         banded = attn.banded_flash_attention(q, k, v, window=rg_window)
+        builds_before = dict(swa_kernel.BUILD_LAUNCHES)
         rg_out = swa_kernel.swa_attention(q, k, v, window=rg_window)
-        rg_err = {"fp32_max_abs_err": float((rg_out - banded).abs().max())}
+        rg_err = {"fp32_max_abs_err": float((rg_out - banded).abs().max()),
+                  "fp32_build": launched_build(builds_before)}
         qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
         builds_before = dict(swa_kernel.BUILD_LAUNCHES)
         rg_out = swa_kernel.swa_attention(qb, kb, vb, window=rg_window)
-        rg_err["bf16_build"] = next(b for b, n in swa_kernel.BUILD_LAUNCHES.items()
-                                    if n != builds_before.get(b, 0))
-        require(rg_err["bf16_build"] == ("wgmma-bf16-hd256" if hd == 256 else "scalar-bf16-hd256"),
-                f"swa_attention (bf16) at hd {hd} ran the build {rg_err['bf16_build']}")
+        rg_err["bf16_build"] = launched_build(builds_before)
+        # hd 256 on its one-block builds, 288 (padded) and 512 on clusters of two
+        want = {"fp32_build": "scalar-fp32-hd256", "bf16_build": "wgmma-bf16-hd256"} if hd == 256 \
+            else {"fp32_build": "cluster-scalar-fp32-hd256x2",
+                  "bf16_build": "cluster-wgmma-bf16-hd256x2"}
+        require(all(rg_err[key] == build for key, build in want.items()),
+                f"swa_attention at hd {hd} ran the builds {rg_err}, want {want}")
         banded = attn.banded_flash_attention(qb.float(), kb.float(), vb.float(), window=rg_window)
         limit = ref.swa_bf16_bound(qb, kb, vb, window=rg_window,
                                    attention=attn.banded_flash_attention)
@@ -3564,7 +3592,11 @@ def main() -> int:
     banded = attn.banded_flash_attention(q32, k32, v32, window=window)
     out32 = swa_kernel.swa_attention(q32, k32, v32, window=window)
     fp32_err = float((out32 - banded).abs().max())
-    del out32, q32, k32, v32
+    del out32
+    # the fp32 build at the same shape, timed (the next fp32 kernel under
+    # half its bound), beside the plain path and SDPA in fp32
+    fp32_timing = swa_timing(q32, k32, v32, window, FP32_OPS_PER_S)
+    del q32, k32, v32
     diff = (out.float() - banded).abs()
     path_err = {"fp32_max_abs_err": fp32_err, "bf16_max_abs_err": float(diff.max()),
                 "ref_mean_abs": float(banded.abs().mean())}
@@ -3581,7 +3613,8 @@ def main() -> int:
     del banded, out, again
     require(path_err["bf16_vs_bf16_banded_max_abs_err"] <= SWA_TOL[torch.bfloat16],
             f"swa_attention at the prefill's shape vs the bf16 banded path: {path_err}")
-    emit("swa", ptxas=swa_ptxas, ptxas_scalar=scalar_ptxas, cases=n_swa,
+    emit("swa", ptxas=swa_ptxas, ptxas_scalar=scalar_ptxas, ptxas_scalar_cluster=cluster_ptxas,
+         cases=n_swa, path_fp32=fp32_timing,
          cases_wide_hd=n_swa - n_narrow, wide_hds=SWA_WIDE["hds"], max_abs_err=swa_err,
          tol={str(d): t for d, t in SWA_TOL.items()}, sweep_bf16_max_err_over_bound=bf16_over_bound,
          repeat_bitwise=True, path_shape=dict(B=1, S=seq, H=heads, K=kv_heads, hd=head_dim,
@@ -3610,7 +3643,7 @@ def main() -> int:
     logits, caches = arch.prefill_fn(params, prompt)
     torch.cuda.synchronize()
     prefill_first_s = time.perf_counter() - t0
-    lm_counts = launches()
+    lm_counts, lm_builds = launches(), dict(swa_kernel.BUILD_LAUNCHES)
     taken = {name: attn.BRANCHES[name] - branches_before[name] for name in attn.BRANCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     require(lm_counts["swa_attention"] == LM_LAYERS,
@@ -3946,6 +3979,8 @@ def main() -> int:
     # 27. the multi-pod dry run: its memory fit, and the production mesh -------
     dryrun_phase(card, start_dryruns())
 
+    phase_builds = {"15": lm_builds, "23": hybrid_row["builds_phase23"],
+                    "25": zoo_row["builds_phase25"], "26": train_row["builds_phase26"]}
     sources = "src/repro_torch/kernels/csrc/"
     rows = [{
         "name": "lstm_forward", "route": "cuda",
@@ -3975,6 +4010,16 @@ def main() -> int:
                  "hd256_bf16": {**hybrid["256"]["bf16"], **hybrid_row,
                                 "ptxas": next(lines for name, lines in swa_ptxas.items()
                                               if "wgmma_hd256" in name)},
+                 # every build timed at RecurrentGemma-9B's shape, with its
+                 # launches in each counted main-path run (phases 15, 23,
+                 # 25 and 26, each counted from 0)
+                 "builds": [{"build": hybrid[str(hd)][f"{dt}_build"], "hd": hd, "dtype": dt,
+                             "launches_by_phase": {
+                                 phase: builds.get(hybrid[str(hd)][f"{dt}_build"], 0)
+                                 for phase, builds in phase_builds.items()},
+                             **hybrid[str(hd)][dt]}
+                            for hd in HYBRID_TIMED for dt in ("bf16", "fp32")],
+                 "builds_phase15": lm_builds, "prefill_shape_fp32": fp32_timing,
                  **zoo_row, **train_row})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

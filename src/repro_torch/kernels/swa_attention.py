@@ -10,14 +10,46 @@ case.  S must be a multiple of 64 (the fp32 kernel's tile, half the
 bf16 kernel's 128-row tile), as ``repro.kernels.ops`` refuses
 S % 128 != 0 (the banded branch of ``gqa_attention``, the only caller,
 takes S % 1024 == 0).  The kernel is built for hd 64, 128 and 256, and
-runs any multiple of 256 in chunks of 256 columns; any other hd is
-zero-padded to the next of these (:func:`with_padded_head_dim`), which
-is exact.  Only what the grid cannot hold is refused: more than
-:data:`MAX_CHUNKS` chunks.  bf16 at hd 64, 128 and 256 runs on the
-tensor cores (``wgmma`` + TMA; 64-key tiles at hd 256) with P rounded
-to bf16 (``ref.swa_bf16_bound`` states what that costs); fp32, and bf16
-above hd 256, on scalar fp32 FMAs.  Its plain twin is
-``repro_torch.kernels.ref.swa_attention_plain``;
+runs any multiple of 256 above that; any other hd is zero-padded to the
+next of these (:func:`with_padded_head_dim`), which is exact.  Only what
+the grid cannot hold is refused: more than :data:`MAX_CHUNKS` chunks of
+256 columns.  bf16 runs on the tensor cores (``wgmma`` + TMA; 64-key
+tiles from hd 256) with P rounded to bf16 (``ref.swa_bf16_bound``
+states what that costs); fp32 on scalar fp32 FMAs (TF32 would break
+fp32's 3e-5).
+
+Which build runs a (dtype, padded hd), as :func:`build_of` names it;
+:func:`split_of` decides it, and the C entry launches the build it is
+told to, so a launch counted under a name ran that build:
+
+* hd 64, 128, 256: ``wgmma-bf16-hd{hd}`` and ``scalar-fp32-hd{hd}``,
+  one block a q tile of one query head.
+* hd = 256 c with 2 <= c <= :data:`MAX_CLUSTER` (hd 512 to 2,048):
+  ``cluster-wgmma-bf16-hd256xc`` and ``cluster-scalar-fp32-hd256xc``.
+  A thread-block cluster of c CTAs shares a q tile of one query head;
+  CTA r stages only columns [256 r, 256 r + 256) of Q, K and V, so each
+  computes a partial score tile, the cluster's c partial tiles are sent
+  through distributed shared memory and added in rank order on every
+  CTA (so all hold bitwise the same scores), and each CTA runs the same
+  softmax and writes its own 256 columns of O: Q K^T runs once over the
+  head dim.  Each CTA has the registers and shared memory of the hd-256
+  build plus the exchange's slots: bf16 197,704 + 32,768 + 64 = 230,536
+  bytes, fp32 197,632 + 32,768 + 16 = 230,416, of the 232,448 a block
+  may use, so one CTA an SM.  What bounds it on an H100: the exchange
+  moves about as many bytes between SMs as the K/V tiles bring from L2.
+  So at c = 2 (hd 512) the bf16 build sends each step's partial scores a
+  step ahead, on 32-key steps, and the transfer overlaps the products
+  (``swa_attention_kernel_wgmma_cluster2``); above c = 2 the partial
+  tiles are summed in place before each softmax, in rounds where the
+  slots (8 float4 a thread) do not hold every peer's tile at once
+  (``..._wgmma_cluster``).  fp32 stays bound by its FMAs.
+* hd above 256 x :data:`MAX_CLUSTER` (a portable cluster holds 8 CTAs):
+  ``scalar-bf16-hd256`` and ``scalar-fp32-hd256``, the scalar hd-256
+  build in hd / 256 chunks along ``gridDim.z``, each chunk's block
+  recomputing the scores over the whole head dim.  This is a dispatch
+  by shape, not a fallback: a failed build or launch raises.
+
+Its plain twin is ``repro_torch.kernels.ref.swa_attention_plain``;
 the CUDA-or-CPU dispatch is ``repro_torch.kernels.ops.swa_attention``.
 
 :data:`LAUNCHES` counts the kernel's launches in this process, so a run
@@ -39,6 +71,8 @@ BUILD_LAUNCHES: dict[str, int] = {}
 
 HEAD_DIMS = (64, 128, 256)  # the kernel's builds; other hd <= 256 are padded
 CHUNK = HEAD_DIMS[-1]  # above it, hd runs in chunks of these columns (padded to a multiple)
+MAX_CLUSTER = 8  # CTAs of a portable cluster: the cluster builds run hd up to CHUNK * 8
+ONE_BLOCK, CLUSTER, CHUNKS = 0, 1, 2  # how a launch splits hd: the C entry's `split`
 TILE = 64  # S must be a multiple of this
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEADS = 65535  # B * H blocks along gridDim.y
@@ -52,7 +86,7 @@ def _fn():
     if _launch_fn is None:
         fn = _build.load("swa_attention").swa_attention_launch
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _launch_fn = fn
     return _launch_fn
@@ -94,13 +128,29 @@ def padded_head_dim(hd: int) -> int:
     return next((p for p in HEAD_DIMS if p >= hd), -(-hd // CHUNK) * CHUNK)
 
 
+def split_of(hd: int) -> int:
+    """How a launch at the padded head dim ``hd`` splits it, the one
+    place this is decided: :data:`ONE_BLOCK` at :data:`HEAD_DIMS`,
+    :data:`CLUSTER` (hd / 256 CTAs) up to 256 x :data:`MAX_CLUSTER`,
+    :data:`CHUNKS` (the scalar hd-256 build along ``gridDim.z``) above."""
+    if hd in HEAD_DIMS:
+        return ONE_BLOCK
+    return CLUSTER if hd // CHUNK <= MAX_CLUSTER else CHUNKS
+
+
 def build_of(dtype: torch.dtype, hd: int) -> str:
-    """The build of ``csrc/swa_attention.cu`` that a launch at the padded
-    head dim ``hd`` runs, as its C entry point dispatches: the ``wgmma``
-    kernel for bf16 at hd 64, 128 and 256, the scalar kernel otherwise
-    (above 256, its hd-256 build in chunks)."""
-    kind = "wgmma" if dtype == torch.bfloat16 and hd in HEAD_DIMS else "scalar"
-    return f"{kind}-{'bf16' if dtype == torch.bfloat16 else 'fp32'}-hd{min(hd, CHUNK)}"
+    """The name of the build of ``csrc/swa_attention.cu`` that a launch
+    at the padded head dim ``hd`` runs (the module note lists them): bf16
+    on ``wgmma``, fp32 on the scalar kernel, split as :func:`split_of`
+    says (``cluster-...-hd256x{c}`` for a cluster of c CTAs)."""
+    kind = "wgmma" if dtype == torch.bfloat16 else "scalar"
+    dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+    split = split_of(hd)
+    if split == ONE_BLOCK:
+        return f"{kind}-{dt}-hd{hd}"
+    if split == CLUSTER:
+        return f"cluster-{kind}-{dt}-hd{CHUNK}x{hd // CHUNK}"
+    return f"scalar-{dt}-hd{CHUNK}"
 
 
 def with_padded_head_dim(attention, q, k, v, *, window: int) -> torch.Tensor:
@@ -126,7 +176,7 @@ def _launch(q, k, v, *, window: int, scale: float) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     b, s, h, k.shape[2], hd, window, scale, int(q.dtype == torch.bfloat16),
-                    stream)
+                    split_of(hd), stream)
     if err != 0:
         raise RuntimeError(f"swa_attention: kernel launch failed with cudaError {err}")
     LAUNCHES += 1

@@ -81,7 +81,7 @@ def _branch_case(s, window, branch, heads=(4, 2, 64), tag=""):
     _branch_case(3072, 2048, "flash"), _branch_case(3072, 1024, "banded"),
     # RecurrentGemma-9B's local attention: one KV head of hd 256, window 2048
     _branch_case(4096, 2048, "banded", heads=(2, 1, 256), tag="-hd256"),
-    # hd 512, which the kernel runs in two chunks of 256 columns
+    # hd 512, which the kernel runs on a cluster of two CTAs
     _branch_case(3072, 1024, "banded", heads=(2, 1, 512), tag="-hd512")])
 def test_gqa_attention_branches_match_jax(s, window, branch, heads):
     h, kh, hd = heads
@@ -99,6 +99,23 @@ def test_gqa_attention_branches_match_jax(s, window, branch, heads):
 def test_padded_head_dim_rule(hd, width):
     """The builds up to 256, then the next multiple of 256 (the chunk)."""
     assert swa_kernel.padded_head_dim(hd) == width
+
+
+@pytest.mark.parametrize("hd,fp32,bf16", [
+    (64, "scalar-fp32-hd64", "wgmma-bf16-hd64"), (96, "scalar-fp32-hd128", "wgmma-bf16-hd128"),
+    (256, "scalar-fp32-hd256", "wgmma-bf16-hd256"),
+    (288, "cluster-scalar-fp32-hd256x2", "cluster-wgmma-bf16-hd256x2"),
+    (768, "cluster-scalar-fp32-hd256x3", "cluster-wgmma-bf16-hd256x3"),
+    (2048, "cluster-scalar-fp32-hd256x8", "cluster-wgmma-bf16-hd256x8"),
+    (2049, "scalar-fp32-hd256", "scalar-bf16-hd256")])
+def test_build_of_routes_by_dtype_and_head_dim(hd, fp32, bf16):
+    """The build a launch runs, by dtype and padded hd, with no launch:
+    the one-block builds up to hd 256, a cluster of hd / 256 CTAs up to
+    the largest portable cluster (8, hd 2,048), the chunked scalar
+    hd-256 build above it."""
+    width = swa_kernel.padded_head_dim(hd)
+    assert swa_kernel.build_of(torch.float32, width) == fp32
+    assert swa_kernel.build_of(torch.bfloat16, width) == bf16
 
 
 @pytest.mark.parametrize("hd", [1, 48, 96, 160, 200, 256, 288, 320, 512])

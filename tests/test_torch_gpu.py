@@ -531,9 +531,14 @@ def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
     (1, 1024, 2, 1, 256, 2048), (2, 192, 4, 2, 256, 100), (1, 320, 3, 1, 96, 100),
     (1, 1024, 4, 4, 256, 100), (1, 320, 16, 1, 256, 2048), (1, 2112, 2, 2, 256, 2048),
     (2, 1024, 4, 2, 96, 300),
-    # hd 512 in two chunks of 256 columns, hd 288 zero-padded to 512
+    # hd 512 on a cluster of two CTAs, hd 288 zero-padded to 512
     (1, 1024, 2, 1, 512, 2048), (2, 192, 4, 2, 512, 100), (1, 320, 3, 1, 288, 100),
-    (2, 1024, 4, 2, 288, 300)])
+    (2, 1024, 4, 2, 288, 300),
+    # clusters of 3, 5 and 8 (the partial tiles in 2, 4 and 8 rounds in
+    # bf16; 1, 2 and 4 in fp32), and hd 2,304 above the largest cluster
+    # (the scalar kernel in 9 chunks)
+    (1, 1024, 2, 1, 768, 2048), (2, 192, 2, 2, 768, 100), (1, 320, 2, 1, 1280, 100),
+    (1, 192, 2, 1, 2048, 100), (1, 320, 2, 1, 2304, 100)])
 def test_swa_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, window):
     q, k, v = _swa_inputs(b, s, h, kh, hd, dtype, seed=s + window, device=cuda)
     before = swa_kernel.LAUNCHES
@@ -552,30 +557,52 @@ def test_swa_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, window):
         assert bool((err <= bound).all()), float((err / bound).max())
 
 
-@pytest.mark.parametrize("s,h,kh,window", [(1024, 4, 1, 2048), (320, 4, 4, 100),
-                                          (192, 2, 1, 100)])
-def test_swa_hd256_bf16_runs_the_wgmma_build_bitwise(cuda, s, h, kh, window):
-    """bf16 at hd 256 launches the wgmma build, never the scalar one; two
-    launches agree bitwise; its ptxas report shows no spill."""
+# (dtype, hd, the build, the end of its kernel's mangled name)
+_SWA_BUILDS = {
+    (torch.bfloat16, 256): ("wgmma-bf16-hd256", "wgmma_hd256"),
+    (torch.bfloat16, 512): ("cluster-wgmma-bf16-hd256x2", "wgmma_cluster2E"),
+    (torch.bfloat16, 768): ("cluster-wgmma-bf16-hd256x3", "wgmma_clusterE"),
+    (torch.float32, 512): ("cluster-scalar-fp32-hd256x2", "scalar_clusterE"),
+    (torch.float32, 768): ("cluster-scalar-fp32-hd256x3", "scalar_clusterE"),
+}
+
+
+@pytest.mark.parametrize("dtype,hd,s,h,kh,window", [
+    (torch.bfloat16, 256, 1024, 4, 1, 2048), (torch.bfloat16, 256, 320, 4, 4, 100),
+    (torch.bfloat16, 256, 192, 2, 1, 100),
+    *[(dtype, hd, s, h, kh, window) for dtype in (torch.bfloat16, torch.float32)
+      for hd, s, h, kh, window in [(512, 1024, 4, 1, 2048), (512, 192, 2, 2, 100),
+                                   (768, 320, 2, 1, 100)]]])
+def test_swa_runs_its_build_bitwise(cuda, dtype, hd, s, h, kh, window):
+    """bf16 at hd 256 launches the wgmma build, and bf16 and fp32 at hd
+    512 and 768 the cluster builds (a cluster of hd / 256 CTAs), never
+    the scalar or chunked kernel; two launches agree bitwise; ptxas
+    reports no spill for the build's kernel and does not serialize its
+    products."""
     from repro_torch.kernels import _build
 
-    q, k, v = _swa_inputs(1, s, h, kh, 256, torch.bfloat16, seed=s + h, device=cuda)
+    build, kernel = _SWA_BUILDS[dtype, hd]
+    seed = s + h if hd == 256 else s + hd
+    q, k, v = _swa_inputs(1, s, h, kh, hd, dtype, seed=seed, device=cuda)
     before = dict(swa_kernel.BUILD_LAUNCHES)
     got = swa_kernel.swa_attention(q, k, v, window=window)
     again = swa_kernel.swa_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     ran = {b: n - before.get(b, 0) for b, n in swa_kernel.BUILD_LAUNCHES.items()
            if n != before.get(b, 0)}
-    assert ran == {"wgmma-bf16-hd256": 2}
+    assert ran == {build: 2}
     assert torch.equal(got, again)
     o32 = ref.swa_attention_plain(q.float(), k.float(), v.float(), window=window)
-    bound = ref.swa_bf16_bound(q, k, v, window=window)
-    assert bool(((got.float() - o32).abs() <= bound).all())
+    if dtype == torch.bfloat16:
+        assert bool(((got.float() - o32).abs() <= ref.swa_bf16_bound(q, k, v, window=window)).all())
+    else:
+        torch.testing.assert_close(got, o32, rtol=0, atol=SWA_ATOL[dtype])
     log = _build.build_log("swa_attention")
     entry = next(part for part in log.split("Compiling entry function")[1:]
-                 if "wgmma_hd256" in part.splitlines()[0])
+                 if kernel in part.splitlines()[0])
     spills = [ln for ln in entry.splitlines() if "spill" in ln]
     assert spills and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills)
+    assert not [ln for ln in log.splitlines() if "Performance Loss" in ln and kernel in ln]
 
 
 def test_swa_wrapper_checks(cuda):
