@@ -106,8 +106,10 @@ Phases, each printing one JSON line:
                 chunks of 256 columns), 96 and 288 (zero-padded to 128
                 and 512) at S in {1024, 3072} x window in {100, 2048},
                 with 0 bytes of spill in the five ``wgmma`` kernels (none
-                of them serialized by ptxas), the four scalar kernels and
-                the fp32 cluster kernel; at RecurrentGemma-9B's local
+                of them serialized by ptxas), the three fp32 one-block
+                kernels (``swa_attention_kernel_bulk``: TMA-staged,
+                8 x 8 register tiles), the two chunked scalar kernels
+                and the fp32 cluster kernel; at RecurrentGemma-9B's local
                 attention (B=1, S=8,192, H=16, K=1, window 2048) at its
                 hd 256 and at hd 288 and 512 (each launch's build checked
                 by name: the one-block builds at 256, the clusters of two
@@ -115,11 +117,14 @@ Phases, each printing one JSON line:
                 within 3e-5, bf16 elementwise within ``swa_bf16_bound``;
                 at hd 256 and 512 in both dtypes its time (bf16 at hd 256
                 also L2-flushed), the banded path's,
-                ``scaled_dot_product_attention``'s and its bound; at
+                ``scaled_dot_product_attention``'s and its bound, and fp32
+                at hd 256 beside the one-block code it replaced (the
+                chunked build at one chunk); at
                 the LM prefill's shape (B=1, S=32,768, H=96, K=8, hd=128,
                 window 4096) against the plain ``banded_flash_attention``
                 in fp32 on the same inputs (the fp32 build also timed
-                there beside the banded path and SDPA in fp32): the
+                there beside the banded path and SDPA in fp32, and at hd
+                64 on that shape, a synthetic one): the
                 kernel's fp32 build within 3e-5, its bf16 build elementwise within
                 ``swa_bf16_bound`` (given the banded path); and against
                 the banded path in bf16, as JAX runs it (<= 5e-2); two
@@ -134,7 +139,8 @@ Phases, each printing one JSON line:
                 window), then 16 greedy ``decode_fn`` steps; the same
                 path at the reduced width (fp32, window 1024, S=3072) on
                 the card and on the CPU from the same weights (logits
-                within 1e-4, caches within 1e-5, 4 decode steps); and the
+                within 1e-4, caches within 1e-5, 4 decode steps; one
+                launch a layer, all on ``scalar-fp32-hd64``); and the
                 ``arch_demo`` CLI on the card;
  16. lmtiming — the kernel at the prefill's shape: CUDA-event time, the
                 plain banded twin, ``scaled_dot_product_attention`` with
@@ -892,6 +898,21 @@ def launched_build(before: dict[str, int]) -> str:
     ran = [b for b, n in swa_kernel.BUILD_LAUNCHES.items() if n != before.get(b, 0)]
     require(len(ran) == 1, f"swa_attention builds launched: {ran}")
     return ran[0]
+
+
+def swa_replaced_fp32(q, k, v, window: int) -> torch.Tensor:
+    """The fp32 one-block code that ``scalar-fp32-hd256`` replaced, which
+    the C entry still runs at hd 256 as the chunked build at one chunk (a
+    split the wrapper never sends): timed beside the build, never counted."""
+    from repro_torch.kernels import swa_attention as swa_kernel
+
+    b, s, h, hd = q.shape
+    out = torch.empty_like(q)
+    err = swa_kernel._fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+                           k.shape[2], hd, window, hd ** -0.5, 0, swa_kernel.CHUNKS,
+                           torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"the replaced fp32 code failed to launch: cudaError {err}")
+    return out
 
 
 def swa_timing(q, k, v, window: int, ops_per_s: float) -> dict:
@@ -3475,16 +3496,19 @@ def main() -> int:
     require(sum(k != "warnings" for k in swa_ptxas) == 5 and spill_free(swa_ptxas)
             and "warnings" not in swa_ptxas,
             f"a wgmma swa_attention kernel spills, is serialized or is missing: {swa_ptxas}")
-    # the scalar builds: fp32 at hd 64, 128 and 256, and bf16 at hd 256
-    # (which runs only the chunked head dims above 2,048; fp32's also runs
-    # them), and fp32's clusters (hd 512 to 2,048)
+    # the fp32 one-block builds at hd 64, 128 and 256 (TMA-staged); the
+    # chunked scalar builds, bf16 and fp32 at hd 256 (the head dims above
+    # 2,048); and fp32's clusters (hd 512 to 2,048)
+    bulk_ptxas = ptxas_report(swa_log, "kernel_bulk")
+    require(sum(k != "warnings" for k in bulk_ptxas) == 3 and spill_free(bulk_ptxas),
+            f"an fp32 one-block swa_attention kernel spills or is missing: {bulk_ptxas}")
     scalar_ptxas = ptxas_report(swa_log, "swa_attention_kernelI")
-    require(sum(k != "warnings" for k in scalar_ptxas) == 4 and spill_free(scalar_ptxas),
-            f"a scalar swa_attention kernel spills or is missing: {scalar_ptxas}")
+    require(sum(k != "warnings" for k in scalar_ptxas) == 2 and spill_free(scalar_ptxas),
+            f"a chunked scalar swa_attention kernel spills or is missing: {scalar_ptxas}")
     cluster_ptxas = ptxas_report(swa_log, "scalar_cluster")
     require(sum(k != "warnings" for k in cluster_ptxas) == 1 and spill_free(cluster_ptxas),
             f"the fp32 cluster swa_attention kernel spills or is missing: {cluster_ptxas}")
-    for name, lines in {**swa_ptxas, **scalar_ptxas, **cluster_ptxas}.items():
+    for name, lines in {**swa_ptxas, **bulk_ptxas, **scalar_ptxas, **cluster_ptxas}.items():
         print(f"ptxas {name}: " + " | ".join(lines), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(77)
     swa_err = {str(dtype): 0.0 for dtype in SWA_TOL}
@@ -3545,6 +3569,11 @@ def main() -> int:
         rg_out = swa_kernel.swa_attention(q, k, v, window=rg_window)
         rg_err = {"fp32_max_abs_err": float((rg_out - banded).abs().max()),
                   "fp32_build": launched_build(builds_before)}
+        if hd == 256:  # the one-block code it replaced, held as the build is
+            rg_err["fp32_replaced_max_abs_err"] = float(
+                (swa_replaced_fp32(q, k, v, rg_window) - banded).abs().max())
+            require(rg_err["fp32_replaced_max_abs_err"] <= SWA_TOL[torch.float32],
+                    f"the replaced fp32 code at {HYBRID_ARCH}'s shape vs the banded path: {rg_err}")
         qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
         builds_before = dict(swa_kernel.BUILD_LAUNCHES)
         rg_out = swa_kernel.swa_attention(qb, kb, vb, window=rg_window)
@@ -3569,6 +3598,9 @@ def main() -> int:
                 f"{rg_err}")
         if hd in HYBRID_TIMED:
             rg_err["fp32"] = swa_timing(q, k, v, rg_window, FP32_OPS_PER_S)
+            if hd == 256:  # beside the one-block code it replaced, in the same run
+                rg_err["fp32"]["replaced_ms"] = time_ms(
+                    lambda: swa_replaced_fp32(q, k, v, rg_window), 20)
             rg_err["bf16"] = swa_timing(qb, kb, vb, rg_window, BF16_OPS_PER_S)
             rg_err["bf16"]["ms_l2_flushed"] = time_ms(
                 lambda: swa_kernel.swa_attention(qb, kb, vb, window=rg_window), 20, flush)
@@ -3590,13 +3622,26 @@ def main() -> int:
     # bf16), at JAX's bf16 bound
     q32, k32, v32 = q.float(), k.float(), v.float()
     banded = attn.banded_flash_attention(q32, k32, v32, window=window)
+    builds_before = dict(swa_kernel.BUILD_LAUNCHES)
     out32 = swa_kernel.swa_attention(q32, k32, v32, window=window)
+    fp32_build = launched_build(builds_before)
+    require(fp32_build == "scalar-fp32-hd128", f"fp32 at the prefill's shape ran {fp32_build}")
     fp32_err = float((out32 - banded).abs().max())
     del out32
-    # the fp32 build at the same shape, timed (the next fp32 kernel under
-    # half its bound), beside the plain path and SDPA in fp32
-    fp32_timing = swa_timing(q32, k32, v32, window, FP32_OPS_PER_S)
+    # the fp32 build at the same shape, timed beside the plain path and
+    # SDPA in fp32
+    fp32_timing = {"build": fp32_build, **swa_timing(q32, k32, v32, window, FP32_OPS_PER_S)}
     del q32, k32, v32
+    # hd 64 at that shape (synthetic: every reduced config runs hd 64 in
+    # fp32, none at this size), its build checked by name
+    q64, k64, v64 = swa_inputs(gen, 1, seq, heads, kv_heads, 64, torch.float32)
+    builds_before = dict(swa_kernel.BUILD_LAUNCHES)
+    swa_kernel.swa_attention(q64, k64, v64, window=window)
+    fp32_hd64_timing = {"build": launched_build(builds_before),
+                        **swa_timing(q64, k64, v64, window, FP32_OPS_PER_S)}
+    require(fp32_hd64_timing["build"] == "scalar-fp32-hd64",
+            f"fp32 at hd 64 ran {fp32_hd64_timing['build']}")
+    del q64, k64, v64
     diff = (out.float() - banded).abs()
     path_err = {"fp32_max_abs_err": fp32_err, "bf16_max_abs_err": float(diff.max()),
                 "ref_mean_abs": float(banded.abs().mean())}
@@ -3613,8 +3658,9 @@ def main() -> int:
     del banded, out, again
     require(path_err["bf16_vs_bf16_banded_max_abs_err"] <= SWA_TOL[torch.bfloat16],
             f"swa_attention at the prefill's shape vs the bf16 banded path: {path_err}")
-    emit("swa", ptxas=swa_ptxas, ptxas_scalar=scalar_ptxas, ptxas_scalar_cluster=cluster_ptxas,
-         cases=n_swa, path_fp32=fp32_timing,
+    emit("swa", ptxas=swa_ptxas, ptxas_fp32=bulk_ptxas, ptxas_scalar=scalar_ptxas,
+         ptxas_scalar_cluster=cluster_ptxas, cases=n_swa, path_fp32=fp32_timing,
+         path_fp32_hd64_synthetic=fp32_hd64_timing,
          cases_wide_hd=n_swa - n_narrow, wide_hds=SWA_WIDE["hds"], max_abs_err=swa_err,
          tol={str(d): t for d, t in SWA_TOL.items()}, sweep_bf16_max_err_over_bound=bf16_over_bound,
          repeat_bitwise=True, path_shape=dict(B=1, S=seq, H=heads, K=kv_heads, hd=head_dim,
@@ -3677,7 +3723,7 @@ def main() -> int:
                   for key, val in cpu_params.items()}
     small_tokens = torch.randint(0, small.vocab_size, (1, 3072), dtype=torch.int32,
                                  generator=torch.Generator().manual_seed(3))
-    before = swa_kernel.LAUNCHES
+    before, builds_before = swa_kernel.LAUNCHES, dict(swa_kernel.BUILD_LAUNCHES)
     steps_err, on_card, on_cpu = card_vs_cpu(  # both sides fed the card's greedy tokens
         lambda feed=None: logits_run(small_arch, gpu_params, small_tokens.cuda(), 4,
                                      small.vocab_size, feed=feed),
@@ -3685,6 +3731,11 @@ def main() -> int:
                                      feed=feed),
         LM_SLICE_TOL["logits"], "reduced slice")
     require(swa_kernel.LAUNCHES - before == small.num_layers, "the reduced prefill missed the kernel")
+    slice_builds = {name: n - builds_before.get(name, 0)
+                    for name, n in swa_kernel.BUILD_LAUNCHES.items()
+                    if n != builds_before.get(name, 0)}
+    require(slice_builds == {"scalar-fp32-hd64": small.num_layers},
+            f"the reduced slice ran the builds {slice_builds}")
     slice_err = {"logits": max(steps_err),
                  "caches": max(float((getattr(on_card[at], kv).cpu()
                                       - getattr(on_cpu[at], kv)).abs().max())
@@ -3703,7 +3754,7 @@ def main() -> int:
          cache_shape=list(cache_shape), init_s=init_s, first_prefill_s=prefill_first_s,
          peak_memory_gb=peak_gb, decode_steps=LM_DECODE_STEPS, decoded_tokens=decoded,
          slice_card_vs_cpu=slice_err, slice_card_vs_cpu_logits_steps=steps_err,
-         slice_tol=LM_SLICE_TOL,
+         slice_tol=LM_SLICE_TOL, slice_builds=slice_builds,
          arch_demo=demo.stdout.strip().splitlines()[-2:])
 
     # 16. the kernel and the prefill timed at the path's shape --------------
@@ -4019,7 +4070,9 @@ def main() -> int:
                                  for phase, builds in phase_builds.items()},
                              **hybrid[str(hd)][dt]}
                             for hd in HYBRID_TIMED for dt in ("bf16", "fp32")],
-                 "builds_phase15": lm_builds, "prefill_shape_fp32": fp32_timing,
+                 "builds_phase15": lm_builds, "builds_phase15_slice": slice_builds,
+                 "prefill_shape_fp32": fp32_timing,
+                 "prefill_shape_fp32_hd64_synthetic": fp32_hd64_timing,
                  **zoo_row, **train_row})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

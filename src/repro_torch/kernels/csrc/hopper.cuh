@@ -467,10 +467,13 @@ inline int bf16_map_4d(CUtensorMap* map, const void* base, int d0, int d1, int d
 
 // A 4-D map of a contiguous fp32 tensor (d3, d2, d1, d0), innermost d0,
 // in boxes of b0 x b1 x b2 x 1 written to shared memory in that order,
-// unswizzled; reads outside the tensor fill zeros.  d0 * 4 bytes and the
-// box's b0 * 4 bytes must be multiples of 16.  Returns a cudaError_t.
+// unswizzled, or with `swizzle_128b` 128-byte swizzled (b0 <= 32: the
+// 16-byte chunk c of box row r lands at chunk c ^ (r % 8) of its 128-byte
+// row, the destination 1024-byte aligned); reads outside the tensor fill
+// zeros.  d0 * 4 bytes and the box's b0 * 4 bytes must be multiples of
+// 16.  Returns a cudaError_t.
 inline int f32_map_4d(CUtensorMap* map, const void* base, int d0, int d1, int d2, int d3, int b0,
-                      int b1, int b2) {
+                      int b1, int b2, bool swizzle_128b = false) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
@@ -482,7 +485,8 @@ inline int f32_map_4d(CUtensorMap* map, const void* base, int d0, int d1, int d2
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
                               dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              swizzle_128b ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -72,19 +72,31 @@
 // / l on top of its own rounding, 2^-9 |o|.  ref.swa_bf16_bound states
 // that limit, and the checks hold the kernel to it.
 //
-// fp32: swa_attention_kernel, scalar.  TF32 tensor cores would round q
-// and k to 10-bit mantissas and break the 3e-5 bound that the fp32 checks
-// hold, so fp32 keeps scalar FMAs: one block per (64-row q tile, b * H +
-// h) loops over the band's 64-key tiles with m, l and acc in registers;
-// K and V are staged in shared memory as fp32 (K rows padded by 4 floats
-// so the float4 reads of a quarter warp hit distinct banks); P reuses K's
-// space once the scores are in registers; the 256 threads form 16 x 16,
-// thread (ty, tx) owning rows ty + 16 i and keys tx + 16 j (i, j < 4) of
-// the scores and the same rows of the output, so a row's max and sum are
-// xor-shuffles over its 16 lanes.  Its shared memory at hd 256, 4 (2 x
-// 64 x 256 + 64 x 260) = 197,632 bytes, holds one block an SM.  It loads
-// through registers with no overlap: at hd 256 it reaches under half its
-// bound (67 TFLOP/s of fp32 FMAs).
+// fp32: swa_attention_kernel_bulk at hd 64, 128 and 256, scalar.  TF32
+// tensor cores would round q and k to 10-bit mantissas and break the 3e-5
+// bound that the fp32 checks hold, so fp32 keeps scalar FMAs (67 TFLOP/s):
+// one block of 8 warps per (q tile, b * H + h), 64 rows at hd 64 and 256
+// and 128 at hd 128, loops over the band's 64-key tiles with m, l and acc
+// in registers.  Two things held the
+// kernel it replaced under half that bound, and both were measured on an
+// H100 (PERF.md): its loads went through registers with no overlap, and
+// its 4 x 4 register tiles took 2 FMAs a float read from shared memory,
+// whose 128 bytes a cycle then fed only half the 128 FMA lanes.  So one
+// thread issues TMA copies of Q once and of each K and V tile (K in
+// 128-byte-swizzled boxes of 32 columns, so that the float4 reads of a
+// quarter warp hit distinct banks), on a full mbarrier a stage; K and V
+// are released apart, and the last warp to release a stage issues the
+// next copy there, so the copies overlap the FMAs and no block-wide
+// barrier stands in the tile loop.  One stage each at hd 256, two at hd
+// 64 and 128.  A warp owns 8 query rows (16 at hd 128); in Q K^T its
+// lanes split the head dim four ways (two at hd 64 and 128), each thread
+// summing 8 x 8 partial scores (8 x 4 at hd 64), 4 FMAs a float read, and
+// the partial sums are added across the lanes by shuffles; P goes through
+// a warp-private space; in P V a thread holds 8 rows x 8 columns of O (8
+// x 4 at hd 64).  Every sum runs in a
+// fixed order, with no atomics.  The replaced code, staged through
+// registers, is the chunked build below (swa_attention_kernel), which
+// the C entry still runs at hd 256 as one chunk.
 //
 // Above hd 256, hd = 256 c with 2 <= c <= 8: thread-block clusters of c
 // CTAs (bf16: swa_attention_kernel_wgmma_cluster2 at c = 2,
@@ -122,9 +134,10 @@
 // library's attention (PERF.md, tools/swa_cluster_ab.py).  The fp32
 // build stays bound by its FMAs (twice the hd-256 build's work on twice
 // the CTAs), the exchange a small share of it.  A portable cluster holds
-// at most 8 CTAs, so above hd 2,048 both dtypes run the scalar kernel's hd-256 build in
-// hd / 256 chunks along blockIdx.z: each chunk's block takes the scores
-// over the whole head dim, 256 columns of Q and K at a time, and writes
+// at most 8 CTAs, so above hd 2,048 both dtypes run the chunked scalar
+// build (swa_attention_kernel) at hd 256 in hd / 256 chunks along
+// blockIdx.z: each chunk's block takes the scores over the whole head
+// dim, 256 columns of Q and K at a time, and writes
 // its own 256 columns of O (Q K^T and the softmax hd / 256 times); bf16 is
 // loaded 4 values at a time and widened to fp32 there, computed as fp32
 // is, and the output rounded to bf16 once.  RecurrentGemma-9B's local
@@ -332,13 +345,14 @@ __device__ __forceinline__ void store_rows(T* ob, long long q_step,
   }
 }
 
-// Two blocks an SM at hd 64 and 128.  At hd 256 one block's shared
-// memory (197,632 bytes) leaves room for no second, so the bound asks for
-// one and lets a thread keep its 64 accumulators in up to 255 registers.
+// The chunked build: staged through registers, with no overlap.  Only
+// HD = 256 is launched (bf16 and fp32), whose shared memory (197,632
+// bytes) holds one block an SM, so the bound asks for one and lets a
+// thread keep its 64 accumulators in up to 255 registers.
 //
 // HD is the block's chunk of the head dim, which is chunks x HD: a
 // head dim above 256 that no cluster holds (above 2048) runs HD = 256 in
-// chunks of 256 columns (only there is chunks > 1).  Block (x, y, z)
+// chunks of 256 columns.  Block (x, y, z)
 // writes the 64 q rows x of head y and the output columns [z HD, z HD +
 // HD): each tile's scores run over the whole head dim, chunk by chunk in
 // ascending order, each chunk of Q and K staged in Q's and K's space; V's
@@ -427,6 +441,449 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), S, H, K, window, scale, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- fp32 at hd 64, 128 and 256: staged by TMA, overlapping the FMAs ---
+
+constexpr int kWarps = kThreads / 32;
+
+// How the fp32 kernel's threads split a tile's work at HD.  A block holds
+// kRows query rows, warp w the rows w + 8 h (h < kWarpRows): 64 rows at hd
+// 64 and 256, 128 at hd 128 (16 a warp), whose shared memory and
+// registers allow it.  Q K^T: the lanes form kRowGroups x kSplit groups,
+// group (rg, D) taking the warp's rows h = 8 rg + i (i < 8) over the head
+// dim's columns [D kPart, (D + 1) kPart), lane lk of a group's kLanes the
+// keys lk + kLanes j (j < kKeys).  At hd 128 and 256 a thread sums 8 x 8
+// partial scores from 16 float4 reads a step, 4 FMAs a float read (the 16
+// x 16 grid's 4 x 4 tile took 2); hd 64 keeps 8 x 4 within two blocks'
+// 128 registers a thread.  The D groups then sum the partial scores over
+// the head dim (bulk_scores), each thread keeping kSRows rows, h = 8 rg +
+// kSRows D + i, of kKeys keys: its softmax rows.  P V: lane cg of a
+// group's kColLanes takes the float4 columns cg + kColLanes c (c < kCol4),
+// the lane groups the rows h = 8 prg + r (r < 8) and, at hd 64, halves of
+// the tile's keys (kKeyParts): 8 rows x 8 columns a thread at hd 128 and
+// 256, 16 float4 reads for 256 FMAs (the grid's 4 x 16 took 20 at hd
+// 256), 8 x 4 at hd 64, whose key halves are added once, after the last
+// tile.
+template <int HD>
+struct BulkTiles {
+  static constexpr int kWarpRows = HD == 128 ? 16 : 8;
+  static constexpr int kRows = 8 * kWarpRows;
+  static constexpr int kRowGroups = kWarpRows / 8;
+  static constexpr int kSplit = HD == 256 ? 4 : 2;
+  static constexpr int kPart = HD / kSplit;
+  static constexpr int kLanes = 32 / (kRowGroups * kSplit);
+  static constexpr int kKeys = kTile / kLanes;
+  static constexpr int kSRows = 8 / kSplit;
+  static constexpr int kColLanes = HD == 64 ? 16 : 32 / kRowGroups;
+  static constexpr int kCol4 = HD / 4 / kColLanes;
+  static constexpr int kKeyParts = 32 / (kRowGroups * kColLanes);
+  static constexpr int kPvKeys = kTile / kKeyParts;
+};
+
+// The shared memory of swa_attention_kernel_bulk<HD>: kStages stages of K
+// (HD / 32 boxes of kTile rows x 32 columns, 128-byte swizzled, so that
+// the float4 reads of a quarter warp from 8 rows hit distinct banks), Q
+// (kRows x HD), kStages stages of V, P (kRows x kTile), then the barriers
+// (Q's, a full barrier for each stage of K and of V) and a release count
+// for each stage of K and of V; 1,024 bytes more to align the swizzled
+// boxes.
+template <int HD>
+struct BulkLayout {
+  static constexpr int kStages = HD == 256 ? 1 : 2;
+  static constexpr int kRows = BulkTiles<HD>::kRows;
+  static constexpr int kQ = kRows * HD, kK = kTile * HD, kV = kTile * HD, kP = kRows * kTile;
+  static constexpr int kFloats = kStages * (kK + kV) + kQ + kP;
+  static constexpr size_t kSmem = 1024 + sizeof(float) * kFloats +
+                                  sizeof(uint64_t) * (1 + 2 * kStages) +
+                                  sizeof(uint32_t) * 2 * kStages;
+  static constexpr uint32_t kTileBytes = kTile * HD * sizeof(float);  // K or V a tile
+  static constexpr uint32_t kQBytes = kRows * HD * sizeof(float);
+};
+
+// The K tile at row0 (its HD / 32 swizzled boxes), or the box of `bytes`
+// at row0 of Q or V, into dst, counted on `bar`: by one thread
+template <int HD>
+__device__ __forceinline__ void stage_k(float* dst, const CUtensorMap* map, uint64_t* bar,
+                                        int head, int row0, int b) {
+  hopper::mbar_expect_tx(bar, BulkLayout<HD>::kTileBytes);
+  for (int x = 0; x < HD / 32; ++x)
+    hopper::tma_load_4d(dst + x * kTile * 32, map, bar, 32 * x, head, row0, b);
+}
+
+__device__ __forceinline__ void stage_rows(float* dst, const CUtensorMap* map, uint64_t* bar,
+                                           uint32_t bytes, int head, int row0, int b) {
+  hopper::mbar_expect_tx(bar, bytes);
+  hopper::tma_load_4d(dst, map, bar, 0, head, row0, b);
+}
+
+// The calling warp is done reading a stage that all kWarps warps read:
+// true, on every lane, for the warp that says so last (it alone then
+// stages the next tile there).  The fences order every warp's reads of
+// the stage before the copy that overwrites it.
+__device__ __forceinline__ bool released_last(uint32_t* count, int lane) {
+  __syncwarp();
+  uint32_t last = 0;
+  if (lane == 0) {
+    __threadfence_block();
+    last = atomicAdd(count, 1u) % kWarps == kWarps - 1;
+  }
+  last = __shfl_sync(0xffffffffu, last, 0);
+  if (last) {
+    __threadfence_block();
+    hopper::fence_async_smem();
+  }
+  return last != 0;
+}
+
+// Key c of P's row r sits at c ^ p_flip(r): the rows that a warp's lane
+// groups write at once land on distinct banks.
+template <int HD>
+__device__ __forceinline__ int p_flip(int r) {
+  return ((r / (BulkTiles<HD>::kRows / 4)) & 3) << 3;
+}
+
+// Half of the N rows of x stay with this lane and the other half go to the
+// lane `mask` away, which keeps that half; each kept row gets the
+// partner's partial sums added.  Lanes with `upper` keep rows [N / 2, N).
+template <int N, int C>
+__device__ __forceinline__ void keep_half(const float (&x)[N][C], float (&kept)[N / 2][C],
+                                          bool upper, int mask) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const float theirs = __shfl_xor_sync(0xffffffffu, upper ? x[i][j] : x[i + N / 2][j], mask);
+      kept[i][j] = (upper ? x[i + N / 2][j] : x[i][j]) + theirs;
+    }
+}
+
+// Q K^T of a tile: sc[i][j] = q[w + 8 (8 rg + kSRows D + i)] . k[lk +
+// kLanes j], the sum of the kSplit column groups' partial sums, added
+// pairwise across the groups (a shfl_xor on each bit of D, the highest
+// first), so that each thread ends with its own rows.  Column col of K's
+// row r is at box col / 32, row r, 16-byte chunk ((col / 4) % 8) ^ (r %
+// 8); a thread's rows all have r % 8 = lk % 8.
+template <int HD>
+__device__ __forceinline__ void bulk_scores(
+    float (&sc)[BulkTiles<HD>::kSRows][BulkTiles<HD>::kKeys], const float* qs, const float* ks,
+    int w, int lane) {
+  using T = BulkTiles<HD>;
+  const int rg = lane / (T::kLanes * T::kSplit), D = (lane / T::kLanes) % T::kSplit;
+  const int lk = lane % T::kLanes;
+  const float* qr = qs + (w + 64 * rg) * HD + D * T::kPart;
+  const float* kr = ks + lk * 32;
+  float part[8][T::kKeys];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < T::kKeys; ++j) part[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < T::kPart; d += 4) {
+    const int col = D * T::kPart + d;
+    const float* kc = kr + (col >> 5) * (kTile * 32) + ((((col >> 2) & 7) ^ (lk & 7)) << 2);
+    float4 qv[8], kv[T::kKeys];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) qv[i] = *reinterpret_cast<const float4*>(qr + 8 * i * HD + d);
+#pragma unroll
+    for (int j = 0; j < T::kKeys; ++j)
+      kv[j] = *reinterpret_cast<const float4*>(kc + T::kLanes * j * 32);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kKeys; ++j) {
+        float s = part[i][j];
+        s = fmaf(qv[i].x, kv[j].x, s);
+        s = fmaf(qv[i].y, kv[j].y, s);
+        s = fmaf(qv[i].z, kv[j].z, s);
+        s = fmaf(qv[i].w, kv[j].w, s);
+        part[i][j] = s;
+      }
+  }
+  if constexpr (T::kSplit == 2) {
+    keep_half(part, sc, D == 1, T::kLanes);
+  } else {
+    float half[4][T::kKeys];
+    keep_half(part, half, (D >> 1) == 1, 2 * T::kLanes);
+    keep_half(half, sc, (D & 1) == 1, T::kLanes);
+  }
+}
+
+// The tile at q row q0, key k0 for a thread's softmax rows: the scale, the
+// element mask where the tile crosses an edge of the band, and the online
+// softmax (m, l, alpha updated; sc becomes p).  sc[i] is row q0 + row0 + 8
+// i, keys lk + kLanes j; a row's 64 scores lie on the kLanes lanes of one
+// group, so its max and sum are xor-shuffles over them.
+template <int HD>
+__device__ __forceinline__ void bulk_softmax(
+    float (&sc)[BulkTiles<HD>::kSRows][BulkTiles<HD>::kKeys],
+    float (&m)[BulkTiles<HD>::kSRows], float (&l)[BulkTiles<HD>::kSRows],
+    float (&alpha)[BulkTiles<HD>::kSRows], int q0, int k0, int window, float scale, int row0,
+    int lk) {
+  using T = BulkTiles<HD>;
+  const bool edge = !(k0 + kTile - 1 <= q0 && k0 > q0 + T::kRows - 1 - window);
+#pragma unroll
+  for (int i = 0; i < T::kSRows; ++i)
+#pragma unroll
+    for (int j = 0; j < T::kKeys; ++j) {
+      float s = sc[i][j] * scale;
+      if (edge) {
+        const int qp = q0 + row0 + 8 * i, kp = k0 + lk + T::kLanes * j;
+        if (!(kp <= qp && kp > qp - window)) s = kNegInf;
+      }
+      sc[i][j] = s;
+    }
+#pragma unroll
+  for (int i = 0; i < T::kSRows; ++i) {
+    float mx = sc[i][0];
+#pragma unroll
+    for (int j = 1; j < T::kKeys; ++j) mx = fmaxf(mx, sc[i][j]);
+#pragma unroll
+    for (int off = T::kLanes / 2; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m[i], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < T::kKeys; ++j) {
+      sc[i][j] = expf(sc[i][j] - m_new);
+      sum += sc[i][j];
+    }
+#pragma unroll
+    for (int off = T::kLanes / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    alpha[i] = expf(m[i] - m_new);
+    l[i] = l[i] * alpha[i] + sum;
+    m[i] = m_new;
+  }
+}
+
+// P (the thread's softmax rows row0 + 8 i, keys lk + kLanes j) into P's
+// space.  A warp writes and reads only its own rows (w mod 8), so it alone
+// waits.
+template <int HD>
+__device__ __forceinline__ void bulk_write_p(
+    float* ps, const float (&sc)[BulkTiles<HD>::kSRows][BulkTiles<HD>::kKeys], int row0, int lk) {
+  using T = BulkTiles<HD>;
+  __syncwarp();  // the warp's reads of the last tile's P are done
+#pragma unroll
+  for (int i = 0; i < T::kSRows; ++i) {
+    const int r = row0 + 8 * i;
+#pragma unroll
+    for (int j = 0; j < T::kKeys; ++j)
+      ps[r * kTile + ((lk + T::kLanes * j) ^ p_flip<HD>(r))] = sc[i][j];
+  }
+  __syncwarp();
+}
+
+// x of the warp's row w + 8 h, h % kSRows == i, from the lane group whose
+// softmax rows hold it (group h / kSRows)
+template <int HD>
+__device__ __forceinline__ float row_value(const float (&x)[BulkTiles<HD>::kSRows], int i, int h) {
+  using T = BulkTiles<HD>;
+  return __shfl_sync(0xffffffffu, x[i], T::kLanes * (h / T::kSRows));
+}
+
+// acc = acc * alpha + P V over the thread's kPvKeys keys of the tile, its
+// rows w + 8 (8 prg + r) and float4 columns cg + kColLanes c of V staged
+// in vs
+template <int HD>
+__device__ __forceinline__ void bulk_pv(float (&acc)[8][BulkTiles<HD>::kCol4 * 4],
+                                        const float (&alpha)[BulkTiles<HD>::kSRows],
+                                        const float* ps, const float* vs, int w, int lane) {
+  using T = BulkTiles<HD>;
+  const int cg = lane % T::kColLanes, rest = lane / T::kColLanes;
+  const int prg = rest / T::kKeyParts, kp = rest % T::kKeyParts;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float a = row_value<HD>(alpha, r % T::kSRows, 8 * prg + r);
+#pragma unroll
+    for (int e = 0; e < T::kCol4 * 4; ++e) acc[r][e] *= a;
+  }
+  const float* vc = vs + 4 * cg;
+#pragma unroll 2
+  for (int j = kp * T::kPvKeys; j < (kp + 1) * T::kPvKeys; j += 4) {
+    float4 pv[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = w + 8 * (8 * prg + r);
+      pv[r] = *reinterpret_cast<const float4*>(ps + row * kTile + (j ^ p_flip<HD>(row)));
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int c = 0; c < T::kCol4; ++c) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(vc + (j + jj) * HD + 4 * T::kColLanes * c);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float p = jj == 0 ? pv[r].x : jj == 1 ? pv[r].y : jj == 2 ? pv[r].z : pv[r].w;
+          acc[r][4 * c] = fmaf(p, vv.x, acc[r][4 * c]);
+          acc[r][4 * c + 1] = fmaf(p, vv.y, acc[r][4 * c + 1]);
+          acc[r][4 * c + 2] = fmaf(p, vv.z, acc[r][4 * c + 2]);
+          acc[r][4 * c + 3] = fmaf(p, vv.w, acc[r][4 * c + 3]);
+        }
+      }
+    }
+  }
+}
+
+// O / max(l, 1e-30) for R of the warp's rows, w + 8 (r + r0), at the
+// thread's float4 columns; rows from S on (a block of 128 rows at S % 128
+// == 64) are not stored
+template <int HD, int R>
+__device__ __forceinline__ void bulk_store(float* ob, long long q_step,
+                                           const float (&acc)[R][BulkTiles<HD>::kCol4 * 4],
+                                           const float (&l)[BulkTiles<HD>::kSRows], int q0,
+                                           int w, int r0, int S) {
+  using T = BulkTiles<HD>;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int h = r + r0, row = q0 + w + 8 * h;
+    const float denom = fmaxf(row_value<HD>(l, r % T::kSRows, h), 1e-30f);
+    if (row >= S) continue;
+#pragma unroll
+    for (int c = 0; c < T::kCol4; ++c)
+      *reinterpret_cast<float4*>(ob + row * q_step + 4 * T::kColLanes * c) =
+          make_float4(acc[r][4 * c] / denom, acc[r][4 * c + 1] / denom, acc[r][4 * c + 2] / denom,
+                      acc[r][4 * c + 3] / denom);
+  }
+}
+
+// fp32 at hd 64, 128 and 256: one block of 8 warps a (q tile of kRows
+// rows, b * H + h) loops over the band's 64-key tiles with no thread
+// staging anything through its registers and no block-wide barrier in
+// the loop.
+// One thread issues TMA copies (cp.async.bulk.tensor): Q once and each K
+// and V tile, completing on a full mbarrier a stage (K in HD / 32
+// 128-byte-swizzled boxes, Q and V in one box each).  A stage is handed
+// back by a count in shared memory instead of an empty barrier that a
+// producer warp would wait on: the last warp to finish reading a stage
+// issues the copy of the tile kStages on, so the block spends no warp and
+// no registers on a producer, and no warp waits for a release.  K and V
+// are released apart: K(t) once Q K^T(t) is done, V(t) once P V(t) is.
+// At hd 256 (one stage each, 214,048 bytes, one block an SM) K(t + 1)
+// then lands during the softmax and P V(t), and V(t + 1) during Q K^T(t +
+// 1); at hd 64 and 128 two stages each (99,384 bytes, two blocks an SM at
+// hd 64; 230,456 at hd 128, one) give a tile's copy a whole tile of lead.
+// A block of 128 rows (hd 128) walks the tiles that either half's band
+// reaches, masking the rest: one tile more than a half needs.  P has a
+// space of its own, warp-private, so the softmax waits for no other warp
+// either.  What bounds the products is then shared memory's
+// 128 bytes a cycle beside the 128 FMA lanes: BulkTiles' register tiles
+// take 4 FMAs a float read (2 in the 4 x 4 tile it replaced).
+template <int HD>
+__global__ void __launch_bounds__(kThreads, (HD == 64 ? 2 : 1))
+swa_attention_kernel_bulk(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map, float* __restrict__ o,
+                          int S, int H, int K, int window, float scale) {
+  using L = BulkLayout<HD>;
+  using T = BulkTiles<HD>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  float* ks = reinterpret_cast<float*>(
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023));  // stage s at ks + s L::kK
+  float* qs = ks + kStages * L::kK;                                       // kRows x HD
+  float* vs = qs + L::kQ;                                                 // stage s at vs + s L::kV
+  float* ps = vs + kStages * L::kV;                                       // kRows x kTile
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ps + L::kP);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint32_t* k_freed = reinterpret_cast<uint32_t*>(v_full + kStages);
+  uint32_t* v_freed = k_freed + kStages;
+
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the first of the thread's softmax rows (rg, D), 8 apart
+  const int row0 = w + 8 * (8 * (lane / (T::kLanes * T::kSplit)) +
+                            T::kSRows * ((lane / T::kLanes) % T::kSplit));
+  const int lk = lane % T::kLanes;
+  const int q0 = blockIdx.x * T::kRows;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int g = h / (H / K);
+  const int k_start = (max(q0 - window + 1, 0) / kTile) * kTile;
+  const int n_tiles = ((min(q0 + T::kRows, S) - 1) / kTile * kTile - k_start) / kTile + 1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      k_freed[s] = 0;
+      v_freed[s] = 0;
+    }
+    hopper::mbar_init_fence();
+    stage_rows(qs, &q_map, q_full, L::kQBytes, h, q0, b);
+    for (int s = 0; s < kStages && s < n_tiles; ++s) {
+      stage_k<HD>(ks + s * L::kK, &k_map, &k_full[s], g, k_start + s * kTile, b);
+      stage_rows(vs + s * L::kV, &v_map, &v_full[s], L::kTileBytes, g, k_start + s * kTile, b);
+    }
+  }
+  __syncthreads();
+
+  float acc[8][T::kCol4 * 4];
+  float m[T::kSRows], l[T::kSRows];  // of the softmax rows row0 + 8 i
+#pragma unroll
+  for (int i = 0; i < T::kSRows; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int e = 0; e < T::kCol4 * 4; ++e) acc[r][e] = 0.f;
+
+  hopper::mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const uint32_t parity = (t / kStages) & 1;
+    const int k0 = k_start + t * kTile;
+    const bool refill = t + kStages < n_tiles;
+    float* kst = ks + s * L::kK;
+    float* vst = vs + s * L::kV;
+    float sc[T::kSRows][T::kKeys];
+    hopper::mbar_wait(&k_full[s], parity);
+    bulk_scores<HD>(sc, qs, kst, w, lane);
+    if (released_last(&k_freed[s], lane) && refill && lane == 0)
+      stage_k<HD>(kst, &k_map, &k_full[s], g, k0 + kStages * kTile, b);
+    float alpha[T::kSRows];
+    bulk_softmax<HD>(sc, m, l, alpha, q0, k0, window, scale, row0, lk);
+    bulk_write_p<HD>(ps, sc, row0, lk);
+    hopper::mbar_wait(&v_full[s], parity);
+    bulk_pv<HD>(acc, alpha, ps, vst, w, lane);
+    if (released_last(&v_freed[s], lane) && refill && lane == 0)
+      stage_rows(vst, &v_map, &v_full[s], L::kTileBytes, g, k0 + kStages * kTile, b);
+  }
+
+  float* ob = o + (static_cast<long long>(b) * S * H + h) * HD + 4 * (lane % T::kColLanes);
+  const long long q_step = static_cast<long long>(H) * HD;
+  if constexpr (T::kKeyParts == 1) {
+    bulk_store<HD, 8>(ob, q_step, acc, l, q0, w, 8 * (lane / T::kColLanes), S);
+  } else {  // the two key groups' sums, each group storing half the rows
+    const int kp = lane / T::kColLanes;
+    float sum[4][T::kCol4 * 4];
+    keep_half(acc, sum, kp == 1, 16);
+    bulk_store<HD, 4>(ob, q_step, sum, l, q0, w, 4 * kp, S);
+  }
+}
+
+template <int HD>
+int launch_bulk(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int K,
+                int window, float scale, void* stream) {
+  auto kernel = swa_attention_kernel_bulk<HD>;
+  constexpr size_t smem = BulkLayout<HD>::kSmem;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[3];  // q (kRows-row boxes), k (32-column swizzled boxes), v
+  constexpr int kRows = BulkTiles<HD>::kRows;
+  int res = hopper::f32_map_4d(&maps[0], q, HD, H, S, B, HD, 1, kRows);
+  if (res == 0) res = hopper::f32_map_4d(&maps[1], k, HD, K, S, B, 32, 1, kTile, true);
+  if (res == 0) res = hopper::f32_map_4d(&maps[2], v, HD, K, S, B, HD, 1, kTile);
+  if (res != 0) return res;
+  const dim3 grid(static_cast<unsigned>((S + kRows - 1) / kRows), static_cast<unsigned>(B * H));
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], static_cast<float*>(o), S, H, K, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1600,12 +2057,12 @@ int launch_wgmma_cluster(const void* q, const void* k, const void* v, void* o, i
 enum Split {
   kSplitOne = 0,      // hd 64, 128 or 256: one block a q tile
   kSplitCluster = 1,  // hd = 256 c: a cluster of c CTAs (c <= 8, a portable cluster)
-  kSplitChunks = 2,   // hd = 256 c: the scalar hd-256 build in c chunks along blockIdx.z
+  kSplitChunks = 2,   // hd = 256 c: the chunked scalar hd-256 build, c chunks along blockIdx.z
 };
 
 // Returns the cudaError_t of the launch: cudaErrorInvalidValue for a
-// split that does not take hd (kSplitOne: 64, 128 or 256; kSplitCluster
-// and kSplitChunks: a multiple of 256 above it, kSplitChunks up to 65535
+// split that does not take hd (kSplitOne: 64, 128 or 256; kSplitCluster:
+// a multiple of 256 above it; kSplitChunks: a multiple of 256 up to 65535
 // x 256), or a tensor map cuTensorMapEncodeTiled refuses; cudaErrorInvalidConfiguration
 // or the runtime's own error for a cluster that cannot be resident.  The
 // wrapper zero-pads any other hd to the next of these, and checks the
@@ -1618,16 +2075,19 @@ extern "C" int swa_attention_launch(const void* q, const void* k, const void* v,
   if (split == kSplitOne) {
     if (hd == 64)
       return bf16 ? launch_wgmma<64>(q, k, v, o, B, S, H, K, window, scale, stream)
-                  : launch<float, 64>(q, k, v, o, B, S, H, K, window, scale, 1, stream);
+                  : launch_bulk<64>(q, k, v, o, B, S, H, K, window, scale, stream);
     if (hd == 128)
       return bf16 ? launch_wgmma<128>(q, k, v, o, B, S, H, K, window, scale, stream)
-                  : launch<float, 128>(q, k, v, o, B, S, H, K, window, scale, 1, stream);
+                  : launch_bulk<128>(q, k, v, o, B, S, H, K, window, scale, stream);
     if (hd == 256)
       return bf16 ? launch_wgmma<256>(q, k, v, o, B, S, H, K, window, scale, stream)
-                  : launch<float, 256>(q, k, v, o, B, S, H, K, window, scale, 1, stream);
+                  : launch_bulk<256>(q, k, v, o, B, S, H, K, window, scale, stream);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (hd <= 256 || hd % 256) return static_cast<int>(cudaErrorInvalidValue);
+  // kSplitChunks at hd 256 (one chunk) is the one-block fp32 code before
+  // the bulk-copy kernel, kept for comparison; the wrapper never sends it
+  if (hd < 256 || hd % 256 || (hd == 256 && split != kSplitChunks))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (split == kSplitCluster)
     return bf16 ? launch_wgmma_cluster(q, k, v, o, B, S, H, K, hd / 256, window, scale, stream)
                 : launch_scalar_cluster(q, k, v, o, B, S, H, K, hd / 256, window, scale, stream);

@@ -6,7 +6,7 @@ sliding-window attention with an online softmax over the diagonal band.
 Unlike the Pallas kernel, which takes the KV heads repeated to H, the
 kernel reads k and v as ``(B, S, K, hd)`` with ``H % K == 0`` and
 serves query head h from KV head ``h // (H // K)``; K = H is the Pallas
-case.  S must be a multiple of 64 (the fp32 kernel's tile, half the
+case.  S must be a multiple of 64 (the fp32 kernel's key tile, half the
 bf16 kernel's 128-row tile), as ``repro.kernels.ops`` refuses
 S % 128 != 0 (the banded branch of ``gqa_attention``, the only caller,
 takes S % 1024 == 0).  The kernel is built for hd 64, 128 and 256, and
@@ -16,14 +16,22 @@ the grid cannot hold is refused: more than :data:`MAX_CHUNKS` chunks of
 256 columns.  bf16 runs on the tensor cores (``wgmma`` + TMA; 64-key
 tiles from hd 256) with P rounded to bf16 (``ref.swa_bf16_bound``
 states what that costs); fp32 on scalar fp32 FMAs (TF32 would break
-fp32's 3e-5).
+fp32's 3e-5), at hd 64, 128 and 256 with Q, K and V staged by TMA so
+that the copies overlap the products.
 
 Which build runs a (dtype, padded hd), as :func:`build_of` names it;
 :func:`split_of` decides it, and the C entry launches the build it is
 told to, so a launch counted under a name ran that build:
 
 * hd 64, 128, 256: ``wgmma-bf16-hd{hd}`` and ``scalar-fp32-hd{hd}``,
-  one block a q tile of one query head.
+  one block a q tile of one query head (the fp32 build's tile is 128
+  rows at hd 128, 64 elsewhere).  The fp32 build
+  (``swa_attention_kernel_bulk``) stages Q, K and V by TMA on mbarriers,
+  one stage each at hd 256 and two at hd 64 and 128, K and V released
+  apart (the last warp to release a stage issues its next copy), and
+  sums Q K^T and P V in 8 x 8 register tiles, 8 x 4 at hd 64 (Q K^T's
+  split over the head dim across lanes, the partial sums added by
+  shuffles).
 * hd = 256 c with 2 <= c <= :data:`MAX_CLUSTER` (hd 512 to 2,048):
   ``cluster-wgmma-bf16-hd256xc`` and ``cluster-scalar-fp32-hd256xc``.
   A thread-block cluster of c CTAs shares a q tile of one query head;
@@ -32,8 +40,9 @@ told to, so a launch counted under a name ran that build:
   through distributed shared memory and added in rank order on every
   CTA (so all hold bitwise the same scores), and each CTA runs the same
   softmax and writes its own 256 columns of O: Q K^T runs once over the
-  head dim.  Each CTA has the registers and shared memory of the hd-256
-  build plus the exchange's slots: bf16 197,704 + 32,768 + 64 = 230,536
+  head dim.  Each CTA has the registers and shared memory of an hd-256
+  build (bf16: the wgmma one; fp32: the chunked one) plus the exchange's
+  slots: bf16 197,704 + 32,768 + 64 = 230,536
   bytes, fp32 197,632 + 32,768 + 16 = 230,416, of the 232,448 a block
   may use, so one CTA an SM.  What bounds it on an H100: the exchange
   moves about as many bytes between SMs as the K/V tiles bring from L2.
@@ -44,10 +53,11 @@ told to, so a launch counted under a name ran that build:
   slots (8 float4 a thread) do not hold every peer's tile at once
   (``..._wgmma_cluster``).  fp32 stays bound by its FMAs.
 * hd above 256 x :data:`MAX_CLUSTER` (a portable cluster holds 8 CTAs):
-  ``scalar-bf16-hd256`` and ``scalar-fp32-hd256``, the scalar hd-256
-  build in hd / 256 chunks along ``gridDim.z``, each chunk's block
-  recomputing the scores over the whole head dim.  This is a dispatch
-  by shape, not a fallback: a failed build or launch raises.
+  ``chunked-scalar-bf16-hd256`` and ``chunked-scalar-fp32-hd256``, the
+  chunked scalar build (staged through registers) in hd / 256 chunks
+  along ``gridDim.z``, each chunk's block recomputing the scores over
+  the whole head dim.  This is a dispatch by shape, not a fallback: a
+  failed build or launch raises.
 
 Its plain twin is ``repro_torch.kernels.ref.swa_attention_plain``;
 the CUDA-or-CPU dispatch is ``repro_torch.kernels.ops.swa_attention``.
@@ -132,7 +142,8 @@ def split_of(hd: int) -> int:
     """How a launch at the padded head dim ``hd`` splits it, the one
     place this is decided: :data:`ONE_BLOCK` at :data:`HEAD_DIMS`,
     :data:`CLUSTER` (hd / 256 CTAs) up to 256 x :data:`MAX_CLUSTER`,
-    :data:`CHUNKS` (the scalar hd-256 build along ``gridDim.z``) above."""
+    :data:`CHUNKS` (the chunked scalar hd-256 build along ``gridDim.z``)
+    above."""
     if hd in HEAD_DIMS:
         return ONE_BLOCK
     return CLUSTER if hd // CHUNK <= MAX_CLUSTER else CHUNKS
@@ -142,7 +153,8 @@ def build_of(dtype: torch.dtype, hd: int) -> str:
     """The name of the build of ``csrc/swa_attention.cu`` that a launch
     at the padded head dim ``hd`` runs (the module note lists them): bf16
     on ``wgmma``, fp32 on the scalar kernel, split as :func:`split_of`
-    says (``cluster-...-hd256x{c}`` for a cluster of c CTAs)."""
+    says (``cluster-...-hd256x{c}`` for a cluster of c CTAs,
+    ``chunked-scalar-...-hd256`` for the chunks)."""
     kind = "wgmma" if dtype == torch.bfloat16 else "scalar"
     dt = "bf16" if dtype == torch.bfloat16 else "fp32"
     split = split_of(hd)
@@ -150,7 +162,7 @@ def build_of(dtype: torch.dtype, hd: int) -> str:
         return f"{kind}-{dt}-hd{hd}"
     if split == CLUSTER:
         return f"cluster-{kind}-{dt}-hd{CHUNK}x{hd // CHUNK}"
-    return f"scalar-{dt}-hd{CHUNK}"
+    return f"chunked-scalar-{dt}-hd{CHUNK}"
 
 
 def with_padded_head_dim(attention, q, k, v, *, window: int) -> torch.Tensor:

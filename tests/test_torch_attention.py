@@ -107,7 +107,7 @@ def test_padded_head_dim_rule(hd, width):
     (288, "cluster-scalar-fp32-hd256x2", "cluster-wgmma-bf16-hd256x2"),
     (768, "cluster-scalar-fp32-hd256x3", "cluster-wgmma-bf16-hd256x3"),
     (2048, "cluster-scalar-fp32-hd256x8", "cluster-wgmma-bf16-hd256x8"),
-    (2049, "scalar-fp32-hd256", "scalar-bf16-hd256")])
+    (2049, "chunked-scalar-fp32-hd256", "chunked-scalar-bf16-hd256")])
 def test_build_of_routes_by_dtype_and_head_dim(hd, fp32, bf16):
     """The build a launch runs, by dtype and padded hd, with no launch:
     the one-block builds up to hd 256, a cluster of hd / 256 CTAs up to

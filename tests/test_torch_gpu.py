@@ -517,8 +517,8 @@ def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
                  for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,kh,hd,window", [
+@pytest.mark.parametrize("dtype,b,s,h,kh,hd,window", [
+    *[(dtype, *case) for case in [
     (2, 128, 2, 2, 64, 64), (1, 256, 12, 1, 128, 100), (2, 1024, 4, 2, 64, 300),
     (1, 960, 3, 1, 128, 1024), (1, 320, 2, 1, 64, 4096), (1, 192, 2, 2, 128, 1),
     # S % 128 == 64 at B=2: the last q tile's rows past S, across batches
@@ -538,7 +538,14 @@ def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
     # bf16; 1, 2 and 4 in fp32), and hd 2,304 above the largest cluster
     # (the scalar kernel in 9 chunks)
     (1, 1024, 2, 1, 768, 2048), (2, 192, 2, 2, 768, 100), (1, 320, 2, 1, 1280, 100),
-    (1, 192, 2, 1, 2048, 100), (1, 320, 2, 1, 2304, 100)])
+    (1, 192, 2, 1, 2048, 100), (1, 320, 2, 1, 2304, 100)]
+      for dtype in (torch.float32, torch.bfloat16)],
+    # the fp32 one-block kernel's staging (TMA, one stage at hd 256, two
+    # below): one tile (S=64), window 1, S % 128 == 64 at B=2 with K=1
+    *[(torch.float32, *case) for case in [
+        (1, 64, 4, 2, 64, 64), (1, 64, 2, 1, 128, 1), (1, 64, 16, 1, 256, 2048),
+        (2, 320, 4, 2, 64, 1), (1, 256, 2, 1, 256, 1), (2, 192, 12, 1, 64, 100),
+        (2, 320, 4, 1, 128, 4096), (2, 192, 4, 1, 256, 100)]]])
 def test_swa_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, window):
     q, k, v = _swa_inputs(b, s, h, kh, hd, dtype, seed=s + window, device=cuda)
     before = swa_kernel.LAUNCHES
@@ -559,6 +566,9 @@ def test_swa_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, window):
 
 # (dtype, hd, the build, the end of its kernel's mangled name)
 _SWA_BUILDS = {
+    (torch.float32, 64): ("scalar-fp32-hd64", "kernel_bulkILi64E"),
+    (torch.float32, 128): ("scalar-fp32-hd128", "kernel_bulkILi128E"),
+    (torch.float32, 256): ("scalar-fp32-hd256", "kernel_bulkILi256E"),
     (torch.bfloat16, 256): ("wgmma-bf16-hd256", "wgmma_hd256"),
     (torch.bfloat16, 512): ("cluster-wgmma-bf16-hd256x2", "wgmma_cluster2E"),
     (torch.bfloat16, 768): ("cluster-wgmma-bf16-hd256x3", "wgmma_clusterE"),
@@ -572,17 +582,19 @@ _SWA_BUILDS = {
     (torch.bfloat16, 256, 192, 2, 1, 100),
     *[(dtype, hd, s, h, kh, window) for dtype in (torch.bfloat16, torch.float32)
       for hd, s, h, kh, window in [(512, 1024, 4, 1, 2048), (512, 192, 2, 2, 100),
-                                   (768, 320, 2, 1, 100)]]])
+                                   (768, 320, 2, 1, 100)]],
+    (torch.float32, 64, 1024, 4, 2, 300), (torch.float32, 128, 320, 12, 1, 1024),
+    (torch.float32, 256, 1024, 4, 1, 2048), (torch.float32, 256, 192, 2, 2, 100)])
 def test_swa_runs_its_build_bitwise(cuda, dtype, hd, s, h, kh, window):
-    """bf16 at hd 256 launches the wgmma build, and bf16 and fp32 at hd
-    512 and 768 the cluster builds (a cluster of hd / 256 CTAs), never
-    the scalar or chunked kernel; two launches agree bitwise; ptxas
-    reports no spill for the build's kernel and does not serialize its
-    products."""
+    """fp32 at hd 64, 128 and 256 launches the TMA-staged one-block build,
+    bf16 at hd 256 the wgmma build, and bf16 and fp32 at hd 512 and 768
+    the cluster builds (a cluster of hd / 256 CTAs), never the chunked
+    kernel; two launches agree bitwise; ptxas reports no spill for the
+    build's kernel and does not serialize its products."""
     from repro_torch.kernels import _build
 
     build, kernel = _SWA_BUILDS[dtype, hd]
-    seed = s + h if hd == 256 else s + hd
+    seed = s + h if hd <= 256 else s + hd
     q, k, v = _swa_inputs(1, s, h, kh, hd, dtype, seed=seed, device=cuda)
     before = dict(swa_kernel.BUILD_LAUNCHES)
     got = swa_kernel.swa_attention(q, k, v, window=window)
