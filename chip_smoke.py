@@ -101,25 +101,33 @@ Phases, each printing one JSON line:
                 twin: the rounding of P and of the output), TF32 off;
                 then hd 256 (bf16 on the ``wgmma`` kernel's 64-key
                 tiles, fp32 on the scalar kernel), 512 and 768 (clusters
-                of two and three CTAs splitting the head dim), 2,304
-                (above the largest cluster: the scalar kernel in nine
-                chunks of 256 columns), 96 and 288 (zero-padded to 128
+                of two and three CTAs splitting the head dim), 2,304 and
+                4,096 (above the largest cluster: two passes through a
+                banded score workspace), 96 and 288 (zero-padded to 128
                 and 512) at S in {1024, 3072} x window in {100, 2048},
-                with 0 bytes of spill in the five ``wgmma`` kernels (none
-                of them serialized by ptxas), the three fp32 one-block
+                with 0 bytes of spill in the seven ``wgmma`` kernels (none
+                of them serialized by ptxas), the band builds' four
+                kernels, the three fp32 one-block
                 kernels (``swa_attention_kernel_bulk``: TMA-staged,
                 8 x 8 register tiles), the two chunked scalar kernels
                 and the fp32 cluster kernel; at RecurrentGemma-9B's local
                 attention (B=1, S=8,192, H=16, K=1, window 2048) at its
-                hd 256 and at hd 288 and 512 (each launch's build checked
-                by name: the one-block builds at 256, the clusters of two
-                above) against the fp32 ``banded_flash_attention``: fp32
-                within 3e-5, bf16 elementwise within ``swa_bf16_bound``;
-                at hd 256 and 512 in both dtypes its time (bf16 at hd 256
-                also L2-flushed), the banded path's,
-                ``scaled_dot_product_attention``'s and its bound, and fp32
+                hd 256 and at hd 288, 512, 768, 2,048, 2,304 and 4,096
+                (each launch's build checked by name: the one-block
+                builds at 256, clusters of 2, 3 and 8 CTAs, the band
+                builds above 2,048) against the fp32
+                ``banded_flash_attention``: fp32 within 3e-5, bf16
+                elementwise within ``swa_bf16_bound``; at every hd but
+                288 in both dtypes its time (bf16 at hd 256 and 512 also
+                L2-flushed), the banded path's,
+                ``scaled_dot_product_attention``'s and its bound; fp32
                 at hd 256 beside the one-block code it replaced (the
-                chunked build at one chunk); at
+                chunked build at one chunk); the band builds beside the
+                chunked build they replaced (3 launches) and by pass
+                (the scores alone timed beside both), required faster than
+                the chunked build and no slower than SDPA, and the band
+                build at hd 2,048 (through its C entry) beside the
+                cluster build that runs there; at
                 the LM prefill's shape (B=1, S=32,768, H=96, K=8, hd=128,
                 window 4096) against the plain ``banded_flash_attention``
                 in fp32 on the same inputs (the fp32 build also timed
@@ -511,14 +519,27 @@ SWA_SEQS = (128, 256, 1024, 3072)
 SWA_WINDOWS = (64, 100, 300, 1024, 4096)
 # the head dims beyond the hd 64/128 builds: 256 (bf16 on the wgmma
 # kernel's 64-key tiles, fp32 on the scalar kernel), 512 on clusters of
-# two CTAs, 768 on clusters of three, 2,304 above the largest cluster (the
-# scalar kernel in 9 chunks), 96 zero-padded to 128 and 288 to 512
+# two CTAs, 768 on clusters of three, 2,304 and 4,096 above the largest
+# cluster (the two passes through the band's score workspace), 96
+# zero-padded to 128 and 288 to 512
 SWA_WIDE = {"seqs": (1024, 3072), "windows": (100, 2048),
-            "hds": (256, 512, 96, 288, 768, 2304)}
+            "hds": (256, 512, 96, 288, 768, 2304, 4096)}
 HYBRID_ARCH = "recurrentgemma-9b"  # local attention at hd 256, one KV head
 HYBRID_SEQ = 8192
-HYBRID_HDS = (256, 288, 512)  # its own hd, one padded to 512, and 512 itself
-HYBRID_TIMED = (256, 512)
+# its own hd, one padded to 512, and wider ones: each with the builds it
+# must run (fp32, bf16)
+HYBRID_BUILDS = {
+    256: ("scalar-fp32-hd256", "wgmma-bf16-hd256"),
+    288: ("cluster-scalar-fp32-hd256x2", "cluster-wgmma-bf16-hd256x2"),
+    512: ("cluster-scalar-fp32-hd256x2", "cluster-wgmma-bf16-hd256x2"),
+    768: ("cluster-scalar-fp32-hd256x3", "cluster-wgmma-bf16-hd256x3"),
+    2048: ("cluster-scalar-fp32-hd256x8", "cluster-wgmma-bf16-hd256x8"),
+    2304: ("band-scalar-fp32", "band-wgmma-bf16"),
+    4096: ("band-scalar-fp32", "band-wgmma-bf16"),
+}
+HYBRID_TIMED = (256, 512, 768, 2048, 2304, 4096)
+HYBRID_BAND = (2304, 4096)  # timed beside the chunked build they replaced
+SWA_CHUNKED_RUNS = 3  # the chunked build takes ~0.5 s a call at hd 2,304, ~1.5 s at 4,096
 HYBRID_DECODE_STEPS = 16
 HYBRID_TIMED_RUNS = 3
 HYBRID_SLICE_SEQ = 4096  # the least S % 1024 == 0 at which window 2048 takes the banded branch
@@ -900,35 +921,52 @@ def launched_build(before: dict[str, int]) -> str:
     return ran[0]
 
 
-def swa_replaced_fp32(q, k, v, window: int) -> torch.Tensor:
-    """The fp32 one-block code that ``scalar-fp32-hd256`` replaced, which
-    the C entry still runs at hd 256 as the chunked build at one chunk (a
-    split the wrapper never sends): timed beside the build, never counted."""
+def swa_chunked(q, k, v, window: int) -> torch.Tensor:
+    """The chunked scalar build (hd / 256 chunks, each recomputing the
+    scores over the whole head dim), which the C entry still runs for a
+    split the wrapper never sends: the code ``scalar-fp32-hd256`` replaced
+    (fp32 at one chunk) and the code the band builds replaced above hd
+    2,048, in q's dtype.  Timed beside the builds, never counted."""
     from repro_torch.kernels import swa_attention as swa_kernel
 
     b, s, h, hd = q.shape
     out = torch.empty_like(q)
     err = swa_kernel._fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-                           k.shape[2], hd, window, hd ** -0.5, 0, swa_kernel.CHUNKS,
-                           torch.cuda.current_stream().cuda_stream)
-    require(err == 0, f"the replaced fp32 code failed to launch: cudaError {err}")
+                           k.shape[2], hd, window, hd ** -0.5, int(q.dtype == torch.bfloat16),
+                           swa_kernel.CHUNKS, torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"the chunked build failed to launch: cudaError {err}")
     return out
 
 
-def swa_timing(q, k, v, window: int, ops_per_s: float) -> dict:
-    """``swa_attention`` at one shape: its CUDA-event time, the plain
-    banded path's, :func:`band_sdpa`'s (and its distance from the
-    kernel), and the least time the card could take at ``ops_per_s``."""
+def swa_band(q, k, v, window: int, passes: int = 3) -> torch.Tensor:
+    """The band build at any hd = 256 c through its C entry (the wrapper
+    sends only hd above 2,048 there), ``passes`` 1 for the scores alone:
+    timed beside the cluster build at hd 2,048 and by pass, never
+    counted."""
+    from repro_torch.kernels import swa_attention as swa_kernel
+
+    out = torch.empty_like(q)
+    err = swa_kernel._launch_band(q, k, v, out, window=window, scale=q.shape[-1] ** -0.5,
+                                  stream=torch.cuda.current_stream().cuda_stream, passes=passes)
+    require(err == 0, f"the band build failed to launch: cudaError {err}")
+    return out
+
+
+def swa_timing(q, k, v, window: int, ops_per_s: float, runs: int = 20) -> dict:
+    """``swa_attention`` at one shape: its CUDA-event time (``runs``
+    launches), the plain banded path's, :func:`band_sdpa`'s (and its
+    distance from the kernel), and the least time the card could take at
+    ``ops_per_s``."""
     from repro_torch.kernels import swa_attention as swa_kernel
     from repro_torch.nn import attention as attn
 
     call = lambda: swa_kernel.swa_attention(q, k, v, window=window)  # noqa: E731
     library = band_sdpa(q, k, v, window)
     nbytes, ops = swa_cost(q, k, window)
-    row = dict(ms=time_ms(call, 20),
-               plain_ms=time_ms(lambda: attn.banded_flash_attention(q, k, v, window=window), 5,
-                                warmup=1),
-               library_ms=time_ms(library, 10, warmup=2),
+    row = dict(ms=time_ms(call, runs),
+               plain_ms=time_ms(lambda: attn.banded_flash_attention(q, k, v, window=window),
+                                max(3, runs // 4), warmup=1),
+               library_ms=time_ms(library, max(5, runs // 2), warmup=2),
                library_max_abs_err=float((library().transpose(1, 2).float()
                                           - call().float()).abs().max()))
     row["bound_ms"], row["bound_by"] = bound(nbytes, ops, ops_per_s)
@@ -3490,15 +3528,22 @@ def main() -> int:
 
     swa_log = _build.build_log("swa_attention")
     swa_ptxas = ptxas_report(swa_log, "wgmma")
-    # the bf16 builds: hd 64, 128 and 256, and the clusters above hd 256
-    # (wgmma_cluster2 at hd 512, wgmma_cluster to hd 2,048); none spills,
-    # and ptxas serializes the products of none
-    require(sum(k != "warnings" for k in swa_ptxas) == 5 and spill_free(swa_ptxas)
+    # the bf16 builds: hd 64, 128 and 256, the clusters above hd 256
+    # (wgmma_cluster2 at hd 512, wgmma_cluster to hd 2,048) and the band's
+    # two passes above; none spills, and ptxas serializes the products of
+    # none
+    require(sum(k != "warnings" for k in swa_ptxas) == 7 and spill_free(swa_ptxas)
             and "warnings" not in swa_ptxas,
             f"a wgmma swa_attention kernel spills, is serialized or is missing: {swa_ptxas}")
+    # the band builds' four kernels (two passes in each dtype)
+    band_ptxas = ptxas_report(swa_log, "swa_band")
+    require(sum(k != "warnings" for k in band_ptxas) == 4 and spill_free(band_ptxas)
+            and "warnings" not in band_ptxas,
+            f"a band swa_attention kernel spills, is serialized or is missing: {band_ptxas}")
     # the fp32 one-block builds at hd 64, 128 and 256 (TMA-staged); the
-    # chunked scalar builds, bf16 and fp32 at hd 256 (the head dims above
-    # 2,048); and fp32's clusters (hd 512 to 2,048)
+    # chunked scalar builds, bf16 and fp32 at hd 256 (the code the band
+    # builds replaced, kept for comparison); and fp32's clusters (hd 512 to
+    # 2,048)
     bulk_ptxas = ptxas_report(swa_log, "kernel_bulk")
     require(sum(k != "warnings" for k in bulk_ptxas) == 3 and spill_free(bulk_ptxas),
             f"an fp32 one-block swa_attention kernel spills or is missing: {bulk_ptxas}")
@@ -3508,7 +3553,8 @@ def main() -> int:
     cluster_ptxas = ptxas_report(swa_log, "scalar_cluster")
     require(sum(k != "warnings" for k in cluster_ptxas) == 1 and spill_free(cluster_ptxas),
             f"the fp32 cluster swa_attention kernel spills or is missing: {cluster_ptxas}")
-    for name, lines in {**swa_ptxas, **bulk_ptxas, **scalar_ptxas, **cluster_ptxas}.items():
+    for name, lines in {**swa_ptxas, **bulk_ptxas, **scalar_ptxas, **cluster_ptxas,
+                        **band_ptxas}.items():
         print(f"ptxas {name}: " + " | ".join(lines), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(77)
     swa_err = {str(dtype): 0.0 for dtype in SWA_TOL}
@@ -3553,15 +3599,18 @@ def main() -> int:
                     for dtype in SWA_TOL:
                         swa_case(1, s, h, kh, hd, window, dtype)
     # RecurrentGemma-9B's local attention at full width, at its hd 256 and
-    # at two wider ones (288 padded to 512; 512), against the fp32 banded
-    # path: the fp32 kernel within the fp32 bound, bf16 elementwise
-    # within swa_bf16_bound (given the banded path); timed at HYBRID_TIMED
+    # at wider ones (288 padded to 512; 512 and 768 on clusters of two and
+    # three, 2,048 on the largest; 2,304 and 4,096 on the band builds),
+    # against the fp32 banded path: the fp32 kernel within the fp32 bound,
+    # bf16 elementwise within swa_bf16_bound (given the banded path), each
+    # launch's build by name; timed at HYBRID_TIMED, the band builds beside
+    # the chunked build they replaced and split by pass
     rg_cfg = get_arch_config(HYBRID_ARCH)
     rg_window = rg_cfg.local_attn_window
     rg_shape = dict(B=1, S=HYBRID_SEQ, H=rg_cfg.num_heads, K=rg_cfg.num_kv_heads,
                     hd=rg_cfg.head_dim, window=rg_window)
     hybrid = {}
-    for hd in HYBRID_HDS:
+    for hd, (fp32_want, bf16_want) in HYBRID_BUILDS.items():
         q, k, v = swa_inputs(gen, 1, HYBRID_SEQ, rg_cfg.num_heads, rg_cfg.num_kv_heads, hd,
                              torch.float32)
         banded = attn.banded_flash_attention(q, k, v, window=rg_window)
@@ -3569,21 +3618,19 @@ def main() -> int:
         rg_out = swa_kernel.swa_attention(q, k, v, window=rg_window)
         rg_err = {"fp32_max_abs_err": float((rg_out - banded).abs().max()),
                   "fp32_build": launched_build(builds_before)}
+        del rg_out
         if hd == 256:  # the one-block code it replaced, held as the build is
             rg_err["fp32_replaced_max_abs_err"] = float(
-                (swa_replaced_fp32(q, k, v, rg_window) - banded).abs().max())
+                (swa_chunked(q, k, v, rg_window) - banded).abs().max())
             require(rg_err["fp32_replaced_max_abs_err"] <= SWA_TOL[torch.float32],
                     f"the replaced fp32 code at {HYBRID_ARCH}'s shape vs the banded path: {rg_err}")
         qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
         builds_before = dict(swa_kernel.BUILD_LAUNCHES)
         rg_out = swa_kernel.swa_attention(qb, kb, vb, window=rg_window)
         rg_err["bf16_build"] = launched_build(builds_before)
-        # hd 256 on its one-block builds, 288 (padded) and 512 on clusters of two
-        want = {"fp32_build": "scalar-fp32-hd256", "bf16_build": "wgmma-bf16-hd256"} if hd == 256 \
-            else {"fp32_build": "cluster-scalar-fp32-hd256x2",
-                  "bf16_build": "cluster-wgmma-bf16-hd256x2"}
-        require(all(rg_err[key] == build for key, build in want.items()),
-                f"swa_attention at hd {hd} ran the builds {rg_err}, want {want}")
+        require(rg_err["fp32_build"] == fp32_want and rg_err["bf16_build"] == bf16_want,
+                f"swa_attention at hd {hd} ran the builds {rg_err}, want {fp32_want}, {bf16_want}")
+        del banded
         banded = attn.banded_flash_attention(qb.float(), kb.float(), vb.float(), window=rg_window)
         limit = ref.swa_bf16_bound(qb, kb, vb, window=rg_window,
                                    attention=attn.banded_flash_attention)
@@ -3597,14 +3644,39 @@ def main() -> int:
                 f"swa_attention (bf16) at {HYBRID_ARCH}'s shape, hd {hd}, vs the banded path: "
                 f"{rg_err}")
         if hd in HYBRID_TIMED:
-            rg_err["fp32"] = swa_timing(q, k, v, rg_window, FP32_OPS_PER_S)
+            runs = 20 if hd <= 512 else 10
+            rg_err["fp32"] = swa_timing(q, k, v, rg_window, FP32_OPS_PER_S, runs)
             if hd == 256:  # beside the one-block code it replaced, in the same run
                 rg_err["fp32"]["replaced_ms"] = time_ms(
-                    lambda: swa_replaced_fp32(q, k, v, rg_window), 20)
-            rg_err["bf16"] = swa_timing(qb, kb, vb, rg_window, BF16_OPS_PER_S)
-            rg_err["bf16"]["ms_l2_flushed"] = time_ms(
-                lambda: swa_kernel.swa_attention(qb, kb, vb, window=rg_window), 20, flush)
+                    lambda: swa_chunked(q, k, v, rg_window), 20)
+            rg_err["bf16"] = swa_timing(qb, kb, vb, rg_window, BF16_OPS_PER_S, runs)
+            if hd <= 512:
+                rg_err["bf16"]["ms_l2_flushed"] = time_ms(
+                    lambda: swa_kernel.swa_attention(qb, kb, vb, window=rg_window), 20, flush)
+        if hd == 2048:  # the band build through its C entry beside the largest cluster
+            for dt, x in (("fp32", (q, k, v)), ("bf16", (qb, kb, vb))):
+                rg_err[dt]["band_ms"] = time_ms(lambda x=x: swa_band(*x, rg_window), 10)
+                rg_err[dt]["band_max_abs_diff"] = float(
+                    (swa_band(*x, rg_window).float()
+                     - swa_kernel.swa_attention(*x, window=rg_window).float()).abs().max())
+        if hd in HYBRID_BAND:  # beside the chunked build they replaced, and by pass
+            for dt, x in (("fp32", (q, k, v)), ("bf16", (qb, kb, vb))):
+                # the scores alone, and both passes, in turns: P V is the difference
+                both, scores = [], []
+                for _ in range(2):
+                    both.append(time_ms(lambda x=x: swa_band(*x, rg_window), 5))
+                    scores.append(time_ms(lambda x=x: swa_band(*x, rg_window, passes=1), 5))
+                rg_err[dt]["ms_by_pass"] = {
+                    "scores": statistics.median(scores),
+                    "pv": statistics.median(both) - statistics.median(scores)}
+                rg_err[dt]["replaced_ms"] = time_ms(lambda x=x: swa_chunked(*x, rg_window),
+                                                    SWA_CHUNKED_RUNS, warmup=1)
+                require(rg_err[dt]["ms"] < rg_err[dt]["replaced_ms"]
+                        and rg_err[dt]["ms"] <= rg_err[dt]["library_ms"],
+                        f"the band build ({dt}) at hd {hd} is slower than the chunked build or "
+                        f"the library call: {rg_err[dt]}")
         hybrid[str(hd)] = rg_err
+        print(json.dumps({"hybrid_hd": hd, **rg_err}), flush=True)
         del q, k, v, qb, kb, vb
     lm_cfg = get_arch_config(LM_ARCH)
     heads, kv_heads, head_dim, window = (lm_cfg.num_heads, lm_cfg.num_kv_heads, lm_cfg.head_dim,
@@ -3659,7 +3731,8 @@ def main() -> int:
     require(path_err["bf16_vs_bf16_banded_max_abs_err"] <= SWA_TOL[torch.bfloat16],
             f"swa_attention at the prefill's shape vs the bf16 banded path: {path_err}")
     emit("swa", ptxas=swa_ptxas, ptxas_fp32=bulk_ptxas, ptxas_scalar=scalar_ptxas,
-         ptxas_scalar_cluster=cluster_ptxas, cases=n_swa, path_fp32=fp32_timing,
+         ptxas_scalar_cluster=cluster_ptxas, ptxas_band=band_ptxas, cases=n_swa,
+         path_fp32=fp32_timing,
          path_fp32_hd64_synthetic=fp32_hd64_timing,
          cases_wide_hd=n_swa - n_narrow, wide_hds=SWA_WIDE["hds"], max_abs_err=swa_err,
          tol={str(d): t for d, t in SWA_TOL.items()}, sweep_bf16_max_err_over_bound=bf16_over_bound,

@@ -133,16 +133,42 @@
 // Summed in place at c = 2 too, hd 512 would lose its margin under the
 // library's attention (PERF.md, tools/swa_cluster_ab.py).  The fp32
 // build stays bound by its FMAs (twice the hd-256 build's work on twice
-// the CTAs), the exchange a small share of it.  A portable cluster holds
-// at most 8 CTAs, so above hd 2,048 both dtypes run the chunked scalar
-// build (swa_attention_kernel) at hd 256 in hd / 256 chunks along
-// blockIdx.z: each chunk's block takes the scores over the whole head
-// dim, 256 columns of Q and K at a time, and writes
-// its own 256 columns of O (Q K^T and the softmax hd / 256 times); bf16 is
-// loaded 4 values at a time and widened to fp32 there, computed as fp32
-// is, and the output rounded to bf16 once.  RecurrentGemma-9B's local
-// attention (H=16, K=1, window 2048) is the config that reaches hd 256;
-// none in the repo goes above it.
+// the CTAs), the exchange a small share of it.
+//
+// Above hd 2,048 (a portable cluster holds at most 8 CTAs): two passes
+// through a banded score workspace (launch_band; the wrapper allocates
+// it and runs the heads in groups that keep it under a cap).  Pass 1
+// takes Q K^T once over the head dim: one block a (128-row q tile, key
+// block of its band, head), the head dim its reduction loop, streamed by
+// TMA (bf16: swa_band_scores_wgmma, 64-column boxes of Q and of a
+// 256-key K block, m64n256k16 on the tensor cores; fp32:
+// swa_band_scores_f32, 32-column swizzled boxes, 128-key blocks, 8 x 8
+// register tiles).  It scales and masks the scores (-1e30, as the
+// Pallas kernel) and writes them as fp32 into the item's slab, each
+// row's max and sum of exp over the block beside them.  Pass 2 (bf16:
+// swa_band_pv_wgmma; fp32: swa_band_pv_f32) is one block a (q tile,
+// 256 columns of O, head), the slices of a q tile back to back so that
+// its slab comes from device memory once and from L2 after: it merges
+// the blocks' statistics in ascending order into m and l, walks the
+// band's 64-key tiles (scores and V's slice staged by TMA), p = exp(s -
+// m) (bf16: rounded to bf16, so ref.swa_bf16_bound holds as it does for
+// the other builds), O += P V, and writes O / l: the softmax is exact,
+// with no online rescale.  What bounds it on an H100: the products,
+// twice the pairs' 2 hd multiply-adds, as every build; the band's
+// 128-row, 64-key alignment adds ~1.2x the pairs at window 2,048.  Both
+// passes read their operands from L2 for every tile (pass 1: Q's and
+// K's k-slices, 85 FLOP a byte at 128 x 256; pass 2: 4 bytes of score
+// and 4 of V for every 512 FLOP), which is what the tile shapes are
+// chosen for; the slab itself (1.2 GB at RecurrentGemma-9B's shape
+// with hd widened) is written once and read once from device memory.
+// Every sum runs in a fixed order, with no atomics, and a head's
+// arithmetic does not depend on its group.  The chunked scalar build
+// these replaced (swa_attention_kernel at hd 256 in hd / 256 chunks
+// along blockIdx.z, each chunk's block recomputing the scores over the
+// whole head dim, bf16 widened to fp32) stays for comparison, reached
+// only through the C entry's kSplitChunks.  RecurrentGemma-9B's local
+// attention (H=16, K=1, window 2048) is the config that reaches hd
+// 256; none in the repo goes above it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -173,8 +199,8 @@ struct Vec4<float> {
   }
 };
 
-// bf16 above hd 2,048 (the chunked scalar build): four
-// values in one 8-byte load, widened to fp32; stored rounded to nearest
+// bf16 in the chunked scalar build (kept for comparison): four values in
+// one 8-byte load, widened to fp32; stored rounded to nearest
 template <>
 struct Vec4<__nv_bfloat16> {
   static __device__ __forceinline__ float4 load(const __nv_bfloat16* p) {
@@ -350,9 +376,10 @@ __device__ __forceinline__ void store_rows(T* ob, long long q_step,
 // bytes) holds one block an SM, so the bound asks for one and lets a
 // thread keep its 64 accumulators in up to 255 registers.
 //
-// HD is the block's chunk of the head dim, which is chunks x HD: a
-// head dim above 256 that no cluster holds (above 2048) runs HD = 256 in
-// chunks of 256 columns.  Block (x, y, z)
+// HD is the block's chunk of the head dim, which is chunks x HD: the C
+// entry's kSplitChunks runs a head dim of 256 c at HD = 256 in chunks of
+// 256 columns (the code hd above 2,048 ran before the band builds, kept
+// for comparison; the wrapper never sends it).  Block (x, y, z)
 // writes the 64 q rows x of head y and the output columns [z HD, z HD +
 // HD): each tile's scores run over the whole head dim, chunk by chunk in
 // ascending order, each chunk of Q and K staged in Q's and K's space; V's
@@ -2050,10 +2077,672 @@ int launch_wgmma_cluster(const void* q, const void* k, const void* v, void* o, i
                             maps[0], maps[1], maps[2], maps[3], S, H, K, window, scale * kLog2e);
 }
 
+
+// ---- above hd 2,048: two passes through a banded score workspace -------
+//
+// A band item is one q tile of kItemRows query rows of one head; items are
+// numbered (b * H + h, q tile), q tiles fastest, and a launch runs a group
+// of consecutive items (the wrapper plans the groups so that the workspace
+// stays under its cap).  An item's band is the keys [k_start, k_end):
+// k_start the band's first 64-key tile, k_end past the diagonal (and at
+// most S).  The workspace holds, for each item of the group, a slab of
+// kItemRows rows x `blocks` key blocks (pass 1's block width: 256 keys in
+// bf16, 128 in fp32) of fp32 scores, and beside it each row's (max, sum of
+// exp) of every block.  Rows from S on are never written, nor read by a
+// thread that computes.
+
+constexpr int kItemRows = 128;  // query rows of a band item
+constexpr int kBandKeysBf16 = 256, kBandKeysF32 = 128;  // keys of a pass-1 block
+
+struct Item {
+  int b, h, g, q0, k_start, k_end;
+};
+
+__device__ __forceinline__ Item item_of(int item, int S, int H, int K, int window) {
+  const int n_qt = (S + kItemRows - 1) / kItemRows;
+  const int bh = item / n_qt, q0 = (item % n_qt) * kItemRows, h = bh % H;
+  return {bh / H, h, h / (H / K), q0, max(q0 - window + 1, 0) / kTile * kTile,
+          min(q0 + kItemRows, S)};
+}
+
+// A thread's row: the merged softmax statistics over the item's band,
+// the blocks' maxima first, then the sums rescaled to their max and added
+// in ascending block order.  Returns (m, l); with kLog2, exp2 on the
+// log2e-scaled difference (the bf16 build's exp), else expf.
+template <bool kLog2>
+__device__ __forceinline__ float2 merge_stats(const float2* __restrict__ row, int n) {
+  float m = row[0].x;
+  for (int j = 1; j < n; ++j) m = fmaxf(m, row[j].x);
+  float l = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const float2 t = row[j];
+    l += t.y * (kLog2 ? hopper::exp2_approx((t.x - m) * kLog2e) : expf(t.x - m));
+  }
+  return make_float2(m, l);
+}
+
+// -- fp32 --
+
+constexpr int kF32Stages = 4;    // pass 1's k-steps in flight
+constexpr int kF32StepCols = 32;  // head-dim columns a k-step: one 128-byte swizzled box
+constexpr int kPvStages = 2;     // pass 2's tiles in flight
+
+struct BandF32Layout {
+  static constexpr int kBox = kItemRows * kF32StepCols;  // floats of Q's or K's box a k-step
+  static constexpr uint32_t kStepBytes = 2 * kBox * sizeof(float);
+  static constexpr size_t kScoreSmem =
+      1024 + kF32Stages * size_t{kStepBytes} + kF32Stages * (sizeof(uint64_t) + sizeof(uint32_t));
+  static constexpr int kS = kTile * kTile;  // a pass-2 tile's scores, then its p
+  static constexpr int kV = kTile * 256;    // a pass-2 tile's V: 64 keys x 256 columns
+  static constexpr uint32_t kPvBytes = (kS + kV) * sizeof(float);
+  static constexpr size_t kPvSmem =
+      1024 + kPvStages * size_t{kPvBytes} + kPvStages * (sizeof(uint64_t) + sizeof(uint32_t));
+};
+
+// Pass 1, fp32: block (j, item) takes the scores of the item's 128 rows
+// against its band's key block j (128 keys from k_start + 128 j), the
+// head dim its reduction loop: 32-column boxes of Q and K (128-byte
+// swizzled, so that the float4 reads of a quarter warp hit distinct
+// banks) staged by TMA, kF32Stages k-steps in flight, the last warp to
+// release a stage issuing its next copy (as swa_attention_kernel_bulk
+// does).  Thread (tx, ty) of a 16 x 16 grid sums the 8 x 8 scores of rows
+// ty + 16 i and keys tx + 16 j, 4 FMAs a float read.  Then the scale, the
+// mask (-1e30, as the Pallas kernel), each row's max and sum of exp over
+// the block, and the scores stored into the slab.
+__global__ void __launch_bounds__(kThreads, 1)
+swa_band_scores_f32(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map, float* __restrict__ ws,
+                    float2* __restrict__ stats, int S, int H, int K, int hd, int window,
+                    float scale, int item0, int blocks) {
+  using L = BandF32Layout;
+  const int j = blockIdx.x, rel = blockIdx.y;
+  const Item at = item_of(item0 + rel, S, H, K, window);
+  const int k0 = at.k_start + j * kBandKeysF32;
+  if (k0 >= at.k_end) return;  // past the band of an item near the start of S
+  extern __shared__ uint8_t smem_raw[];
+  float* stage = reinterpret_cast<float*>(
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023));  // Q then K a stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + kF32Stages * 2 * L::kBox);
+  uint32_t* freed = reinterpret_cast<uint32_t*>(full + kF32Stages);
+  const int steps = hd / kF32StepCols;
+  const CUtensorMap* qm = &q_map;
+  const CUtensorMap* km = &k_map;
+  auto issue = [=](int t) {  // k-step t into its stage, by one thread
+    float* dst = stage + (t % kF32Stages) * 2 * L::kBox;
+    uint64_t* bar = &full[t % kF32Stages];
+    hopper::mbar_expect_tx(bar, L::kStepBytes);
+    hopper::tma_load_4d(dst, qm, bar, t * kF32StepCols, at.h, at.q0, at.b);
+    hopper::tma_load_4d(dst + L::kBox, km, bar, t * kF32StepCols, at.g, k0, at.b);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kF32Stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      freed[s] = 0;
+    }
+    hopper::mbar_init_fence();
+    for (int t = 0; t < kF32Stages && t < steps; ++t) issue(t);
+  }
+  __syncthreads();
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, lane = threadIdx.x % 32;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
+  for (int t = 0; t < steps; ++t) {
+    const int s = t % kF32Stages;
+    hopper::mbar_wait(&full[s], (t / kF32Stages) & 1);
+    // row r's 16-byte chunk c lies at chunk c ^ (r % 8); a thread's rows
+    // all have r % 8 = ty % 8, its keys tx % 8
+    const float* qs = stage + s * 2 * L::kBox + ty * kF32StepCols;
+    const float* ks = stage + s * 2 * L::kBox + L::kBox + tx * kF32StepCols;
+#pragma unroll 2
+    for (int d = 0; d < kF32StepCols; d += 4) {
+      const int cq = ((d >> 2) ^ (ty & 7)) << 2, ck = ((d >> 2) ^ (tx & 7)) << 2;
+      float4 qv[8], kv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + 16 * i * kF32StepCols + cq);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        kv[jj] = *reinterpret_cast<const float4*>(ks + 16 * jj * kF32StepCols + ck);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          float a = acc[i][jj];
+          a = fmaf(qv[i].x, kv[jj].x, a);
+          a = fmaf(qv[i].y, kv[jj].y, a);
+          a = fmaf(qv[i].z, kv[jj].z, a);
+          a = fmaf(qv[i].w, kv[jj].w, a);
+          acc[i][jj] = a;
+        }
+    }
+    if (released_last(&freed[s], lane) && t + kF32Stages < steps && lane == 0)
+      issue(t + kF32Stages);
+  }
+
+  const bool edge = !(k0 + kBandKeysF32 - 1 <= at.q0 && k0 > at.q0 + kItemRows - 1 - window);
+  const long long keys = static_cast<long long>(blocks) * kBandKeysF32;  // a slab row
+  float* srow = ws + static_cast<long long>(rel) * kItemRows * keys + j * kBandKeysF32 + tx;
+  float2* trow = stats + static_cast<long long>(rel) * kItemRows * blocks + j;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = ty + 16 * i, qp = at.q0 + r;
+    float mx = kNegInf;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      float s = acc[i][jj] * scale;
+      const int kp = k0 + tx + 16 * jj;
+      if (edge && !(kp <= qp && kp > qp - window)) s = kNegInf;
+      acc[i][jj] = s;
+      mx = fmaxf(mx, s);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) sum += expf(acc[i][jj] - mx);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (qp < S) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) srow[r * keys + 16 * jj] = acc[i][jj];
+      if (tx == 0) trow[static_cast<long long>(r) * blocks] = make_float2(mx, sum);
+    }
+  }
+}
+
+// Pass 2, fp32: block (part * slices + slice, item) writes one 64-row
+// part of the item, rows r0 = q0 + 64 part, at the output columns [256
+// slice, 256 slice + 256).  Each thread first merges its row's statistics (warp w's rows w
+// + 8 r sit on lanes r); then the block walks the 64-key tiles of its rows'
+// band: a tile's scores (64 x 64 fp32 of the slab) and V's slice (64 keys x
+// 256 columns) staged by TMA, kPvStages tiles in flight, released together
+// by the last warp; each warp turns its own rows' scores into p = exp(s -
+// m) in place and sums O += P V in 8 x 8 register tiles (rows w + 8 r,
+// float4 columns lane + 32 c), as swa_attention_kernel_bulk's P V does.
+// O / l at the end: the softmax is exact, with no rescale.
+__global__ void __launch_bounds__(kThreads, 1)
+swa_band_pv_f32(const __grid_constant__ CUtensorMap ws_map,
+                const __grid_constant__ CUtensorMap v_map, const float2* __restrict__ stats,
+                float* __restrict__ o, int S, int H, int K, int hd, int window, int item0,
+                int blocks) {
+  using L = BandF32Layout;
+  const int slices = hd / 256, rel = blockIdx.y;
+  const int part = blockIdx.x / slices, slice = blockIdx.x % slices;
+  const Item at = item_of(item0 + rel, S, H, K, window);
+  const int r0 = at.q0 + kTile * part;
+  if (r0 >= S) return;  // the second part of the last item at S % 128 == 64
+  const int t_first = max(r0 - window + 1, 0) / kTile;  // the rows' band, in 64-key tiles
+  const int n_tiles = r0 / kTile - t_first + 1;
+  const int slot0 = t_first * kTile - at.k_start;  // its first key's place in the slab row
+  extern __shared__ uint8_t smem_raw[];
+  float* stage = reinterpret_cast<float*>(
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023));  // scores then V a stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + kPvStages * (L::kS + L::kV));
+  uint32_t* freed = reinterpret_cast<uint32_t*>(full + kPvStages);
+  const CUtensorMap* wm = &ws_map;
+  const CUtensorMap* vm = &v_map;
+  auto issue = [=](int t) {  // tile t into its stage, by one thread
+    float* dst = stage + (t % kPvStages) * (L::kS + L::kV);
+    uint64_t* bar = &full[t % kPvStages];
+    hopper::mbar_expect_tx(bar, L::kPvBytes);
+    hopper::tma_load_4d(dst, wm, bar, slot0 + t * kTile, 0, rel * kItemRows + kTile * part, 0);
+    hopper::tma_load_4d(dst + L::kS, vm, bar, 256 * slice, at.g, (t_first + t) * kTile, at.b);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kPvStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      freed[s] = 0;
+    }
+    hopper::mbar_init_fence();
+    for (int t = 0; t < kPvStages && t < n_tiles; ++t) issue(t);
+  }
+  __syncthreads();
+
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nblk = (at.k_end - at.k_start + kBandKeysF32 - 1) / kBandKeysF32;
+  const long long my_row =
+      static_cast<long long>(rel) * kItemRows + kTile * part + w + 8 * (lane % 8);
+  const float2 ml = merge_stats<false>(stats + my_row * blocks, nblk);
+  float mp[4];  // m of the rows w + 8 (2 i + lane / 16) whose scores this lane turns into p
+#pragma unroll
+  for (int i = 0; i < 4; ++i) mp[i] = __shfl_sync(0xffffffffu, ml.x, 2 * i + lane / 16);
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kPvStages;
+    hopper::mbar_wait(&full[s], (t / kPvStages) & 1);
+    float* ps = stage + s * (L::kS + L::kV);
+    const float* vs = ps + L::kS;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float4* p = reinterpret_cast<float4*>(ps + (w + 8 * (2 * i + lane / 16)) * kTile +
+                                            4 * (lane % 16));
+      float4 x = *p;
+      x.x = expf(x.x - mp[i]);
+      x.y = expf(x.y - mp[i]);
+      x.z = expf(x.z - mp[i]);
+      x.w = expf(x.w - mp[i]);
+      *p = x;
+    }
+    __syncwarp();
+#pragma unroll 2
+    for (int jk = 0; jk < kTile; jk += 4) {
+      float4 pv[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        pv[r] = *reinterpret_cast<const float4*>(ps + (w + 8 * r) * kTile + jk);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float4 vv = *reinterpret_cast<const float4*>(vs + (jk + jj) * 256 + 4 * lane +
+                                                             128 * c);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float p = jj == 0 ? pv[r].x : jj == 1 ? pv[r].y : jj == 2 ? pv[r].z : pv[r].w;
+            acc[r][4 * c] = fmaf(p, vv.x, acc[r][4 * c]);
+            acc[r][4 * c + 1] = fmaf(p, vv.y, acc[r][4 * c + 1]);
+            acc[r][4 * c + 2] = fmaf(p, vv.z, acc[r][4 * c + 2]);
+            acc[r][4 * c + 3] = fmaf(p, vv.w, acc[r][4 * c + 3]);
+          }
+        }
+      }
+    }
+    hopper::fence_async_smem();  // this thread's writes of p before the copy over them
+    if (released_last(&freed[s], lane) && t + kPvStages < n_tiles && lane == 0)
+      issue(t + kPvStages);
+  }
+
+  float* ob = o + (static_cast<long long>(at.b) * S * H + at.h) * hd + 256 * slice + 4 * lane;
+  const long long q_step = static_cast<long long>(H) * hd;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float denom = fmaxf(__shfl_sync(0xffffffffu, ml.y, r), 1e-30f);
+    const long long row = r0 + w + 8 * r;
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      *reinterpret_cast<float4*>(ob + row * q_step + 128 * c) =
+          make_float4(acc[r][4 * c] / denom, acc[r][4 * c + 1] / denom, acc[r][4 * c + 2] / denom,
+                      acc[r][4 * c + 3] / denom);
+  }
+}
+
+// -- bf16 --
+
+constexpr int kBandStepBytes = kItemRows * kRowBytes + kBandKeysBf16 * kRowBytes;  // Q + K a k-step
+constexpr int kBandScoreStages = 4;
+constexpr int kBandScoreBoxBytes = kItemRows * 32 * sizeof(float);  // 32 keys of a score tile
+constexpr int kBandTileBytes = 2 * kBandScoreBoxBytes + 4 * kTile * kRowBytes;  // scores + V
+constexpr int kBandPvStages = 3;
+constexpr int kBandSync = 3;  // named barrier: both consumers are done with every stage
+constexpr size_t kBandScoreSmem =
+    1024 + size_t{kBandScoreStages} * kBandStepBytes + 2 * 8 * kBandScoreStages;
+constexpr size_t kBandPvSmem =
+    1024 + size_t{kBandPvStages} * kBandTileBytes + 2 * 8 * kBandPvStages;
+
+// 64 x 256 fp32 scores += Q K^T over the 64 columns of one k-step: Q's 64
+// rows at q_addr (in a 128-row box), K's 256 keys at k_addr (one box)
+__device__ __forceinline__ void issue_band_qk(float (&acc)[128], uint32_t q_addr,
+                                              uint32_t k_addr) {
+  using namespace hopper;
+  reg_fence(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n256k16_ss(acc, sw128_desc(q_addr + kk * 32, 16, 1024),
+                        sw128_desc(k_addr + kk * 32, 16, 1024), 1);
+  wgmma_commit();
+}
+
+// One 64-key tile i of pass 2 for a consumer: its rows' scores (rows rr
+// and rr + 8 of the item, from the tile's two 32-key boxes, 128-byte
+// swizzled) turned into p = exp2(s log2e - m log2e) and rounded to bf16 in
+// the A fragments' layout (fragment f of keys 16 kk .. 16 kk + 15: row rr +
+// 8 (f % 2), keys 16 kk + 8 (f / 2) + col + {0, 1}), then O += P V issued;
+// the product of tile i - 1, which ran while p was made, is then waited
+// for and its stage released.
+__device__ __forceinline__ void band_pv_tile(float (&o)[128], uint32_t (&p)[4][4],
+                                             const uint8_t* stage, uint64_t* full,
+                                             uint64_t* empty, int i, int rr, int col, int lane,
+                                             const float (&neg_m)[2]) {
+  using namespace hopper;
+  const int s = i % kBandPvStages;
+  mbar_wait(&full[s], (i / kBandPvStages) & 1);
+  const uint8_t* sb = stage + s * kBandTileBytes;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int r = rr + 8 * (f % 2), key = 16 * kk + 8 * (f / 2) + col;
+      const float2 sv = *reinterpret_cast<const float2*>(
+          sb + (key / 32) * kBandScoreBoxBytes + r * 128 + ((((key % 32) / 4) ^ (lane / 4)) * 16) +
+          (key % 4) * 4);
+      p[kk][f] = pack_bf16(exp2_approx(fmaf(sv.x, kLog2e, neg_m[f % 2])),
+                           exp2_approx(fmaf(sv.y, kLog2e, neg_m[f % 2])));
+    }
+  issue_pv<128, kTile>(o, p, smem_u32(sb + 2 * kBandScoreBoxBytes));
+  if (i > 0) {
+    wgmma_wait<1>();
+    if (lane == 0) mbar_arrive(&empty[(i - 1) % kBandPvStages]);
+  }
+}
+
+// Pass 1, bf16: block (j, item) takes the scores of the item's 128 rows
+// against its band's key block j (256 keys from k_start + 256 j) on the
+// tensor cores: a producer warpgroup streams the head dim's 64-column
+// boxes of Q (128 rows) and K (256 keys) by TMA through kBandScoreStages
+// stages; each consumer warpgroup accumulates its 64 rows x 256 keys in
+// fp32 registers (m64n256k16 from shared memory, one k-step's products in
+// flight while the next is issued).  Then, in registers, the scale, the
+// mask (-1e30), each row's max and sum of exp over the block, and the
+// scores stored into the slab.
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+swa_band_scores_wgmma(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map, float* __restrict__ ws,
+                      float2* __restrict__ stats, int S, int H, int K, int hd, int window,
+                      float scale, int item0, int blocks) {
+  using namespace hopper;
+  const int j = blockIdx.x, rel = blockIdx.y;
+  const Item at = item_of(item0 + rel, S, H, K, window);
+  const int k0 = at.k_start + j * kBandKeysBf16;
+  if (k0 >= at.k_end) return;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* stage = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // Q then K a stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + kBandScoreStages * kBandStepBytes);
+  uint64_t* empty = full + kBandScoreStages;
+  const int steps = hd / 64;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBandScoreStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWgThreads, 0);
+  if (wg == 0) {  // producer
+    regs_release<24>();
+    if (threadIdx.x == 0) {
+      for (int t = 0; t < steps; ++t) {
+        const int s = t % kBandScoreStages;
+        mbar_wait(&empty[s], ((t / kBandScoreStages) & 1) ^ 1);  // the first round passes at once
+        uint8_t* dst = stage + s * kBandStepBytes;
+        mbar_expect_tx(&full[s], kBandStepBytes);
+        tma_load_4d(dst, &q_map, &full[s], 64 * t, at.h, at.q0, at.b);
+        tma_load_4d(dst + kItemRows * kRowBytes, &k_map, &full[s], 64 * t, at.g, k0, at.b);
+      }
+    }
+    return;
+  }
+  regs_acquire<240>();
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int r_lo = at.q0 + cw * kHalf;
+  auto parity = [](int t) { return static_cast<uint32_t>((t / kBandScoreStages) & 1); };
+  if (r_lo >= S) {  // rows past S: release every stage, compute nothing
+    for (int t = 0; t < steps; ++t) {
+      mbar_wait(&full[t % kBandScoreStages], parity(t));
+      if (lane == 0) mbar_arrive(&empty[t % kBandScoreStages]);
+    }
+    return;
+  }
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  const uint32_t base = smem_u32(stage) + cw * kHalf * kRowBytes;
+  for (int t = 0; t < steps; ++t) {
+    const int s = t % kBandScoreStages;
+    mbar_wait(&full[s], parity(t));
+    issue_band_qk(acc, base + s * kBandStepBytes,
+                  smem_u32(stage) + s * kBandStepBytes + kItemRows * kRowBytes);
+    if (t > 0) {
+      wgmma_wait<1>();  // k-step t - 1 is done with its stage
+      if (lane == 0) mbar_arrive(&empty[(t - 1) % kBandScoreStages]);
+    }
+  }
+  wgmma_wait<0>();
+  reg_fence(acc);
+  if (lane == 0) mbar_arrive(&empty[(steps - 1) % kBandScoreStages]);
+
+  // acc[4 c + e]: row `row` + 8 (e / 2), key k0 + 8 c + col + e % 2
+  const int row = r_lo + 16 * warp + lane / 4, col = 2 * (lane % 4);
+  const bool edge =
+      !(k0 + kBandKeysBf16 - 1 <= r_lo && k0 > r_lo + kHalf - 1 - window);
+#pragma unroll
+  for (int c = 0; c < 32; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float s = acc[4 * c + e] * scale;
+      const int qp = row + 8 * (e / 2), kp = k0 + 8 * c + col + e % 2;
+      if (edge && !(kp <= qp && kp > qp - window)) s = kNegInf;
+      acc[4 * c + e] = s;
+    }
+  const long long keys = static_cast<long long>(blocks) * kBandKeysBf16;  // a slab row
+  const int rr = row - at.q0;  // the row in the item
+  float* srow =
+      ws + (static_cast<long long>(rel) * kItemRows + rr) * keys + j * kBandKeysBf16 + col;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // rows `row` and row + 8
+    float mx = acc[2 * h];
+#pragma unroll
+    for (int c = 0; c < 32; ++c) mx = fmaxf(mx, fmaxf(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float neg = -mx * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 32; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) sum += exp2_approx(fmaf(acc[4 * c + 2 * h + e], kLog2e, neg));
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+    for (int c = 0; c < 32; ++c)
+      *reinterpret_cast<float2*>(srow + 8 * h * keys + 8 * c) =
+          make_float2(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+    if (lane % 4 == 0)
+      stats[(static_cast<long long>(rel) * kItemRows + rr + 8 * h) * blocks + j] =
+          make_float2(mx, sum);
+  }
+}
+
+// Pass 2, bf16: block (slice, item) writes the item's 128 rows at the
+// output columns [256 slice, 256 slice + 256); the c slices of an item run
+// back to back, so its slab comes from device memory once and from L2
+// after.  The producer streams each 64-key tile of the band: its scores
+// (128 rows x 64 keys fp32, in two 32-key boxes, 128-byte swizzled) and
+// V's slice (64 keys x 256 columns bf16).  Each consumer merges its rows'
+// statistics, then per tile turns its 64 rows' scores into p = exp2(s
+// log2e - m log2e), rounds p to bf16 in the A fragments' layout, and
+// issues O += P V (m64n256k16, A from registers, V transposed from shared
+// memory); the next tile's p is made while that product runs.  O / l,
+// rounded to bf16 once, goes out by TMA through stage 0.
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+swa_band_pv_wgmma(const __grid_constant__ CUtensorMap ws_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap o_map, const float2* __restrict__ stats,
+                  int S, int H, int K, int window, int item0, int blocks) {
+  using namespace hopper;
+  const int slice = blockIdx.x, rel = blockIdx.y;
+  const Item at = item_of(item0 + rel, S, H, K, window);
+  const int n_tiles = (at.k_end - at.k_start) / kTile;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* stage = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // scores then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + kBandPvStages * kBandTileBytes);
+  uint64_t* empty = full + kBandPvStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBandPvStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWgThreads, 0);
+  if (wg == 0) {  // producer
+    regs_release<24>();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kBandPvStages;
+        mbar_wait(&empty[s], ((i / kBandPvStages) & 1) ^ 1);
+        uint8_t* dst = stage + s * kBandTileBytes;
+        mbar_expect_tx(&full[s], kBandTileBytes);
+        for (int x = 0; x < 2; ++x)
+          tma_load_4d(dst + x * kBandScoreBoxBytes, &ws_map, &full[s], kTile * i + 32 * x, 0,
+                      rel * kItemRows, 0);
+        for (int x = 0; x < 4; ++x)
+          tma_load_4d(dst + 2 * kBandScoreBoxBytes + x * kTile * kRowBytes, &v_map, &full[s],
+                      256 * slice + 64 * x, at.g, at.k_start + kTile * i, at.b);
+      }
+    }
+    return;
+  }
+  regs_acquire<240>();
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int r_lo = at.q0 + cw * kHalf;
+  auto parity = [](int i) { return static_cast<uint32_t>((i / kBandPvStages) & 1); };
+  if (r_lo >= S) {  // rows past S: release every stage, compute nothing
+    for (int i = 0; i < n_tiles; ++i) {
+      mbar_wait(&full[i % kBandPvStages], parity(i));
+      if (lane == 0) mbar_arrive(&empty[i % kBandPvStages]);
+    }
+    named_barrier(kBandSync, 2 * kWgThreads);
+    return;
+  }
+  // rows rr and rr + 8 of the item (r % 8 == lane / 4 for both), columns
+  // 8 c + col + {0, 1} of O
+  const int rr = cw * kHalf + 16 * warp + lane / 4, col = 2 * (lane % 4);
+  const int nblk = (at.k_end - at.k_start + kBandKeysBf16 - 1) / kBandKeysBf16;
+  float neg_m[2], l[2];  // l: this lane's part of the row's sum, as store_o takes it
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float2 ml = merge_stats<true>(
+        stats + (static_cast<long long>(rel) * kItemRows + rr + 8 * h) * blocks, nblk);
+    neg_m[h] = -ml.x * kLog2e;
+    l[h] = lane % 4 == 0 ? ml.y : 0.f;  // the quad's other parts add exact zeros
+  }
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  uint32_t pa[4][4], pb[4][4];  // two tiles' p: one in a product, the next being made
+  int i = 0;
+  for (; i + 1 < n_tiles; i += 2) {
+    band_pv_tile(o, pa, stage, full, empty, i, rr, col, lane, neg_m);
+    band_pv_tile(o, pb, stage, full, empty, i + 1, rr, col, lane, neg_m);
+  }
+  if (i < n_tiles) band_pv_tile(o, pa, stage, full, empty, i, rr, col, lane, neg_m);
+  wgmma_wait<0>();
+  reg_fence(o);
+  if (lane == 0) mbar_arrive(&empty[(n_tiles - 1) % kBandPvStages]);
+  named_barrier(kBandSync, 2 * kWgThreads);  // no consumer reads a stage any more
+  store_o<256>(o, l, stage, &o_map, Block{at.b, at.g, at.h, at.q0}, cw, r_lo, col, 256 * slice);
+}
+
+// The passes `passes` names (1 the scores, 2 P V, 3 both) over a group of
+// n_items items from item0: 0 or a cudaError_t.  ws holds n_items x 128
+// rows x blocks key blocks of fp32 scores, stats n_items x 128 x blocks
+// float2; blocks x the block width must hold the widest band, 64 min(2 +
+// ceil((window - 1) / 64), ceil(S / 64)) keys.
+int launch_band(const void* q, const void* k, const void* v, void* o, void* ws, void* stats, int B,
+                int S, int H, int K, int hd, int window, float scale, int bf16, int blocks,
+                int item0, int n_items, int passes, void* stream) {
+  const long long items = static_cast<long long>(B) * H * ((S + kItemRows - 1) / kItemRows);
+  const long long band_tiles = 2 + (static_cast<long long>(window) - 1 + kTile - 1) / kTile;
+  const long long s_tiles = (S + kTile - 1) / kTile;
+  const long long tiles = band_tiles < s_tiles ? band_tiles : s_tiles;
+  const int width = bf16 ? kBandKeysBf16 : kBandKeysF32;
+  if (hd < 256 || hd % 256 || n_items < 1 || n_items > 65535 || item0 < 0 || passes < 1 ||
+      passes > 3 ||
+      static_cast<long long>(item0) + n_items > items || blocks < 1 ||
+      static_cast<long long>(blocks) * width < kTile * tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long keys = static_cast<long long>(blocks) * width;
+  const auto cs = static_cast<cudaStream_t>(stream);
+  const dim3 scores_grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_items));
+  CUtensorMap maps[5];
+  int res;
+  if (bf16) {
+    res = check_launch_regs(swa_band_scores_wgmma);
+    if (res == 0) res = check_launch_regs(swa_band_pv_wgmma);
+    cudaError_t err = cudaFuncSetAttribute(swa_band_scores_wgmma,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(kBandScoreSmem));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(swa_band_pv_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kBandPvSmem));
+    if (res == 0 && err != cudaSuccess) res = static_cast<int>(err);
+    // q in 128-row boxes, k in 256-key boxes, the slab in 32-key swizzled
+    // boxes of 128 rows, v and o in 64-row boxes
+    if (res == 0) res = hopper::bf16_map_4d(&maps[0], q, hd, H, S, B, kItemRows);
+    if (res == 0) res = hopper::bf16_map_4d(&maps[1], k, hd, K, S, B, kBandKeysBf16);
+    if (res == 0)
+      res = hopper::f32_map_4d(&maps[2], ws, static_cast<int>(keys), 1, n_items * kItemRows, 1, 32,
+                               1, kItemRows, true);
+    if (res == 0) res = hopper::bf16_map_4d(&maps[3], v, hd, K, S, B, kTile);
+    if (res == 0) res = hopper::bf16_map_4d(&maps[4], o, hd, H, S, B, kHalf);
+    if (res != 0) return res;
+    if (passes & 1) {
+      swa_band_scores_wgmma<<<scores_grid, kWgmmaThreads, kBandScoreSmem, cs>>>(
+          maps[0], maps[1], static_cast<float*>(ws), static_cast<float2*>(stats), S, H, K, hd,
+          window, scale, item0, blocks);
+      res = static_cast<int>(cudaGetLastError());
+      if (res != 0) return res;
+    }
+    if (passes & 2)
+      swa_band_pv_wgmma<<<dim3(hd / 256, n_items), kWgmmaThreads, kBandPvSmem, cs>>>(
+          maps[2], maps[3], maps[4], static_cast<const float2*>(stats), S, H, K, window, item0,
+          blocks);
+    return static_cast<int>(cudaGetLastError());
+  }
+  using L = BandF32Layout;
+  cudaError_t err = cudaFuncSetAttribute(swa_band_scores_f32,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L::kScoreSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(swa_band_pv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(L::kPvSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // q and k in 32-column swizzled boxes of 128 rows, the slab in 64 x 64
+  // tiles, v in 256-column boxes of 64 keys
+  res = hopper::f32_map_4d(&maps[0], q, hd, H, S, B, kF32StepCols, 1, kItemRows, true);
+  if (res == 0)
+    res = hopper::f32_map_4d(&maps[1], k, hd, K, S, B, kF32StepCols, 1, kItemRows, true);
+  if (res == 0)
+    res = hopper::f32_map_4d(&maps[2], ws, static_cast<int>(keys), 1, n_items * kItemRows, 1,
+                             kTile, 1, kTile);
+  if (res == 0) res = hopper::f32_map_4d(&maps[3], v, hd, K, S, B, 256, 1, kTile);
+  if (res != 0) return res;
+  if (passes & 1) {
+    swa_band_scores_f32<<<scores_grid, kThreads, L::kScoreSmem, cs>>>(
+        maps[0], maps[1], static_cast<float*>(ws), static_cast<float2*>(stats), S, H, K, hd,
+        window, scale, item0, blocks);
+    res = static_cast<int>(cudaGetLastError());
+    if (res != 0) return res;
+  }
+  if (passes & 2)
+    swa_band_pv_f32<<<dim3(2 * (hd / 256), n_items), kThreads, L::kPvSmem, cs>>>(
+        maps[2], maps[3], static_cast<const float2*>(stats), static_cast<float*>(o), S, H, K, hd,
+        window, item0, blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // How a launch splits the head dim: the wrapper (kernels/swa_attention.py,
-// split_of) decides it, and this entry launches just that build.
+// split_of) decides it, and this entry launches just that build.  Above
+// hd 2,048 the wrapper calls swa_attention_band_launch instead, once a
+// group of heads.
 enum Split {
   kSplitOne = 0,      // hd 64, 128 or 256: one block a q tile
   kSplitCluster = 1,  // hd = 256 c: a cluster of c CTAs (c <= 8, a portable cluster)
@@ -2084,8 +2773,8 @@ extern "C" int swa_attention_launch(const void* q, const void* k, const void* v,
                   : launch_bulk<256>(q, k, v, o, B, S, H, K, window, scale, stream);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // kSplitChunks at hd 256 (one chunk) is the one-block fp32 code before
-  // the bulk-copy kernel, kept for comparison; the wrapper never sends it
+  // kSplitChunks is the code hd 256 (one chunk, fp32) and hd above 2,048
+  // ran before, kept for comparison; the wrapper never sends it
   if (hd < 256 || hd % 256 || (hd == 256 && split != kSplitChunks))
     return static_cast<int>(cudaErrorInvalidValue);
   if (split == kSplitCluster)
@@ -2096,4 +2785,22 @@ extern "C" int swa_attention_launch(const void* q, const void* k, const void* v,
                                              stream)
                 : launch<float, 256>(q, k, v, o, B, S, H, K, window, scale, hd / 256, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Above hd 2,048 (and at any hd = 256 c, for comparison): the two passes
+// through the banded score workspace (launch_band) over the group of
+// n_items band items from item0, items numbered (b * H + h, 128-row q
+// tile), q tiles fastest.  ws: n_items x 128 x blocks x (256 keys in bf16,
+// 128 in fp32) fp32; stats: n_items x 128 x blocks float2, both 16-byte
+// aligned.  `passes` is 3 (both) from the wrapper; 1 launches the scores
+// alone, to time the passes apart.  Returns the cudaError_t of the
+// launches: cudaErrorInvalidValue for an hd that is not a multiple of
+// 256, a group outside the items or of more than 65,535, too few blocks
+// for the band, or passes outside 1 to 3.
+extern "C" int swa_attention_band_launch(const void* q, const void* k, const void* v, void* o,
+                                         void* ws, void* stats, int B, int S, int H, int K,
+                                         int hd, int window, float scale, int bf16, int blocks,
+                                         int item0, int n_items, int passes, void* stream) {
+  return launch_band(q, k, v, o, ws, stats, B, S, H, K, hd, window, scale, bf16, blocks, item0,
+                     n_items, passes, stream);
 }

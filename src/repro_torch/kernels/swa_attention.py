@@ -1,7 +1,8 @@
 """Wrapper of the hand-written CUDA kernel ``swa_attention``
 (``csrc/swa_attention.cu``), the port of the Pallas kernel
 ``repro.kernels.swa_attention.swa_attention_pallas``: causal
-sliding-window attention with an online softmax over the diagonal band.
+sliding-window attention over the diagonal band (an online softmax up
+to hd 2,048; above, an exact one from a score workspace).
 
 Unlike the Pallas kernel, which takes the KV heads repeated to H, the
 kernel reads k and v as ``(B, S, K, hd)`` with ``H % K == 0`` and
@@ -12,7 +13,7 @@ S % 128 != 0 (the banded branch of ``gqa_attention``, the only caller,
 takes S % 1024 == 0).  The kernel is built for hd 64, 128 and 256, and
 runs any multiple of 256 above that; any other hd is zero-padded to the
 next of these (:func:`with_padded_head_dim`), which is exact.  Only what
-the grid cannot hold is refused: more than :data:`MAX_CHUNKS` chunks of
+the grid cannot hold is refused: more than :data:`MAX_CHUNKS` slices of
 256 columns.  bf16 runs on the tensor cores (``wgmma`` + TMA; 64-key
 tiles from hd 256) with P rounded to bf16 (``ref.swa_bf16_bound``
 states what that costs); fp32 on scalar fp32 FMAs (TF32 would break
@@ -53,11 +54,25 @@ told to, so a launch counted under a name ran that build:
   slots (8 float4 a thread) do not hold every peer's tile at once
   (``..._wgmma_cluster``).  fp32 stays bound by its FMAs.
 * hd above 256 x :data:`MAX_CLUSTER` (a portable cluster holds 8 CTAs):
-  ``chunked-scalar-bf16-hd256`` and ``chunked-scalar-fp32-hd256``, the
-  chunked scalar build (staged through registers) in hd / 256 chunks
-  along ``gridDim.z``, each chunk's block recomputing the scores over
-  the whole head dim.  This is a dispatch by shape, not a fallback: a
-  failed build or launch raises.
+  ``band-wgmma-bf16`` and ``band-scalar-fp32``, two passes through a
+  banded score workspace.  Pass 1 takes Q K^T once over the head dim,
+  one block a (128-row q tile, key block of its band, head), the head
+  dim the reduction loop (bf16: ``wgmma`` m64n256k16 on TMA-streamed
+  64-column boxes, 256-key blocks; fp32: 32-column boxes staged by TMA,
+  8 x 8 register tiles, 128-key blocks), and writes the scaled, masked
+  scores as fp32 into the workspace, a (q tile, band) slab an item,
+  with each row's max and sum of exp a block beside it.  Pass 2, one
+  block a (q tile, 256 columns of O, head), the slices of a q tile back
+  to back, merges the statistics in ascending block order and walks the
+  band: p = exp(s - m) (bf16: rounded to bf16), O += P V, O / l; the
+  softmax is exact, with no rescale.  The wrapper allocates the
+  workspace and runs the items (b * H + h, q tile) in groups that keep
+  it under :data:`WORKSPACE_CAP` (:func:`plan_band_groups`), one launch
+  of both passes a group, counted once a call.  The chunked scalar
+  build it replaced (each of hd / 256 chunks recomputing the scores
+  over the whole head dim) stays in the C entry for comparison; the
+  wrapper never sends it.  This is a dispatch by shape, not a fallback:
+  a failed build or launch raises.
 
 Its plain twin is ``repro_torch.kernels.ref.swa_attention_plain``;
 the CUDA-or-CPU dispatch is ``repro_torch.kernels.ops.swa_attention``.
@@ -80,15 +95,22 @@ LAUNCHES = 0
 BUILD_LAUNCHES: dict[str, int] = {}
 
 HEAD_DIMS = (64, 128, 256)  # the kernel's builds; other hd <= 256 are padded
-CHUNK = HEAD_DIMS[-1]  # above it, hd runs in chunks of these columns (padded to a multiple)
+CHUNK = HEAD_DIMS[-1]  # above it, hd runs in slices of these columns (padded to a multiple)
 MAX_CLUSTER = 8  # CTAs of a portable cluster: the cluster builds run hd up to CHUNK * 8
-ONE_BLOCK, CLUSTER, CHUNKS = 0, 1, 2  # how a launch splits hd: the C entry's `split`
+# how a launch splits hd: the C entry's `split` (BAND is its own C entry)
+ONE_BLOCK, CLUSTER, CHUNKS, BAND = 0, 1, 2, 3
 TILE = 64  # S must be a multiple of this
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEADS = 65535  # B * H blocks along gridDim.y
-MAX_CHUNKS = 65535  # hd / CHUNK blocks along gridDim.z
+MAX_CHUNKS = 65535  # hd / CHUNK slices of the head dim (the band build's gridDim.x)
+BAND_ROWS = 128  # query rows of a band item (a q tile of one head)
+BAND_TILE = 64  # keys of a band tile: the band's alignment
+BAND_KEYS = {torch.bfloat16: 256, torch.float32: 128}  # keys of a pass-1 block
+WORKSPACE_CAP = 2 << 30  # bytes of the band builds' workspace (scores and statistics)
+MAX_GROUP_ITEMS = 65535  # band items of a group, along gridDim.y
 
 _launch_fn = None
+_band_fn = None
 
 
 def _fn():
@@ -100,6 +122,17 @@ def _fn():
         fn.restype = ctypes.c_int
         _launch_fn = fn
     return _launch_fn
+
+
+def _band():
+    global _band_fn
+    if _band_fn is None:
+        fn = _build.load("swa_attention").swa_attention_band_launch
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _band_fn = fn
+    return _band_fn
 
 
 def _check(q, k, v, window) -> tuple[int, int, int, int, int]:
@@ -121,7 +154,7 @@ def _check(q, k, v, window) -> tuple[int, int, int, int, int]:
                          f"q {tuple(q.shape)}, k {tuple(k.shape)}")
     if not 1 <= hd <= CHUNK * MAX_CHUNKS:
         raise ValueError(f"swa_attention: hd must be 1 to {CHUNK * MAX_CHUNKS} "
-                         f"({MAX_CHUNKS} chunks of {CHUNK} along gridDim.z), got {hd}")
+                         f"({MAX_CHUNKS} slices of {CHUNK}), got {hd}")
     if min(b, s, h) < 1 or b * h > MAX_HEADS:
         raise ValueError(f"swa_attention: need B, S, H >= 1 and B * H <= {MAX_HEADS}, "
                          f"got B={b} S={s} H={h}")
@@ -142,11 +175,12 @@ def split_of(hd: int) -> int:
     """How a launch at the padded head dim ``hd`` splits it, the one
     place this is decided: :data:`ONE_BLOCK` at :data:`HEAD_DIMS`,
     :data:`CLUSTER` (hd / 256 CTAs) up to 256 x :data:`MAX_CLUSTER`,
-    :data:`CHUNKS` (the chunked scalar hd-256 build along ``gridDim.z``)
-    above."""
+    :data:`BAND` (the two passes through the score workspace) above.
+    :data:`CHUNKS`, the chunked build the band replaced, is never
+    chosen."""
     if hd in HEAD_DIMS:
         return ONE_BLOCK
-    return CLUSTER if hd // CHUNK <= MAX_CLUSTER else CHUNKS
+    return CLUSTER if hd // CHUNK <= MAX_CLUSTER else BAND
 
 
 def build_of(dtype: torch.dtype, hd: int) -> str:
@@ -154,7 +188,7 @@ def build_of(dtype: torch.dtype, hd: int) -> str:
     at the padded head dim ``hd`` runs (the module note lists them): bf16
     on ``wgmma``, fp32 on the scalar kernel, split as :func:`split_of`
     says (``cluster-...-hd256x{c}`` for a cluster of c CTAs,
-    ``chunked-scalar-...-hd256`` for the chunks)."""
+    ``band-...`` for the two passes)."""
     kind = "wgmma" if dtype == torch.bfloat16 else "scalar"
     dt = "bf16" if dtype == torch.bfloat16 else "fp32"
     split = split_of(hd)
@@ -162,7 +196,40 @@ def build_of(dtype: torch.dtype, hd: int) -> str:
         return f"{kind}-{dt}-hd{hd}"
     if split == CLUSTER:
         return f"cluster-{kind}-{dt}-hd{CHUNK}x{hd // CHUNK}"
-    return f"chunked-scalar-{dt}-hd{CHUNK}"
+    return f"band-{kind}-{dt}"
+
+
+def band_blocks(s: int, window: int, dtype: torch.dtype) -> int:
+    """Key blocks of a band item's slab row: enough for the widest band a
+    128-row q tile has, ``2 + ceil((window - 1) / 64)`` tiles of 64 keys
+    (at most ``ceil(S / 64)``), in pass-1 blocks of :data:`BAND_KEYS`."""
+    tiles = min(2 + -(-(window - 1) // BAND_TILE), -(-s // BAND_TILE))
+    return -(-tiles * BAND_TILE // BAND_KEYS[dtype])
+
+
+def band_item_bytes(s: int, window: int, dtype: torch.dtype) -> int:
+    """Workspace bytes of one band item: its fp32 score slab (128 rows x
+    the blocks' keys) and each row's (max, sum) a block."""
+    blocks = band_blocks(s, window, dtype)
+    return BAND_ROWS * blocks * (BAND_KEYS[dtype] * 4 + 8)
+
+
+def plan_band_groups(heads: int, s: int, item_bytes: int,
+                     cap: int | None = None) -> list[tuple[int, int]]:
+    """The groups a band call runs, as (first item, items): the items
+    ``(b * H + h) * ceil(S / 128) + q tile`` of ``heads = B * H`` heads in
+    order, each group's workspace (``items * item_bytes``) within ``cap``
+    (:data:`WORKSPACE_CAP` unless given) and at most
+    :data:`MAX_GROUP_ITEMS` items.  A group holds whole heads when the cap
+    holds one head's items, else as many items as fit (at least one),
+    which may start and end inside a head."""
+    cap = WORKSPACE_CAP if cap is None else cap
+    per_head = -(-s // BAND_ROWS)
+    total = heads * per_head
+    fit = max(1, min(cap // item_bytes, MAX_GROUP_ITEMS))
+    if fit >= per_head:
+        fit -= fit % per_head
+    return [(first, min(fit, total - first)) for first in range(0, total, fit)]
 
 
 def with_padded_head_dim(attention, q, k, v, *, window: int) -> torch.Tensor:
@@ -180,15 +247,40 @@ def with_padded_head_dim(attention, q, k, v, *, window: int) -> torch.Tensor:
     return attention(*pad, window=window, scale=hd ** -0.5)[..., :hd].contiguous()
 
 
+def _launch_band(q, k, v, out, *, window: int, scale: float, stream: int,
+                 passes: int = 3) -> int:
+    """Both passes of the band build (``passes`` 1: the scores alone, to
+    time them apart), one launch a group of :func:`plan_band_groups`,
+    through one workspace sized for the largest group.  Returns the first
+    nonzero cudaError, else 0."""
+    b, s, h, hd = q.shape
+    blocks = band_blocks(s, window, q.dtype)
+    groups = plan_band_groups(b * h, s, band_item_bytes(s, window, q.dtype))
+    rows = max(n for _, n in groups) * BAND_ROWS * blocks
+    ws = torch.empty(rows * BAND_KEYS[q.dtype], dtype=torch.float32, device=q.device)
+    stats = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
+    for first, n in groups:
+        err = _band()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                      stats.data_ptr(), b, s, h, k.shape[2], hd, window, scale,
+                      int(q.dtype == torch.bfloat16), blocks, first, n, passes, stream)
+        if err != 0:
+            return err
+    return 0
+
+
 def _launch(q, k, v, *, window: int, scale: float) -> torch.Tensor:
     global LAUNCHES
     b, s, h, hd = q.shape
     out = torch.empty_like(q)
+    split = split_of(hd)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, s, h, k.shape[2], hd, window, scale, int(q.dtype == torch.bfloat16),
-                    split_of(hd), stream)
+        if split == BAND:
+            err = _launch_band(q, k, v, out, window=window, scale=scale, stream=stream)
+        else:
+            err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        b, s, h, k.shape[2], hd, window, scale, int(q.dtype == torch.bfloat16),
+                        split, stream)
     if err != 0:
         raise RuntimeError(f"swa_attention: kernel launch failed with cudaError {err}")
     LAUNCHES += 1
@@ -199,7 +291,7 @@ def _launch(q, k, v, *, window: int, scale: float) -> torch.Tensor:
 
 def swa_attention(q, k, v, *, window: int) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream: q (B, S, H, hd),
-    k and v (B, S, K, hd), any hd up to :data:`MAX_CHUNKS` chunks of
+    k and v (B, S, K, hd), any hd up to :data:`MAX_CHUNKS` slices of
     :data:`CHUNK`, one dtype (float32 or bfloat16),
     contiguous and 16-byte aligned, on one CUDA device, S % 64 == 0 ->
     o (B, S, H, hd) in q's dtype.  Query i attends to the keys j with

@@ -1,7 +1,9 @@
 """The port's attention held against the JAX package on the CPU: the
 ``swa_attention`` twin against JAX's oracle and its Pallas kernel (in
 interpret mode, as ``tests/test_kernels.py`` runs it) at hd 64, 128, 256
-and 96, the kernel wrapper's head-dim padding (to 512 and beyond too),
+and 96 and at the band builds' hd 2,304 and 4,096, a plain mirror of the
+band builds' two passes, their workspace's band width and group
+planner, the kernel wrapper's head-dim padding (to 512 and beyond too),
 the three branches of ``gqa_attention`` with a spy on the branch taken
 (the banded one also at hd 256 and 512), one bf16 case,
 decode attention over the KV cache, and ``swa_bf16_bound`` against an
@@ -107,15 +109,136 @@ def test_padded_head_dim_rule(hd, width):
     (288, "cluster-scalar-fp32-hd256x2", "cluster-wgmma-bf16-hd256x2"),
     (768, "cluster-scalar-fp32-hd256x3", "cluster-wgmma-bf16-hd256x3"),
     (2048, "cluster-scalar-fp32-hd256x8", "cluster-wgmma-bf16-hd256x8"),
-    (2049, "chunked-scalar-fp32-hd256", "chunked-scalar-bf16-hd256")])
+    (2049, "band-scalar-fp32", "band-wgmma-bf16"), (4096, "band-scalar-fp32", "band-wgmma-bf16"),
+    (256 * 65535 - 100, "band-scalar-fp32", "band-wgmma-bf16")])
 def test_build_of_routes_by_dtype_and_head_dim(hd, fp32, bf16):
     """The build a launch runs, by dtype and padded hd, with no launch:
     the one-block builds up to hd 256, a cluster of hd / 256 CTAs up to
-    the largest portable cluster (8, hd 2,048), the chunked scalar
-    hd-256 build above it."""
+    the largest portable cluster (8, hd 2,048), the band builds (two
+    passes through a score workspace) above it, up to the widest hd the
+    wrapper takes; never the chunked build they replaced."""
     width = swa_kernel.padded_head_dim(hd)
     assert swa_kernel.build_of(torch.float32, width) == fp32
     assert swa_kernel.build_of(torch.bfloat16, width) == bf16
+    assert swa_kernel.split_of(width) != swa_kernel.CHUNKS
+
+
+@pytest.mark.parametrize("s", [128, 192])
+@pytest.mark.parametrize("window", [1, 64, 100])
+@pytest.mark.parametrize("hd", [2304, 4096])
+def test_swa_plain_matches_jax_above_hd_2048(s, window, hd):
+    """The twin at the band builds' head dims against JAX's oracle, and
+    against its Pallas kernel (interpret mode) where it takes S (a
+    multiple of 128)."""
+    q, k, v = _qkv(1, s, 2, 2, hd, seed=s + window + hd)
+    got = ref.swa_attention_plain(*_torch(q, k, v), window=window).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_swa_ref(*_jax(q, k, v), window=window)),
+                               rtol=0, atol=ATOL)
+    if s % 128 == 0:
+        np.testing.assert_allclose(
+            got, np.asarray(jax_swa_pallas(*_jax(q, k, v), window=window)), rtol=0, atol=ATOL)
+
+
+def _band_two_pass(q, k, v, *, window, block_keys):
+    """A plain mirror of the band builds' two passes (fp32): for each
+    128-row q tile of each head, its band's keys from the first 64-key
+    tile a row reaches to the diagonal; pass 1 takes the scaled scores a
+    block of ``block_keys`` keys at a time over the whole head dim, masks
+    them with -1e30, and keeps each row's max and sum of exp a block;
+    the statistics are merged in ascending block order (the maxima, then
+    the sums rescaled to their max); pass 2 takes p = exp(s - m) over the
+    band and O = P V / l in slices of 256 columns."""
+    b, s, h, hd = q.shape
+    rep = h // k.shape[2]
+    out = torch.empty(b, s, h, hd)
+    for bi in range(b):
+        for hi in range(h):
+            g = hi // rep
+            for q0 in range(0, s, swa_kernel.BAND_ROWS):
+                q1 = min(q0 + swa_kernel.BAND_ROWS, s)
+                k_start = max(q0 - window + 1, 0) // swa_kernel.BAND_TILE * swa_kernel.BAND_TILE
+                qp = torch.arange(q0, q1)[:, None]
+                blocks, maxes, sums = [], [], []
+                for k0 in range(k_start, q1, block_keys):
+                    k1 = min(k0 + block_keys, s)
+                    sc = q[bi, q0:q1, hi] @ k[bi, k0:k1, g].T * hd ** -0.5
+                    kp = torch.arange(k0, k1)[None, :]
+                    sc = torch.where((kp <= qp) & (kp > qp - window), sc, torch.tensor(-1e30))
+                    blocks.append(sc)
+                    maxes.append(sc.amax(-1))
+                    sums.append(torch.exp(sc - maxes[-1][:, None]).sum(-1))
+                m = torch.stack(maxes).amax(0)
+                total = torch.zeros_like(m)
+                for mt, lt in zip(maxes, sums):  # ascending block order
+                    total = total + lt * torch.exp(mt - m)
+                p = torch.exp(torch.cat(blocks, dim=1) - m[:, None])
+                vb = v[bi, k_start:k_start + p.shape[1], g]
+                for c0 in range(0, hd, swa_kernel.CHUNK):
+                    out[bi, q0:q1, hi, c0:c0 + swa_kernel.CHUNK] = (
+                        p @ vb[:, c0:c0 + swa_kernel.CHUNK] / total.clamp_min(1e-30)[:, None])
+    return out
+
+
+@pytest.mark.parametrize("b,s,h,kh,hd,window", [
+    (1, 128, 4, 2, 2304, 64), (2, 192, 2, 1, 2304, 100), (1, 320, 4, 1, 4096, 1),
+    (1, 256, 2, 1, 2560, 300)])
+def test_band_two_pass_mirror_matches_jax(b, s, h, kh, hd, window):
+    """The band builds' decomposition (per-block scores and statistics,
+    the merge in block order, P V in 256-column slices), in both block
+    widths (bf16's 256 keys, fp32's 128), with K < H, against JAX's
+    oracle on the KV repeated to H heads, and its Pallas kernel where it
+    takes S.  The band reaches past S's start (window 300), is one tile
+    (window 1), and S % 128 == 64 leaves a half q tile."""
+    q, k, v = _qkv(b, s, h, kh, hd, seed=s + hd + window)
+    want = np.asarray(jax_swa_ref(*_jax(q, _repeat(k, h // kh), _repeat(v, h // kh)),
+                                  window=window))
+    for dtype, block in swa_kernel.BAND_KEYS.items():
+        got = _band_two_pass(*_torch(q, k, v), window=window, block_keys=block).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL, err_msg=str(dtype))
+    if s % 128 == 0:
+        pallas = jax_swa_pallas(*_jax(q, _repeat(k, h // kh), _repeat(v, h // kh)), window=window)
+        np.testing.assert_allclose(got, np.asarray(pallas), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("s", [64, 192, 1024, 8192])
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 100, 2048, 10_000])
+def test_band_blocks_hold_every_q_tiles_band(s, window):
+    """``band_blocks`` gives each 128-row q tile's slab row room for its
+    whole band, from the first 64-key tile its first row reaches to its
+    last row (or S), in pass-1 blocks of either width, and no block more
+    than the widest band needs."""
+    for dtype, width in swa_kernel.BAND_KEYS.items():
+        blocks = swa_kernel.band_blocks(s, window, dtype)
+        need = max(-(-(min(q0 + 128, s) - max(q0 - window + 1, 0) // 64 * 64) // width)
+                   for q0 in range(0, s, 128))
+        assert need <= blocks
+        assert blocks * width - width < 64 * min(2 + -(-(window - 1) // 64), -(-s // 64))
+    assert swa_kernel.band_blocks(8192, 2048, torch.bfloat16) == 9
+    assert swa_kernel.band_blocks(8192, 2048, torch.float32) == 17
+
+
+@pytest.mark.parametrize("heads,s,item_bytes,cap", [
+    (16, 8192, 1_188_864, None), (16, 8192, 1_188_864, 10 * 1_188_864),
+    (16, 8192, 1_188_864, 70 * 1_188_864), (3, 320, 1000, 2500), (3, 320, 1000, 6500),
+    (5, 64, 7, 1), (65535, 128, 1, 1 << 40)])
+def test_plan_band_groups_cover_every_item_under_the_cap(heads, s, item_bytes, cap):
+    """The groups of a band call cover every (b * H + h, q tile) item once,
+    in order; each stays within the cap (one item at least, when one
+    alone is over it) and within the grid's 65,535 items; a group holds
+    whole heads whenever the cap holds one."""
+    groups = swa_kernel.plan_band_groups(heads, s, item_bytes, cap)
+    limit = swa_kernel.WORKSPACE_CAP if cap is None else cap
+    per_head = -(-s // 128)
+    assert [first for first, _ in groups] == list(
+        np.cumsum([0] + [n for _, n in groups[:-1]]))
+    assert sum(n for _, n in groups) == heads * per_head
+    for first, n in groups:
+        assert 1 <= n <= swa_kernel.MAX_GROUP_ITEMS
+        assert n * item_bytes <= limit or n == 1
+        if limit // item_bytes >= per_head:
+            assert first % per_head == 0 and n % per_head == 0 or first + n == heads * per_head
+    if cap is None:  # RecurrentGemma-9B's local attention at a wide hd: one group
+        assert groups == [(0, heads * per_head)]
 
 
 @pytest.mark.parametrize("hd", [1, 48, 96, 160, 200, 256, 288, 320, 512])

@@ -12,7 +12,8 @@ MAML/MetaSGD on the card against the CPU from one set of draws, the
 Table-4 evaluation through ``lstm_forward``, at REPLACE-BG's pooled
 R=71,317 val windows too), the banded branch of ``gqa_attention``,
 a small LM prefill and a small RecurrentGemma prefill (hd 256, both
-dtypes) through ``swa_attention``, a round of the sharded mixer over a
+dtypes) through ``swa_attention``, its band builds above hd 2,048
+bitwise across the groups their workspace cap forces, a round of the sharded mixer over a
 one-rank NCCL group bitwise the tree mixer's, a swept-sharded sweep
 on that group's (1, 1) sweep mesh bitwise the tree sweep, and the LM
 zoo's train step (``chip_smoke.py`` phase 26 at small size: a reduced
@@ -535,10 +536,12 @@ def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
     (1, 1024, 2, 1, 512, 2048), (2, 192, 4, 2, 512, 100), (1, 320, 3, 1, 288, 100),
     (2, 1024, 4, 2, 288, 300),
     # clusters of 3, 5 and 8 (the partial tiles in 2, 4 and 8 rounds in
-    # bf16; 1, 2 and 4 in fp32), and hd 2,304 above the largest cluster
-    # (the scalar kernel in 9 chunks)
+    # bf16; 1, 2 and 4 in fp32), and hd 2,304, 2,560 and 4,096 above the
+    # largest cluster (the band builds: window 1, S % 128 == 64 at B=2,
+    # K < H, a band as wide as S)
     (1, 1024, 2, 1, 768, 2048), (2, 192, 2, 2, 768, 100), (1, 320, 2, 1, 1280, 100),
-    (1, 192, 2, 1, 2048, 100), (1, 320, 2, 1, 2304, 100)]
+    (1, 192, 2, 1, 2048, 100), (1, 320, 2, 1, 2304, 100), (2, 192, 4, 2, 2304, 1),
+    (1, 1024, 4, 1, 2560, 2048), (2, 320, 4, 1, 4096, 300), (1, 256, 2, 2, 4096, 1)]
       for dtype in (torch.float32, torch.bfloat16)],
     # the fp32 one-block kernel's staging (TMA, one stage at hd 256, two
     # below): one tile (S=64), window 1, S % 128 == 64 at B=2 with K=1
@@ -564,16 +567,20 @@ def test_swa_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, window):
         assert bool((err <= bound).all()), float((err / bound).max())
 
 
-# (dtype, hd, the build, the end of its kernel's mangled name)
+# (dtype, hd, the build, the ends of its kernels' mangled names)
 _SWA_BUILDS = {
-    (torch.float32, 64): ("scalar-fp32-hd64", "kernel_bulkILi64E"),
-    (torch.float32, 128): ("scalar-fp32-hd128", "kernel_bulkILi128E"),
-    (torch.float32, 256): ("scalar-fp32-hd256", "kernel_bulkILi256E"),
-    (torch.bfloat16, 256): ("wgmma-bf16-hd256", "wgmma_hd256"),
-    (torch.bfloat16, 512): ("cluster-wgmma-bf16-hd256x2", "wgmma_cluster2E"),
-    (torch.bfloat16, 768): ("cluster-wgmma-bf16-hd256x3", "wgmma_clusterE"),
-    (torch.float32, 512): ("cluster-scalar-fp32-hd256x2", "scalar_clusterE"),
-    (torch.float32, 768): ("cluster-scalar-fp32-hd256x3", "scalar_clusterE"),
+    (torch.float32, 64): ("scalar-fp32-hd64", ("kernel_bulkILi64E",)),
+    (torch.float32, 128): ("scalar-fp32-hd128", ("kernel_bulkILi128E",)),
+    (torch.float32, 256): ("scalar-fp32-hd256", ("kernel_bulkILi256E",)),
+    (torch.bfloat16, 256): ("wgmma-bf16-hd256", ("wgmma_hd256",)),
+    (torch.bfloat16, 512): ("cluster-wgmma-bf16-hd256x2", ("wgmma_cluster2E",)),
+    (torch.bfloat16, 768): ("cluster-wgmma-bf16-hd256x3", ("wgmma_clusterE",)),
+    (torch.float32, 512): ("cluster-scalar-fp32-hd256x2", ("scalar_clusterE",)),
+    (torch.float32, 768): ("cluster-scalar-fp32-hd256x3", ("scalar_clusterE",)),
+    **{(torch.bfloat16, hd): ("band-wgmma-bf16", ("band_scores_wgmmaE", "band_pv_wgmmaE"))
+       for hd in (2304, 4096)},
+    **{(torch.float32, hd): ("band-scalar-fp32", ("band_scores_f32E", "band_pv_f32E"))
+       for hd in (2304, 4096)},
 }
 
 
@@ -582,18 +589,20 @@ _SWA_BUILDS = {
     (torch.bfloat16, 256, 192, 2, 1, 100),
     *[(dtype, hd, s, h, kh, window) for dtype in (torch.bfloat16, torch.float32)
       for hd, s, h, kh, window in [(512, 1024, 4, 1, 2048), (512, 192, 2, 2, 100),
-                                   (768, 320, 2, 1, 100)]],
+                                   (768, 320, 2, 1, 100), (2304, 1024, 4, 1, 2048),
+                                   (4096, 320, 2, 2, 100)]],
     (torch.float32, 64, 1024, 4, 2, 300), (torch.float32, 128, 320, 12, 1, 1024),
     (torch.float32, 256, 1024, 4, 1, 2048), (torch.float32, 256, 192, 2, 2, 100)])
 def test_swa_runs_its_build_bitwise(cuda, dtype, hd, s, h, kh, window):
     """fp32 at hd 64, 128 and 256 launches the TMA-staged one-block build,
-    bf16 at hd 256 the wgmma build, and bf16 and fp32 at hd 512 and 768
-    the cluster builds (a cluster of hd / 256 CTAs), never the chunked
-    kernel; two launches agree bitwise; ptxas reports no spill for the
-    build's kernel and does not serialize its products."""
+    bf16 at hd 256 the wgmma build, bf16 and fp32 at hd 512 and 768 the
+    cluster builds (a cluster of hd / 256 CTAs), and at hd 2,304 and 4,096
+    the band builds (two kernels each), never the chunked kernel; two
+    launches agree bitwise; ptxas reports no spill for the build's
+    kernels and does not serialize their products."""
     from repro_torch.kernels import _build
 
-    build, kernel = _SWA_BUILDS[dtype, hd]
+    build, kernels = _SWA_BUILDS[dtype, hd]
     seed = s + h if hd <= 256 else s + hd
     q, k, v = _swa_inputs(1, s, h, kh, hd, dtype, seed=seed, device=cuda)
     before = dict(swa_kernel.BUILD_LAUNCHES)
@@ -610,11 +619,34 @@ def test_swa_runs_its_build_bitwise(cuda, dtype, hd, s, h, kh, window):
     else:
         torch.testing.assert_close(got, o32, rtol=0, atol=SWA_ATOL[dtype])
     log = _build.build_log("swa_attention")
-    entry = next(part for part in log.split("Compiling entry function")[1:]
-                 if kernel in part.splitlines()[0])
-    spills = [ln for ln in entry.splitlines() if "spill" in ln]
-    assert spills and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills)
-    assert not [ln for ln in log.splitlines() if "Performance Loss" in ln and kernel in ln]
+    for kernel in kernels:
+        entry = next(part for part in log.split("Compiling entry function")[1:]
+                     if kernel in part.splitlines()[0])
+        spills = [ln for ln in entry.splitlines() if "spill" in ln]
+        assert spills and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills)
+        assert not [ln for ln in log.splitlines() if "Performance Loss" in ln and kernel in ln]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_band_output_is_bitwise_across_head_groups(cuda, dtype, monkeypatch):
+    """The band builds run the items (b * H + h, q tile) in groups that
+    keep the workspace under ``WORKSPACE_CAP``: with the cap cut to one
+    head's items, and to one item, the call runs several groups, is still
+    one launch of its build, and gives bitwise the output of one group."""
+    q, k, v = _swa_inputs(2, 320, 4, 2, 2304, dtype, seed=5, device=cuda)
+    window = 300
+    one = swa_kernel.swa_attention(q, k, v, window=window)
+    item = swa_kernel.band_item_bytes(320, window, dtype)
+    for cap, groups in ((3 * item, 8), (item, 24)):
+        assert len(swa_kernel.plan_band_groups(8, 320, item, cap)) == groups
+        monkeypatch.setattr(swa_kernel, "WORKSPACE_CAP", cap)
+        before = dict(swa_kernel.BUILD_LAUNCHES)
+        got = swa_kernel.swa_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        ran = {b: n - before.get(b, 0) for b, n in swa_kernel.BUILD_LAUNCHES.items()
+               if n != before.get(b, 0)}
+        assert ran == {swa_kernel.build_of(dtype, 2304): 1}
+        assert torch.equal(got, one)
 
 
 def test_swa_wrapper_checks(cuda):
