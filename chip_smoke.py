@@ -100,34 +100,31 @@ Phases, each printing one JSON line:
                 elementwise within ``ref.swa_bf16_bound`` of the fp32
                 twin: the rounding of P and of the output), TF32 off;
                 then hd 256 (bf16 on the ``wgmma`` kernel's 64-key
-                tiles, fp32 on the scalar kernel), 512 and 768 (clusters
-                of two and three CTAs splitting the head dim), 2,304 and
-                4,096 (above the largest cluster: two passes through a
-                banded score workspace), 96 and 288 (zero-padded to 128
-                and 512) at S in {1024, 3072} x window in {100, 2048},
-                with 0 bytes of spill in the seven ``wgmma`` kernels (none
-                of them serialized by ptxas), the band builds' four
-                kernels, the three fp32 one-block
-                kernels (``swa_attention_kernel_bulk``: TMA-staged,
-                8 x 8 register tiles), the two chunked scalar kernels
-                and the fp32 cluster kernel; at RecurrentGemma-9B's local
-                attention (B=1, S=8,192, H=16, K=1, window 2048) at its
-                hd 256 and at hd 288, 512, 768, 2,048, 2,304 and 4,096
-                (each launch's build checked by name: the one-block
-                builds at 256, clusters of 2, 3 and 8 CTAs, the band
-                builds above 2,048) against the fp32
+                tiles, fp32 on the scalar kernel), 512, 768, 2,304 and
+                4,096 (two passes through a banded score workspace), 96
+                and 288 (zero-padded to 128 and 512) at S in {1024,
+                3072} x window in {100, 2048}, with 0 bytes of spill in
+                the five ``wgmma`` kernels (none of them serialized by
+                ptxas), the band builds' four kernels, the three fp32
+                one-block kernels (``swa_attention_kernel_bulk``:
+                TMA-staged, 8 x 8 register tiles) and the two chunked
+                scalar kernels; at RecurrentGemma-9B's local attention
+                (B=1, S=8,192, H=16, K=1, window 2048) at its hd 256 and
+                at hd 288, 512, 768, 2,048, 2,304 and 4,096 (each
+                launch's build checked by name: the one-block builds at
+                256, the band builds above) against the fp32
                 ``banded_flash_attention``: fp32 within 3e-5, bf16
                 elementwise within ``swa_bf16_bound``; at every hd but
                 288 in both dtypes its time (bf16 at hd 256 and 512 also
                 L2-flushed), the banded path's,
-                ``scaled_dot_product_attention``'s and its bound; fp32
-                at hd 256 beside the one-block code it replaced (the
-                chunked build at one chunk); the band builds beside the
-                chunked build they replaced (3 launches) and by pass
-                (the scores alone timed beside both), required faster than
-                the chunked build and no slower than SDPA, and the band
-                build at hd 2,048 (through its C entry) beside the
-                cluster build that runs there; at
+                ``scaled_dot_product_attention``'s and its bound, every
+                build above hd 256 required faster than the banded path
+                and no slower than SDPA; fp32 at hd 256 beside the
+                one-block code it replaced (the chunked build at one
+                chunk); at hd 2,304 and 4,096 the band builds beside the
+                chunked build they replaced (3 launches), required
+                faster, and by pass (the scores alone timed beside
+                both); at
                 the LM prefill's shape (B=1, S=32,768, H=96, K=8, hd=128,
                 window 4096) against the plain ``banded_flash_attention``
                 in fp32 on the same inputs (the fp32 build also timed
@@ -518,9 +515,8 @@ SWA_TOL = {torch.float32: 3e-5, torch.bfloat16: 5e-2}
 SWA_SEQS = (128, 256, 1024, 3072)
 SWA_WINDOWS = (64, 100, 300, 1024, 4096)
 # the head dims beyond the hd 64/128 builds: 256 (bf16 on the wgmma
-# kernel's 64-key tiles, fp32 on the scalar kernel), 512 on clusters of
-# two CTAs, 768 on clusters of three, 2,304 and 4,096 above the largest
-# cluster (the two passes through the band's score workspace), 96
+# kernel's 64-key tiles, fp32 on the scalar kernel), 512, 768, 2,304 and
+# 4,096 (the two passes through the band's score workspace), 96
 # zero-padded to 128 and 288 to 512
 SWA_WIDE = {"seqs": (1024, 3072), "windows": (100, 2048),
             "hds": (256, 512, 96, 288, 768, 2304, 4096)}
@@ -530,12 +526,7 @@ HYBRID_SEQ = 8192
 # must run (fp32, bf16)
 HYBRID_BUILDS = {
     256: ("scalar-fp32-hd256", "wgmma-bf16-hd256"),
-    288: ("cluster-scalar-fp32-hd256x2", "cluster-wgmma-bf16-hd256x2"),
-    512: ("cluster-scalar-fp32-hd256x2", "cluster-wgmma-bf16-hd256x2"),
-    768: ("cluster-scalar-fp32-hd256x3", "cluster-wgmma-bf16-hd256x3"),
-    2048: ("cluster-scalar-fp32-hd256x8", "cluster-wgmma-bf16-hd256x8"),
-    2304: ("band-scalar-fp32", "band-wgmma-bf16"),
-    4096: ("band-scalar-fp32", "band-wgmma-bf16"),
+    **{hd: ("band-scalar-fp32", "band-wgmma-bf16") for hd in (288, 512, 768, 2048, 2304, 4096)},
 }
 HYBRID_TIMED = (256, 512, 768, 2048, 2304, 4096)
 HYBRID_BAND = (2304, 4096)  # timed beside the chunked build they replaced
@@ -939,10 +930,8 @@ def swa_chunked(q, k, v, window: int) -> torch.Tensor:
 
 
 def swa_band(q, k, v, window: int, passes: int = 3) -> torch.Tensor:
-    """The band build at any hd = 256 c through its C entry (the wrapper
-    sends only hd above 2,048 there), ``passes`` 1 for the scores alone:
-    timed beside the cluster build at hd 2,048 and by pass, never
-    counted."""
+    """The band build through its C entry, ``passes`` 1 for the scores
+    alone: timed by pass, never counted."""
     from repro_torch.kernels import swa_attention as swa_kernel
 
     out = torch.empty_like(q)
@@ -3528,11 +3517,9 @@ def main() -> int:
 
     swa_log = _build.build_log("swa_attention")
     swa_ptxas = ptxas_report(swa_log, "wgmma")
-    # the bf16 builds: hd 64, 128 and 256, the clusters above hd 256
-    # (wgmma_cluster2 at hd 512, wgmma_cluster to hd 2,048) and the band's
-    # two passes above; none spills, and ptxas serializes the products of
-    # none
-    require(sum(k != "warnings" for k in swa_ptxas) == 7 and spill_free(swa_ptxas)
+    # the bf16 builds: hd 64, 128 and 256, and the band's two passes
+    # above; none spills, and ptxas serializes the products of none
+    require(sum(k != "warnings" for k in swa_ptxas) == 5 and spill_free(swa_ptxas)
             and "warnings" not in swa_ptxas,
             f"a wgmma swa_attention kernel spills, is serialized or is missing: {swa_ptxas}")
     # the band builds' four kernels (two passes in each dtype)
@@ -3540,21 +3527,16 @@ def main() -> int:
     require(sum(k != "warnings" for k in band_ptxas) == 4 and spill_free(band_ptxas)
             and "warnings" not in band_ptxas,
             f"a band swa_attention kernel spills, is serialized or is missing: {band_ptxas}")
-    # the fp32 one-block builds at hd 64, 128 and 256 (TMA-staged); the
-    # chunked scalar builds, bf16 and fp32 at hd 256 (the code the band
-    # builds replaced, kept for comparison); and fp32's clusters (hd 512 to
-    # 2,048)
+    # the fp32 one-block builds at hd 64, 128 and 256 (TMA-staged); and
+    # the chunked scalar builds, bf16 and fp32 at hd 256 (the code the band
+    # builds replaced, kept for comparison)
     bulk_ptxas = ptxas_report(swa_log, "kernel_bulk")
     require(sum(k != "warnings" for k in bulk_ptxas) == 3 and spill_free(bulk_ptxas),
             f"an fp32 one-block swa_attention kernel spills or is missing: {bulk_ptxas}")
     scalar_ptxas = ptxas_report(swa_log, "swa_attention_kernelI")
     require(sum(k != "warnings" for k in scalar_ptxas) == 2 and spill_free(scalar_ptxas),
             f"a chunked scalar swa_attention kernel spills or is missing: {scalar_ptxas}")
-    cluster_ptxas = ptxas_report(swa_log, "scalar_cluster")
-    require(sum(k != "warnings" for k in cluster_ptxas) == 1 and spill_free(cluster_ptxas),
-            f"the fp32 cluster swa_attention kernel spills or is missing: {cluster_ptxas}")
-    for name, lines in {**swa_ptxas, **bulk_ptxas, **scalar_ptxas, **cluster_ptxas,
-                        **band_ptxas}.items():
+    for name, lines in {**swa_ptxas, **bulk_ptxas, **scalar_ptxas, **band_ptxas}.items():
         print(f"ptxas {name}: " + " | ".join(lines), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(77)
     swa_err = {str(dtype): 0.0 for dtype in SWA_TOL}
@@ -3599,12 +3581,13 @@ def main() -> int:
                     for dtype in SWA_TOL:
                         swa_case(1, s, h, kh, hd, window, dtype)
     # RecurrentGemma-9B's local attention at full width, at its hd 256 and
-    # at wider ones (288 padded to 512; 512 and 768 on clusters of two and
-    # three, 2,048 on the largest; 2,304 and 4,096 on the band builds),
-    # against the fp32 banded path: the fp32 kernel within the fp32 bound,
-    # bf16 elementwise within swa_bf16_bound (given the banded path), each
-    # launch's build by name; timed at HYBRID_TIMED, the band builds beside
-    # the chunked build they replaced and split by pass
+    # at wider ones on the band builds (288 padded to 512; 512, 768,
+    # 2,048, 2,304 and 4,096), against the fp32 banded path: the fp32
+    # kernel within the fp32 bound, bf16 elementwise within swa_bf16_bound
+    # (given the banded path), each launch's build by name; timed at
+    # HYBRID_TIMED, each build above hd 256 required faster than the
+    # banded path and no slower than SDPA, the band builds at HYBRID_BAND
+    # beside the chunked build they replaced and split by pass
     rg_cfg = get_arch_config(HYBRID_ARCH)
     rg_window = rg_cfg.local_attn_window
     rg_shape = dict(B=1, S=HYBRID_SEQ, H=rg_cfg.num_heads, K=rg_cfg.num_kv_heads,
@@ -3653,12 +3636,12 @@ def main() -> int:
             if hd <= 512:
                 rg_err["bf16"]["ms_l2_flushed"] = time_ms(
                     lambda: swa_kernel.swa_attention(qb, kb, vb, window=rg_window), 20, flush)
-        if hd == 2048:  # the band build through its C entry beside the largest cluster
-            for dt, x in (("fp32", (q, k, v)), ("bf16", (qb, kb, vb))):
-                rg_err[dt]["band_ms"] = time_ms(lambda x=x: swa_band(*x, rg_window), 10)
-                rg_err[dt]["band_max_abs_diff"] = float(
-                    (swa_band(*x, rg_window).float()
-                     - swa_kernel.swa_attention(*x, window=rg_window).float()).abs().max())
+            if hd > 256:  # the band builds: no slower than SDPA, faster than the plain path
+                for dt in ("fp32", "bf16"):
+                    require(rg_err[dt]["ms"] <= rg_err[dt]["library_ms"]
+                            and rg_err[dt]["ms"] < rg_err[dt]["plain_ms"],
+                            f"swa_attention ({dt}) at hd {hd} is slower than the library call "
+                            f"or the plain path: {rg_err[dt]}")
         if hd in HYBRID_BAND:  # beside the chunked build they replaced, and by pass
             for dt, x in (("fp32", (q, k, v)), ("bf16", (qb, kb, vb))):
                 # the scores alone, and both passes, in turns: P V is the difference
@@ -3671,10 +3654,9 @@ def main() -> int:
                     "pv": statistics.median(both) - statistics.median(scores)}
                 rg_err[dt]["replaced_ms"] = time_ms(lambda x=x: swa_chunked(*x, rg_window),
                                                     SWA_CHUNKED_RUNS, warmup=1)
-                require(rg_err[dt]["ms"] < rg_err[dt]["replaced_ms"]
-                        and rg_err[dt]["ms"] <= rg_err[dt]["library_ms"],
-                        f"the band build ({dt}) at hd {hd} is slower than the chunked build or "
-                        f"the library call: {rg_err[dt]}")
+                require(rg_err[dt]["ms"] < rg_err[dt]["replaced_ms"],
+                        f"the band build ({dt}) at hd {hd} is slower than the chunked build: "
+                        f"{rg_err[dt]}")
         hybrid[str(hd)] = rg_err
         print(json.dumps({"hybrid_hd": hd, **rg_err}), flush=True)
         del q, k, v, qb, kb, vb
@@ -3731,7 +3713,7 @@ def main() -> int:
     require(path_err["bf16_vs_bf16_banded_max_abs_err"] <= SWA_TOL[torch.bfloat16],
             f"swa_attention at the prefill's shape vs the bf16 banded path: {path_err}")
     emit("swa", ptxas=swa_ptxas, ptxas_fp32=bulk_ptxas, ptxas_scalar=scalar_ptxas,
-         ptxas_scalar_cluster=cluster_ptxas, ptxas_band=band_ptxas, cases=n_swa,
+         ptxas_band=band_ptxas, cases=n_swa,
          path_fp32=fp32_timing,
          path_fp32_hd64_synthetic=fp32_hd64_timing,
          cases_wide_hd=n_swa - n_narrow, wide_hds=SWA_WIDE["hds"], max_abs_err=swa_err,

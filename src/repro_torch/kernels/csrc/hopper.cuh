@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels, as
-// thin wrappers over PTX: mbarriers, cp.async, thread-block clusters
-// (mapa, st.async, remote arrivals, cluster barriers), TMA tensor copies,
+// thin wrappers over PTX: mbarriers, cp.async, distributed shared memory
+// (mapa, st.async), TMA tensor copies,
 // the shared-memory matrix descriptors and warpgroup matrix multiplies (wgmma) on bf16
 // tiles in 128-byte swizzled rows, warp specialisation's register
 // hand-over, and a host-side tensor-map encoder reached through the
@@ -116,16 +116,6 @@ __device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
   return cluster_map(smem_u32(p), rank);
 }
 
-// 16 bytes of this CTA's shared memory at `addr`
-__device__ __forceinline__ float4 ld_shared_v4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-
 // stores `v` at `addr` (shared::cluster) and completes 4 bytes of the
 // transaction that the mbarrier at `bar` (same CTA as addr) waits for
 __device__ __forceinline__ void st_async_f32(uint32_t addr, float v, uint32_t bar) {
@@ -133,45 +123,6 @@ __device__ __forceinline__ void st_async_f32(uint32_t addr, float v, uint32_t ba
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(addr),
       "r"(__float_as_uint(v)), "r"(bar)
       : "memory");
-}
-
-// stores 16 bytes at `addr` (shared::cluster, 16-byte aligned) and
-// completes 16 bytes of the transaction that the mbarrier at `bar` waits for
-__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
-      "[%5];\n" ::"r"(addr),
-      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
-      "r"(__float_as_uint(v.w)), "r"(bar)
-      : "memory");
-}
-
-// One arrival on the mbarrier at `bar` (shared::cluster: any CTA of the
-// cluster), with the default release at CTA scope, as a consumer hands a
-// buffer back to the CTA that writes it (CUTLASS's cluster barriers do the
-// same).  Its cluster-scope form, with the matching acquire on the wait,
-// made swa_attention's cluster builds slower on an H100.
-__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
-}
-
-// every thread of every CTA of the cluster arrives (release) and waits
-// (acquire): shared memory and barriers of the cluster are ready, or no
-// longer used by another CTA
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
 }
 
 // orders this thread's generic shared-memory writes before later TMA reads
@@ -313,21 +264,6 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// D (64 x 32, fp32) = A (64 x 16) . B (16 x 32) [+ D]: A and B bf16 in
-// shared memory, both K-major; `accumulate` 0 overwrites D
-__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
-                                                  uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

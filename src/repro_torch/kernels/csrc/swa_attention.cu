@@ -98,46 +98,10 @@
 // registers, is the chunked build below (swa_attention_kernel), which
 // the C entry still runs at hd 256 as one chunk.
 //
-// Above hd 256, hd = 256 c with 2 <= c <= 8: thread-block clusters of c
-// CTAs (bf16: swa_attention_kernel_wgmma_cluster2 at c = 2,
-// swa_attention_kernel_wgmma_cluster above; fp32:
-// swa_attention_kernel_scalar_cluster).  The c CTAs of a cluster share one
-// q tile of one query head; CTA r stages only columns [256 r, 256 r + 256)
-// of Q, K and V, as the hd-256 build stages its 256, and computes a
-// partial score tile over them.  The partial tiles go to the other CTAs
-// through distributed shared memory (st.async into the peer's slots,
-// completing bytes on the peer's mbarrier), and every CTA adds the c tiles
-// in rank order, ((P_0 + P_1) + P_2) + ..., so every CTA holds bitwise the
-// same scores and runs the same online softmax; each then takes P V over
-// its own 256 columns of V and writes its 256 columns of O.  So Q K^T and
-// the softmax run once over the head dim (the chunked kernel this
-// replaces ran them c times), and each CTA needs only the registers of an
-// hd-256 block.  The slots hold 8 float4 a thread: 16 KB a bf16 consumer
-// warpgroup, 32 KB the fp32 block; where the c - 1 peers' tiles do not fit
-// at once, a tile goes in rounds of the largest power-of-two share that
-// does, a peer sending a round once every peer has read the last (a
-// remote mbarrier arrival).  Shared memory: bf16 197,704 (the hd-256
-// layout) + 32,768 + 64 = 230,536 bytes, fp32 197,632 + 32,768 + 16 =
-// 230,416, of the 232,448 a block may use: one CTA an SM.
-//
-// What bounds them on an H100: the exchange moves 4 bytes between SMs for
-// every (query, key) pair, against 2 x 256 multiply-adds of each CTA's
-// products, so at the tensor cores' rate the bf16 build would move about
-// as many bytes between SMs as it reads from L2 for K and V.  The
-// transfer must therefore not stand between Q K^T and the softmax: at c
-// = 2 the bf16 build sends each step's partial scores a step ahead, on
-// 32-key steps so that two steps' scores fit the registers; above c = 2,
-// where the slots cannot hold two steps of every peer's tiles, it
-// exchanges in place, the transfer then in the way of every tile (see
-// wgmma_cluster_body; the one-block hd-256 kernel shares none of it).
-// Summed in place at c = 2 too, hd 512 would lose its margin under the
-// library's attention (PERF.md, tools/swa_cluster_ab.py).  The fp32
-// build stays bound by its FMAs (twice the hd-256 build's work on twice
-// the CTAs), the exchange a small share of it.
-//
-// Above hd 2,048 (a portable cluster holds at most 8 CTAs): two passes
-// through a banded score workspace (launch_band; the wrapper allocates
-// it and runs the heads in groups that keep it under a cap).  Pass 1
+// Above hd 256 (hd = 256 c, c >= 2; the wrapper pads any other hd to
+// the next of these): two passes through a banded score workspace
+// (launch_band; the wrapper allocates it and runs the heads in groups
+// that keep it under a cap).  Pass 1
 // takes Q K^T once over the head dim: one block a (128-row q tile, key
 // block of its band, head), the head dim its reduction loop, streamed by
 // TMA (bf16: swa_band_scores_wgmma, 64-column boxes of Q and of a
@@ -166,7 +130,13 @@
 // these replaced (swa_attention_kernel at hd 256 in hd / 256 chunks
 // along blockIdx.z, each chunk's block recomputing the scores over the
 // whole head dim, bf16 widened to fp32) stays for comparison, reached
-// only through the C entry's kSplitChunks.  RecurrentGemma-9B's local
+// only through the C entry's kSplitChunks.  From hd 512 to 2,048 the
+// band also replaced thread-block clusters of hd / 256 CTAs that split
+// the head dim and exchanged partial scores through distributed shared
+// memory: on an H100 it was faster at each of those hd in both dtypes
+// (PERF.md; tools/swa_band_boundary.py times both, the clusters from an
+// older commit's source).  At hd 256 the one-block builds stay: the band
+// was slower there.  RecurrentGemma-9B's local
 // attention (H=16, K=1, window 2048) is the config that reaches hd
 // 256; none in the repo goes above it.
 
@@ -914,288 +884,6 @@ int launch_bulk(const void* q, const void* k, const void* v, void* o, int B, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- above hd 256: a cluster of hd / 256 CTAs splits the head dim -------
-
-constexpr int kSlots = 8;       // float4 receive slots a thread of an exchanging group
-
-// One group of THREADS threads (a consumer warpgroup, or the scalar
-// kernel's block) of CTA `rank` of a cluster of `size`, each thread
-// holding NU float4 units of its CTA's partial score tile; the thread in
-// the same place of every CTA holds the same units of its own CTA's tile.
-// Units go out `units` at a time (a round): each peer's units of a round
-// land in the group's slots, an area of units x THREADS float4 for each
-// peer (the peers in rank order, this CTA left out), counted on the
-// barrier `full`; a thread sends a round only once every peer's warps
-// have reported on `freed` that they read the last one.  Addresses are
-// shared-memory offsets (32 bits), to leave the consumers' registers to
-// the products in flight.
-template <int THREADS>
-struct Exchange {
-  uint32_t slot;   // kSlots x THREADS float4
-  uint32_t full;   // the round's units from every peer have landed; `freed` 8 bytes on:
-                   // every peer has read this group's last round
-  int rank, size, units;
-  uint32_t round;  // rounds so far
-
-  // the units a round: the largest power of two up to NU that the slots
-  // hold for size - 1 peers
-  template <int NU>
-  __device__ __forceinline__ static int units_of(int size) {
-    int u = NU;
-    while (u > 1 && u * (size - 1) > kSlots) u /= 2;
-    return u;
-  }
-  __device__ __forceinline__ static uint32_t tid() { return threadIdx.x % THREADS; }
-  __device__ __forceinline__ uint32_t freed() const { return full + 8; }
-  __device__ __forceinline__ uint32_t round_bytes() const {
-    return static_cast<uint32_t>((size - 1) * units * THREADS * 16);
-  }
-  // by one thread, with the block's other barriers (before their fence)
-  __device__ __forceinline__ void init() const {
-    hopper::mbar_init(full, 1);
-    hopper::mbar_init(freed(), (size - 1) * (THREADS / 32));
-  }
-  // by one thread, after the fence: the first round's bytes
-  __device__ __forceinline__ void arm() const { hopper::mbar_expect_tx(full, round_bytes()); }
-};
-
-// The cluster's partial score tiles summed in rank order, in place on s
-// (NU float4 units): every CTA adds the same values in the same order,
-// ((P_0 + P_1) + P_2) + ..., so every CTA holds bitwise the same scores.
-// Each round: this CTA's units [lo, lo + units) go to every peer once
-// every peer has read the last round; the peers' units are summed once
-// they have landed; then the slots are handed back.
-template <int NU, int THREADS>
-__device__ __forceinline__ void sum_over_cluster(float (&s)[4 * NU], Exchange<THREADS>& x) {
-  for (int lo = 0; lo < NU; lo += x.units) {
-    hopper::mbar_wait(x.freed(), (x.round & 1) ^ 1);  // the first round passes at once
-    for (int p = 0; p < x.size; ++p) {
-      if (p == x.rank) continue;
-      const int area = x.rank < p ? x.rank : x.rank - 1;  // this CTA among p's peers
-      const uint32_t bar = hopper::cluster_map(x.full, p);
-      const uint32_t dst = hopper::cluster_map(
-          x.slot + (area * x.units * THREADS + Exchange<THREADS>::tid()) * 16, p);
-#pragma unroll
-      for (int u = 0; u < NU; ++u)
-        if (u >= lo && u < lo + x.units)
-          hopper::st_async_v4(dst + (u - lo) * THREADS * 16,
-                              make_float4(s[4 * u], s[4 * u + 1], s[4 * u + 2], s[4 * u + 3]),
-                              bar);
-    }
-    hopper::mbar_wait(x.full, x.round & 1);
-#pragma unroll
-    for (int u = 0; u < NU; ++u) {
-      if (u < lo || u >= lo + x.units) continue;
-      // peer p's unit u (p != rank) at at + area(p) * step
-      const uint32_t at = x.slot + ((u - lo) * THREADS + Exchange<THREADS>::tid()) * 16;
-      const uint32_t step = x.units * THREADS * 16;
-      const float4 own = make_float4(s[4 * u], s[4 * u + 1], s[4 * u + 2], s[4 * u + 3]);
-      float4 t = x.rank == 0 ? own : hopper::ld_shared_v4(at);
-      for (int p = 1; p < x.size; ++p) {
-        const float4 y =
-            p == x.rank ? own : hopper::ld_shared_v4(at + (p < x.rank ? p : p - 1) * step);
-        t.x += y.x;
-        t.y += y.y;
-        t.z += y.z;
-        t.w += y.w;
-      }
-      s[4 * u] = t.x;
-      s[4 * u + 1] = t.y;
-      s[4 * u + 2] = t.z;
-      s[4 * u + 3] = t.w;
-    }
-    if (Exchange<THREADS>::tid() == 0) x.arm();  // the next round, before any peer may send it
-    __syncwarp();
-    if (threadIdx.x % 32 == 0)
-      for (int p = 0; p < x.size; ++p)
-        if (p != x.rank) hopper::mbar_arrive_remote(hopper::cluster_map(x.freed(), p));
-    ++x.round;
-  }
-}
-
-// A cluster of two, one step ahead: a round is a whole tile (NU units a
-// thread) and rounds alternate between two buffers, so a round can be sent
-// before the peer has read the last.  Round r lands in buffer b = r % 2:
-// the slots from slot + b NU THREADS float4, the barriers `full` (the
-// peer's round landed) at full + 16 b and `freed` (the peer read this
-// CTA's last round there) 8 bytes on.
-
-// by one thread, before the block's fence; arm_ahead after it
-template <int THREADS>
-__device__ __forceinline__ void init_ahead(const Exchange<THREADS>& x) {
-  for (int b = 0; b < 2; ++b) {
-    hopper::mbar_init(x.full + 16 * b, 1);
-    hopper::mbar_init(x.full + 16 * b + 8, THREADS / 32);
-  }
-}
-
-template <int NU, int THREADS>
-__device__ __forceinline__ void arm_ahead(const Exchange<THREADS>& x) {
-  for (int b = 0; b < 2; ++b) hopper::mbar_expect_tx(x.full + 16 * b, NU * THREADS * 16);
-}
-
-// round x.round: this CTA's tile s to the peer's buffer, once the peer has
-// read the round before it there
-template <int NU, int THREADS>
-__device__ __forceinline__ void send_ahead(const float (&s)[4 * NU], Exchange<THREADS>& x) {
-  const uint32_t b = x.round & 1, use = (x.round >> 1) & 1;
-  hopper::mbar_wait(x.full + 16 * b + 8, use ^ 1);  // a buffer's first round passes at once
-  const int peer = 1 - x.rank;
-  const uint32_t bar = hopper::cluster_map(x.full + 16 * b, peer);
-  const uint32_t dst =
-      hopper::cluster_map(x.slot + (b * NU * THREADS + Exchange<THREADS>::tid()) * 16, peer);
-#pragma unroll
-  for (int u = 0; u < NU; ++u)
-    hopper::st_async_v4(dst + u * THREADS * 16,
-                        make_float4(s[4 * u], s[4 * u + 1], s[4 * u + 2], s[4 * u + 3]), bar);
-  ++x.round;
-}
-
-// round r: s += the peer's tile, in place (P_0 + P_1 on both CTAs: fp32
-// addition commutes, so both hold bitwise the same scores); then the
-// buffer is armed for round r + 2 and handed back
-template <int NU, int THREADS>
-__device__ __forceinline__ void add_ahead(float (&s)[4 * NU], const Exchange<THREADS>& x, int r) {
-  const uint32_t b = r & 1, use = (r >> 1) & 1;
-  hopper::mbar_wait(x.full + 16 * b, use);
-#pragma unroll
-  for (int u = 0; u < NU; ++u) {
-    const float4 y =
-        hopper::ld_shared_v4(x.slot + ((b * NU + u) * THREADS + Exchange<THREADS>::tid()) * 16);
-    s[4 * u] += y.x;
-    s[4 * u + 1] += y.y;
-    s[4 * u + 2] += y.z;
-    s[4 * u + 3] += y.w;
-  }
-  if (Exchange<THREADS>::tid() == 0) hopper::mbar_expect_tx(x.full + 16 * b, NU * THREADS * 16);
-  __syncwarp();
-  if (threadIdx.x % 32 == 0)
-    hopper::mbar_arrive_remote(hopper::cluster_map(x.full + 16 * b + 8, 1 - x.rank));
-}
-
-// fp32 at hd = 256 c, 2 <= c <= 8: the scalar kernel's hd-256 tile
-// loop, one cluster of c CTAs a (64-row q tile, b * H + h).  CTA r stages
-// Q's columns [256 r, 256 r + 256) once and K's and V's a tile, takes the
-// partial scores over them, sums the cluster's partial tiles in rank
-// order (sum_over_cluster, 4 units a thread, one round up to c = 3), runs
-// the softmax the other CTAs run on the same scores, and writes its 256
-// columns of O.  Shared memory: the hd-256 build's 197,632 bytes, 32 KB
-// of slots and two barriers (230,416 bytes, one CTA an SM).
-__global__ void __launch_bounds__(kThreads, 1)
-swa_attention_kernel_scalar_cluster(const float* __restrict__ q, const float* __restrict__ k,
-                                    const float* __restrict__ v, float* __restrict__ o, int S,
-                                    int H, int K, int window, float scale) {
-  constexpr int HD = 256, kCols = HD / 64;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // kTile x HD
-  float* ks = qs + kTile * HD;                  // kTile x (HD + kKStride)
-  float* ps = ks;                               // kTile x kPStride, after the scores
-  float* vs = ks + k_region<HD>();              // kTile x HD
-  float4* slot = reinterpret_cast<float4*>(vs + kTile * HD);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(slot + kSlots * kThreads);
-
-  const int rank = static_cast<int>(hopper::cluster_rank());
-  const int size = static_cast<int>(hopper::cluster_size());
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = (blockIdx.x / size) * kTile;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int g = h / (H / K);
-  const long long hd = static_cast<long long>(size) * HD;
-  const long long q_step = H * hd;
-  const long long kv_step = K * hd;
-  const long long col0 = static_cast<long long>(rank) * HD;
-  const float* qb = q + (static_cast<long long>(b) * S * H + h) * hd + col0;
-  const float* kb = k + (static_cast<long long>(b) * S * K + g) * hd + col0;
-  const float* vb = v + (static_cast<long long>(b) * S * K + g) * hd + col0;
-
-  Exchange<kThreads> x{hopper::smem_u32(slot), hopper::smem_u32(bars), rank, size,
-                       Exchange<kThreads>::units_of<4>(size), 0};
-  if (threadIdx.x == 0) {
-    x.init();
-    hopper::mbar_init_fence();
-    x.arm();
-  }
-  load_tile<float, HD>(qs, HD, qb, q_step, q0);
-  hopper::cluster_sync();  // every CTA's barriers set before any peer sends
-
-  float acc[4][kCols][4];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
-  }
-
-  const int k_start = (max(q0 - window + 1, 0) / kTile) * kTile;
-  for (int k0 = k_start; k0 <= q0; k0 += kTile) {
-    __syncthreads();  // the last tile's P and V are read
-    load_tile<float, HD>(ks, HD + kKStride, kb, kv_step, k0);
-    load_tile<float, HD>(vs, HD, vb, kv_step, k0);
-    __syncthreads();
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    add_scores<HD>(sc, qs, ks, tx, ty);
-    sum_over_cluster<4>(reinterpret_cast<float(&)[16]>(sc), x);
-    float alpha[4];
-    softmax_tile(sc, m, l, alpha, q0, k0, window, scale, tx, ty);
-    add_pv<HD>(acc, sc, alpha, ps, vs, tx, ty);
-  }
-  store_rows<float, HD>(o + (static_cast<long long>(b) * S * H + h) * hd + col0, q_step, acc, l,
-                        q0, tx, ty);
-  hopper::cluster_sync();  // no CTA leaves while a peer may still send to it
-}
-
-// A launch in clusters of `size` CTAs along x, each with `smem` bytes of
-// dynamic shared memory; cudaErrorInvalidConfiguration, and no launch,
-// when no such cluster can be resident.
-template <typename... Params, typename... Args>
-int launch_in_clusters(void (*kernel)(Params...), dim3 grid, int threads, size_t smem, int size,
-                       void* stream, Args... args) {
-  const auto fail = [](cudaError_t e) {  // a failed call also sets the runtime's last error
-    (void)cudaGetLastError();
-    return static_cast<int>(e);
-  };
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return fail(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = size;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (err != cudaSuccess) return fail(err);
-  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return fail(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_scalar_cluster(const void* q, const void* k, const void* v, void* o, int B, int S,
-                          int H, int K, int size, int window, float scale, void* stream) {
-  constexpr size_t smem = smem_bytes<256>() + kSlots * kThreads * sizeof(float4) + 16;
-  const dim3 grid(static_cast<unsigned>(S / kTile * size), static_cast<unsigned>(B * H));
-  return launch_in_clusters(swa_attention_kernel_scalar_cluster, grid, kThreads, smem, size,
-                            stream, static_cast<const float*>(q), static_cast<const float*>(k),
-                            static_cast<const float*>(v), static_cast<float*>(o), S, H, K,
-                            window, scale);
-}
-
 // ---- bf16: tensor cores, TMA, warp specialisation ----------------------
 
 constexpr int kRows = 128;                    // query rows a block; keys a K/V tile below hd 256
@@ -1275,42 +963,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[N], uint32_t (&p)[KEYS / 16]
       wgmma_m64n128k16_rs(o, p[kk], desc_v);
     else
       wgmma_m64n64k16_rs(o, p[kk], desc_v);
-  }
-  wgmma_commit();
-}
-
-// S (64 x 32 keys, fp32) = Q K^T over hd 256 for keys [32 half, 32 half +
-// 32) of the 64-key K tile at k_addr
-__device__ __forceinline__ void issue_qk32(float (&sc)[16], uint32_t q_addr, uint32_t k_addr,
-                                           int half) {
-  using namespace hopper;
-  reg_fence(sc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 256 / 16; ++kk) {
-    const uint32_t col = (kk % 4) * 32;
-    const uint64_t desc_q = sw128_desc(q_addr + (kk / 4) * kBoxBytes + col, 16, 1024);
-    const uint64_t desc_k =
-        sw128_desc(k_addr + ((kk / 4) * 64 + 32 * half) * kRowBytes + col, 16, 1024);
-    wgmma_m64n32k16_ss(sc, desc_q, desc_k, kk > 0);
-  }
-  wgmma_commit();
-}
-
-// O (64 x 256, fp32) += P V over keys [32 half, 32 half + 32) of the
-// 64-key V tile at v_addr: P (64 x 32) from registers
-__device__ __forceinline__ void issue_pv32(float (&o)[128], uint32_t (&p)[2][4], uint32_t v_addr,
-                                           int half) {
-  using namespace hopper;
-  reg_fence(p[0]);
-  reg_fence(p[1]);
-  reg_fence(o);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    const uint64_t desc_v =
-        sw128_desc(v_addr + (2 * half + kk) * 16 * kRowBytes, 64 * kRowBytes, 1024);
-    wgmma_m64n256k16_rs(o, p[kk], desc_v);
   }
   wgmma_commit();
 }
@@ -1404,17 +1056,16 @@ __device__ __forceinline__ Block block_of(int S, int H, int K, int idx) {
   return {idx / K, g, g * group + h_in_group, qt * kRows};
 }
 
-// Q's 64-row halves with a row < S, by TMA into Q's space: HD columns
-// from column c0
+// Q's 64-row halves with a row < S, by TMA into Q's space
 template <int HD>
 __device__ __forceinline__ void load_q(uint8_t* qs, const CUtensorMap* q_map, uint64_t* q_full,
-                                       const Block& at, int S, int c0 = 0) {
+                                       const Block& at, int S) {
   const int halves = at.q0 + kHalf < S ? 2 : 1;
   hopper::mbar_expect_tx(q_full, halves * (HD / 64) * kHalf * kRowBytes);
   for (int half = 0; half < halves; ++half)
     for (int x = 0; x < HD / 64; ++x)
       hopper::tma_load_4d(qs + x * kBoxBytes + half * kHalf * kRowBytes, q_map, q_full,
-                          c0 + 64 * x, at.h, at.q0 + half * kHalf, at.b);
+                          64 * x, at.h, at.q0 + half * kHalf, at.b);
 }
 
 // The consumer's epilogue: O / l rounded to bf16 into this warpgroup's own
@@ -1728,303 +1379,15 @@ swa_attention_kernel_wgmma_hd256(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// ---- bf16 above hd 256: clusters of hd-256 blocks ----------------------
-
-// The cluster size whose bf16 build exchanges a step ahead (only c = 2
-// fits two steps' partial tiles in the slots); every other size sums in
-// place.  tools/swa_cluster_ab.py builds the source with
-// -DSWA_AHEAD_CLUSTER=0 to time the in-place exchange at c = 2 too.
-#ifndef SWA_AHEAD_CLUSTER
-#define SWA_AHEAD_CLUSTER 2
-#endif
-
-// The hd-256 block above as CTA r of a cluster of c = hd / 256 CTAs
-// along x, which share one q tile of one query head.  Q, K and V are
-// staged from column 256 r on, so Q K^T gives partial score tiles, which
-// the consumers sum over the cluster before each softmax; P V takes this
-// CTA's 256 columns of V, and O is stored from column 256 r.  The
-// producer loads K(i + 1) before V(i).  Shared memory: the hd-256
-// layout's 197,704 bytes, then each consumer's kSlots x 128 float4 of
-// slots and 4 barriers (230,536 of the 232,448 a block may use; one CTA
-// an SM).
-//
-// In place (kAhead false; any c, run for c >= 3): the hd-256 loop with
-// the cluster's partial tiles summed in place (sum_over_cluster: 8
-// float4 units a thread, rounds of 16 KB of slots a consumer) once Q
-// K^T(i) is in registers and K(i)'s stage released, while P V(i - 1) is
-// in flight.  The transfer between SMs then stands between each Q K^T
-// and its softmax.
-//
-// A step ahead (kAhead true; c = 2): the transfer overlapped.  The
-// consumers step through each K/V tile in two 32-key halves, so that the
-// scores of two steps fit the registers (16 each, beside O's 128 and P's
-// 8).  Step j issues Q K^T(j + 1) and P V(j - 1) together, waits for Q
-// K^T(j + 1) alone and sends it to the peer at once (send_ahead), then
-// adds the peer's half of step j, sent a step before (add_ahead), and
-// runs step j's softmax while P V(j - 1) is in flight: the transfer
-// overlaps a whole step of both consumers' products.  The exchange's two
-// buffers (8 KB each a consumer) let a step's tile go out before the peer
-// has read the last.  The first step issues no P V and the last no Q
-// K^T; the steps between issue both unconditionally, so ptxas keeps the
-// products in flight (it serialized them when the wait came after the
-// softmax, or when the issues sat under conditions).  K's stage is
-// released once both halves' Q K^T are done, V's once both halves' P V
-// are.  At c >= 3 the two buffers would have to hold every peer's tile.
-template <bool kAhead>
-__device__ __forceinline__ void wgmma_cluster_body(uint8_t* smem_raw, const CUtensorMap* q_map,
-                                                   const CUtensorMap* k_map,
-                                                   const CUtensorMap* v_map,
-                                                   const CUtensorMap* o_map, int S, int H,
-                                                   int K, int window, float scale_log2) {
-  using namespace hopper;
-  using L = WgmmaLayout<256>;
-  constexpr int kKeys = L::kKeys, kStages = L::kStages;
-  constexpr int kHalfKeys = kKeys / 2;  // kAhead: keys a step
-  using X = Exchange<kWgThreads>;
-  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* ks = qs + L::kQBytes;           // K of stage s at ks + s tiles
-  uint8_t* vs = ks + kStages * L::kKvBytes;  // V of stage s at vs + s tiles
-  float4* slots = reinterpret_cast<float4*>(vs + kStages * L::kKvBytes);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(slots + 2 * kSlots * kWgThreads);
-  uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + kStages;
-  uint64_t* k_empty = v_full + kStages;
-  uint64_t* v_empty = k_empty + kStages;
-  uint64_t* x_bars = v_empty + kStages;  // 4 a consumer (in place uses 2)
-
-  const int rank = static_cast<int>(cluster_rank()), size = static_cast<int>(cluster_size());
-  const int c0 = 256 * rank;  // this CTA's first column of Q, K, V and O
-  const Block at = block_of(S, H, K, blockIdx.x / size);
-  const int t_first = max(at.q0 - window + 1, 0) / kKeys;
-  const int t_last = (min(at.q0 + kRows, S) - 1) / kKeys;  // the diagonal; no key >= S
-  const int n_tiles = t_last - t_first + 1;
-  auto exchange_of = [&](int cw) {
-    return X{smem_u32(slots + cw * kSlots * kWgThreads), smem_u32(x_bars + 4 * cw), rank, size,
-             X::units_of<kKeys / 8>(size), 0};
-  };
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&k_full[s], 1);
-      mbar_init(&v_full[s], 1);
-      mbar_init(&k_empty[s], kConsumerWarps);
-      mbar_init(&v_empty[s], kConsumerWarps);
-    }
-    for (int cw = 0; cw < 2; ++cw) {
-      if constexpr (kAhead)
-        init_ahead(exchange_of(cw));
-      else
-        exchange_of(cw).init();
-    }
-    mbar_init_fence();
-    for (int cw = 0; cw < 2; ++cw) {
-      if constexpr (kAhead)
-        arm_ahead<kHalfKeys / 8>(exchange_of(cw));
-      else
-        exchange_of(cw).arm();
-    }
-  }
-  cluster_sync();  // every CTA's barriers set before any peer sends
-
-  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWgThreads, 0);
-  if (wg == 0) {  // producer
-    regs_release<L::kProducerRegs>();
-    if (threadIdx.x == 0) {
-      load_q<256>(qs, q_map, q_full, at, S, c0);
-      // the first round of each stage passes at once
-      auto released = [](int i) { return static_cast<uint32_t>(((i / kStages) & 1) ^ 1); };
-      auto load_k = [&](int i) {
-        const int s = i % kStages;
-        mbar_wait(&k_empty[s], released(i));
-        mbar_expect_tx(&k_full[s], L::kKvBytes);
-        for (int x = 0; x < L::kBoxes; ++x)
-          tma_load_4d(ks + s * L::kKvBytes + x * L::kKvBoxBytes, k_map, &k_full[s], c0 + 64 * x,
-                      at.g, (t_first + i) * kKeys, at.b);
-      };
-      auto load_v = [&](int i) {
-        const int s = i % kStages;
-        mbar_wait(&v_empty[s], released(i));
-        mbar_expect_tx(&v_full[s], L::kKvBytes);
-        for (int x = 0; x < L::kBoxes; ++x)
-          tma_load_4d(vs + s * L::kKvBytes + x * L::kKvBoxBytes, v_map, &v_full[s], c0 + 64 * x,
-                      at.g, (t_first + i) * kKeys, at.b);
-      };
-      load_k(0);
-      for (int i = 0; i < n_tiles; ++i) {
-        if (i + 1 < n_tiles) load_k(i + 1);
-        load_v(i);
-      }
-    }
-  } else {  // two consumers, 64 query rows each
-    regs_acquire<L::kConsumerRegs>();
-    const int cw = wg - 1;
-    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int r_lo = at.q0 + cw * kHalf;
-    auto parity = [](int i) { return static_cast<uint32_t>((i / kStages) & 1); };
-    if (r_lo >= S) {  // rows past S: release every stage, compute nothing
-      for (int i = 0; i < n_tiles; ++i) {
-        mbar_wait(&k_full[i % kStages], parity(i));
-        if (lane == 0) mbar_arrive(&k_empty[i % kStages]);
-        mbar_wait(&v_full[i % kStages], parity(i));
-        if (lane == 0) mbar_arrive(&v_empty[i % kStages]);
-      }
-      return;
-    }
-    const int row = r_lo + 16 * warp + lane / 4;
-    const int col = 2 * (lane % 4);
-    float o[128];
-#pragma unroll
-    for (int i = 0; i < 128; ++i) o[i] = 0.f;
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-    const uint32_t q_addr = smem_u32(qs) + cw * kHalf * kRowBytes;
-    float alpha[2];
-    auto k_tile = [&](int i) { return smem_u32(ks + (i % kStages) * L::kKvBytes); };
-    auto v_tile = [&](int i) { return smem_u32(vs + (i % kStages) * L::kKvBytes); };
-    const Rows rows{r_lo, row, col, window, scale_log2};
-    const Turns turn{cw, at.q0 + kHalf < S};
-    if (cw == 1) turn.theirs();
-    mbar_wait(q_full, 0);
-    mbar_wait(&k_full[0], 0);
-    X x = exchange_of(cw);
-    if constexpr (kAhead) {
-      const int n_steps = 2 * n_tiles;
-      float sa[kHalfKeys / 2], sb[kHalfKeys / 2];  // the scores of steps j (even) and j + 1
-      uint32_t p[kHalfKeys / 16][4];
-      turn.mine();
-      issue_qk32(sa, q_addr, k_tile(0), 0);
-      turn.theirs();
-      wgmma_wait<0>();
-      reg_fence(sa);
-      send_ahead<kHalfKeys / 8>(sa, x);
-      auto send = [&](float (&next)[kHalfKeys / 2], int j) {  // Q K^T(j + 1) is done
-        reg_fence(next);
-        if ((j + 1) % 2 == 1 && lane == 0) mbar_arrive(&k_empty[((j + 1) / 2) % kStages]);
-        send_ahead<kHalfKeys / 8>(next, x);
-      };
-      auto scores = [&](float (&cur)[kHalfKeys / 2], int j) {
-        add_ahead<kHalfKeys / 8>(cur, x, j);
-        online_softmax<kHalfKeys>(cur, m, l, alpha, rows, t_first * kKeys + j * kHalfKeys);
-      };
-      // step j: its scores in cur (sent), step j + 1's into next
-      auto middle = [&](float (&cur)[kHalfKeys / 2], float (&next)[kHalfKeys / 2], int j) {
-        const int tk = (j + 1) / 2, tv = (j - 1) / 2;  // the tiles of Q K^T(j + 1), P V(j - 1)
-        if ((j + 1) % 2 == 0) mbar_wait(&k_full[tk % kStages], parity(tk));
-        if ((j - 1) % 2 == 0) mbar_wait(&v_full[tv % kStages], parity(tv));
-        turn.mine();
-        issue_qk32(next, q_addr, k_tile(tk), (j + 1) % 2);
-        issue_pv32(o, p, v_tile(tv), (j - 1) % 2);
-        turn.theirs();
-        wgmma_wait<1>();
-        send(next, j);
-        scores(cur, j);
-        wgmma_wait<0>();  // P V(j - 1) is done
-        reg_fence(o);
-        if ((j - 1) % 2 == 1 && lane == 0) mbar_arrive(&v_empty[tv % kStages]);
-        rescale_and_round<128, kHalfKeys>(o, p, cur, alpha);
-      };
-      turn.mine();  // step 0
-      issue_qk32(sb, q_addr, k_tile(0), 1);
-      turn.theirs();
-      wgmma_wait<0>();
-      send(sb, 0);
-      scores(sa, 0);
-      rescale_and_round<128, kHalfKeys>(o, p, sa, alpha);
-      for (int j = 1; j < n_steps - 1; j += 2) {
-        middle(sb, sa, j);
-        middle(sa, sb, j + 1);
-      }
-      mbar_wait(&v_full[(n_tiles - 1) % kStages], parity(n_tiles - 1));  // the last step
-      turn.mine();
-      issue_pv32(o, p, v_tile(n_tiles - 1), 0);
-      turn.theirs();
-      scores(sb, n_steps - 1);
-      wgmma_wait<0>();
-      reg_fence(o);
-      rescale_and_round<128, kHalfKeys>(o, p, sb, alpha);
-      turn.mine();
-      issue_pv32(o, p, v_tile(n_tiles - 1), 1);
-    } else {
-      float sc[kKeys / 2];
-      uint32_t p[kKeys / 16][4];
-      turn.mine();
-      issue_qk<256, kKeys>(sc, q_addr, k_tile(0));
-      turn.theirs();
-      wgmma_wait<0>();
-      reg_fence(sc);
-      if (lane == 0) mbar_arrive(&k_empty[0]);
-      sum_over_cluster<kKeys / 8>(sc, x);
-      online_softmax<kKeys>(sc, m, l, alpha, rows, t_first * kKeys);
-      rescale_and_round<128, kKeys>(o, p, sc, alpha);
-      for (int i = 1; i < n_tiles; ++i) {
-        mbar_wait(&k_full[i % kStages], parity(i));
-        mbar_wait(&v_full[(i - 1) % kStages], parity(i - 1));
-        turn.mine();
-        issue_qk<256, kKeys>(sc, q_addr, k_tile(i));
-        issue_pv<128, kKeys>(o, p, v_tile(i - 1));
-        turn.theirs();
-        wgmma_wait<1>();  // Q K^T(i) is done
-        reg_fence(sc);
-        if (lane == 0) mbar_arrive(&k_empty[i % kStages]);
-        sum_over_cluster<kKeys / 8>(sc, x);
-        online_softmax<kKeys>(sc, m, l, alpha, rows, (t_first + i) * kKeys);
-        wgmma_wait<0>();  // P V(i - 1) is done
-        reg_fence(o);
-        if (lane == 0) mbar_arrive(&v_empty[(i - 1) % kStages]);
-        rescale_and_round<128, kKeys>(o, p, sc, alpha);
-      }
-      mbar_wait(&v_full[(n_tiles - 1) % kStages], parity(n_tiles - 1));
-      turn.mine();
-      issue_pv<128, kKeys>(o, p, v_tile(n_tiles - 1));
-    }
-    if (cw == 0) turn.theirs();
-    wgmma_wait<0>();
-    reg_fence(o);
-    store_o<256>(o, l, qs, o_map, at, cw, r_lo, col, c0);
-  }
-}
-
-// bf16 at hd = 256 c, c != SWA_AHEAD_CLUSTER (c >= 3): the partial tiles
-// summed in place
-__global__ void __launch_bounds__(kWgmmaThreads, 1)
-swa_attention_kernel_wgmma_cluster(const __grid_constant__ CUtensorMap q_map,
-                                   const __grid_constant__ CUtensorMap k_map,
-                                   const __grid_constant__ CUtensorMap v_map,
-                                   const __grid_constant__ CUtensorMap o_map, int S, int H, int K,
-                                   int window, float scale_log2) {
-  extern __shared__ uint8_t smem_raw[];
-  wgmma_cluster_body<false>(smem_raw, &q_map, &k_map, &v_map, &o_map, S, H, K, window,
-                            scale_log2);
-  hopper::cluster_sync();  // no CTA leaves while a peer may still send to it
-}
-
-// bf16 at hd 512: clusters of two, the partial scores sent a step ahead
-// in 32-key steps
-__global__ void __launch_bounds__(kWgmmaThreads, 1)
-swa_attention_kernel_wgmma_cluster2(const __grid_constant__ CUtensorMap q_map,
-                                    const __grid_constant__ CUtensorMap k_map,
-                                    const __grid_constant__ CUtensorMap v_map,
-                                    const __grid_constant__ CUtensorMap o_map, int S, int H,
-                                    int K, int window, float scale_log2) {
-  extern __shared__ uint8_t smem_raw[];
-  wgmma_cluster_body<true>(smem_raw, &q_map, &k_map, &v_map, &o_map, S, H, K, window,
-                           scale_log2);
-  hopper::cluster_sync();  // no CTA leaves while a peer may still send to it
-}
-
-constexpr size_t kClusterSmem =
-    WgmmaLayout<256>::kSmem + 2 * kSlots * kWgThreads * sizeof(float4) + 8 * 8;
-
-// The tensor maps of q, k, v and o at head dim `hd` (HD's boxes): 0 or a
-// cudaError_t
+// The tensor maps of q, k, v and o at head dim HD: 0 or a cudaError_t
 template <int HD>
 int wgmma_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v, void* o,
-               int B, int S, int H, int K, int hd) {
+               int B, int S, int H, int K) {
   using L = WgmmaLayout<HD>;
-  int res = hopper::bf16_map_4d(&maps[0], q, hd, H, S, B, kHalf);
-  if (res == 0) res = hopper::bf16_map_4d(&maps[1], k, hd, K, S, B, L::kKeys);
-  if (res == 0) res = hopper::bf16_map_4d(&maps[2], v, hd, K, S, B, L::kKeys);
-  if (res == 0) res = hopper::bf16_map_4d(&maps[3], o, hd, H, S, B, kHalf);
+  int res = hopper::bf16_map_4d(&maps[0], q, HD, H, S, B, kHalf);
+  if (res == 0) res = hopper::bf16_map_4d(&maps[1], k, HD, K, S, B, L::kKeys);
+  if (res == 0) res = hopper::bf16_map_4d(&maps[2], v, HD, K, S, B, L::kKeys);
+  if (res == 0) res = hopper::bf16_map_4d(&maps[3], o, HD, H, S, B, kHalf);
   return res;
 }
 
@@ -2053,7 +1416,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap maps[4];  // q, k, v, o
-  res = wgmma_maps<HD>(maps, q, k, v, o, B, S, H, K, HD);
+  res = wgmma_maps<HD>(maps, q, k, v, o, B, S, H, K);
   if (res != 0) return res;
   const unsigned blocks = static_cast<unsigned>(B) * H * ((S + kRows - 1) / kRows);
   kernel<<<blocks, kWgmmaThreads, L::kSmem, static_cast<cudaStream_t>(stream)>>>(
@@ -2061,24 +1424,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// c = SWA_AHEAD_CLUSTER (2): swa_attention_kernel_wgmma_cluster2; any
-// other c: swa_attention_kernel_wgmma_cluster
-int launch_wgmma_cluster(const void* q, const void* k, const void* v, void* o, int B, int S,
-                         int H, int K, int size, int window, float scale, void* stream) {
-  const auto kernel = size == SWA_AHEAD_CLUSTER ? swa_attention_kernel_wgmma_cluster2
-                                                : swa_attention_kernel_wgmma_cluster;
-  int res = check_launch_regs(kernel);
-  if (res != 0) return res;
-  CUtensorMap maps[4];
-  res = wgmma_maps<256>(maps, q, k, v, o, B, S, H, K, 256 * size);
-  if (res != 0) return res;
-  const unsigned blocks = static_cast<unsigned>(size) * B * H * ((S + kRows - 1) / kRows);
-  return launch_in_clusters(kernel, dim3(blocks), kWgmmaThreads, kClusterSmem, size, stream,
-                            maps[0], maps[1], maps[2], maps[3], S, H, K, window, scale * kLog2e);
-}
-
-
-// ---- above hd 2,048: two passes through a banded score workspace -------
+// ---- above hd 256: two passes through a banded score workspace ---------
 //
 // A band item is one q tile of kItemRows query rows of one head; items are
 // numbered (b * H + h, q tile), q tiles fastest, and a launch runs a group
@@ -2741,23 +2087,20 @@ int launch_band(const void* q, const void* k, const void* v, void* o, void* ws, 
 
 // How a launch splits the head dim: the wrapper (kernels/swa_attention.py,
 // split_of) decides it, and this entry launches just that build.  Above
-// hd 2,048 the wrapper calls swa_attention_band_launch instead, once a
+// hd 256 the wrapper calls swa_attention_band_launch instead, once a
 // group of heads.
 enum Split {
-  kSplitOne = 0,      // hd 64, 128 or 256: one block a q tile
-  kSplitCluster = 1,  // hd = 256 c: a cluster of c CTAs (c <= 8, a portable cluster)
-  kSplitChunks = 2,   // hd = 256 c: the chunked scalar hd-256 build, c chunks along blockIdx.z
+  kSplitOne = 0,     // hd 64, 128 or 256: one block a q tile
+  kSplitChunks = 1,  // hd = 256 c: the chunked scalar hd-256 build, c chunks along blockIdx.z
 };
 
 // Returns the cudaError_t of the launch: cudaErrorInvalidValue for a
-// split that does not take hd (kSplitOne: 64, 128 or 256; kSplitCluster:
-// a multiple of 256 above it; kSplitChunks: a multiple of 256 up to 65535
-// x 256), or a tensor map cuTensorMapEncodeTiled refuses; cudaErrorInvalidConfiguration
-// or the runtime's own error for a cluster that cannot be resident.  The
-// wrapper zero-pads any other hd to the next of these, and checks the
-// rest: contiguous (B, S, H, hd) / (B, S, K, hd) tensors of one dtype,
-// 16-byte aligned, H % K == 0, S a positive multiple of 64, window >= 1,
-// B * H <= 65535.
+// split that does not take hd (kSplitOne: 64, 128 or 256; kSplitChunks:
+// a multiple of 256 up to 65535 x 256), or a tensor map
+// cuTensorMapEncodeTiled refuses.  The wrapper zero-pads any other hd to
+// the next of these, and checks the rest: contiguous (B, S, H, hd) / (B,
+// S, K, hd) tensors of one dtype, 16-byte aligned, H % K == 0, S a
+// positive multiple of 64, window >= 1, B * H <= 65535.
 extern "C" int swa_attention_launch(const void* q, const void* k, const void* v, void* o,
                                     int B, int S, int H, int K, int hd, int window,
                                     float scale, int bf16, int split, void* stream) {
@@ -2775,19 +2118,14 @@ extern "C" int swa_attention_launch(const void* q, const void* k, const void* v,
   }
   // kSplitChunks is the code hd 256 (one chunk, fp32) and hd above 2,048
   // ran before, kept for comparison; the wrapper never sends it
-  if (hd < 256 || hd % 256 || (hd == 256 && split != kSplitChunks))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (split == kSplitCluster)
-    return bf16 ? launch_wgmma_cluster(q, k, v, o, B, S, H, K, hd / 256, window, scale, stream)
-                : launch_scalar_cluster(q, k, v, o, B, S, H, K, hd / 256, window, scale, stream);
-  if (split == kSplitChunks)
+  if (split == kSplitChunks && hd >= 256 && hd % 256 == 0)
     return bf16 ? launch<__nv_bfloat16, 256>(q, k, v, o, B, S, H, K, window, scale, hd / 256,
                                              stream)
                 : launch<float, 256>(q, k, v, o, B, S, H, K, window, scale, hd / 256, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Above hd 2,048 (and at any hd = 256 c, for comparison): the two passes
+// Above hd 256 (and at hd 256, for comparison): the two passes
 // through the banded score workspace (launch_band) over the group of
 // n_items band items from item0, items numbered (b * H + h, 128-row q
 // tile), q tiles fastest.  ws: n_items x 128 x blocks x (256 keys in bf16,

@@ -2,7 +2,7 @@
 (``csrc/swa_attention.cu``), the port of the Pallas kernel
 ``repro.kernels.swa_attention.swa_attention_pallas``: causal
 sliding-window attention over the diagonal band (an online softmax up
-to hd 2,048; above, an exact one from a score workspace).
+to hd 256; above, an exact one from a score workspace).
 
 Unlike the Pallas kernel, which takes the KV heads repeated to H, the
 kernel reads k and v as ``(B, S, K, hd)`` with ``H % K == 0`` and
@@ -33,31 +33,11 @@ told to, so a launch counted under a name ran that build:
   sums Q K^T and P V in 8 x 8 register tiles, 8 x 4 at hd 64 (Q K^T's
   split over the head dim across lanes, the partial sums added by
   shuffles).
-* hd = 256 c with 2 <= c <= :data:`MAX_CLUSTER` (hd 512 to 2,048):
-  ``cluster-wgmma-bf16-hd256xc`` and ``cluster-scalar-fp32-hd256xc``.
-  A thread-block cluster of c CTAs shares a q tile of one query head;
-  CTA r stages only columns [256 r, 256 r + 256) of Q, K and V, so each
-  computes a partial score tile, the cluster's c partial tiles are sent
-  through distributed shared memory and added in rank order on every
-  CTA (so all hold bitwise the same scores), and each CTA runs the same
-  softmax and writes its own 256 columns of O: Q K^T runs once over the
-  head dim.  Each CTA has the registers and shared memory of an hd-256
-  build (bf16: the wgmma one; fp32: the chunked one) plus the exchange's
-  slots: bf16 197,704 + 32,768 + 64 = 230,536
-  bytes, fp32 197,632 + 32,768 + 16 = 230,416, of the 232,448 a block
-  may use, so one CTA an SM.  What bounds it on an H100: the exchange
-  moves about as many bytes between SMs as the K/V tiles bring from L2.
-  So at c = 2 (hd 512) the bf16 build sends each step's partial scores a
-  step ahead, on 32-key steps, and the transfer overlaps the products
-  (``swa_attention_kernel_wgmma_cluster2``); above c = 2 the partial
-  tiles are summed in place before each softmax, in rounds where the
-  slots (8 float4 a thread) do not hold every peer's tile at once
-  (``..._wgmma_cluster``).  fp32 stays bound by its FMAs.
-* hd above 256 x :data:`MAX_CLUSTER` (a portable cluster holds 8 CTAs):
-  ``band-wgmma-bf16`` and ``band-scalar-fp32``, two passes through a
-  banded score workspace.  Pass 1 takes Q K^T once over the head dim,
-  one block a (128-row q tile, key block of its band, head), the head
-  dim the reduction loop (bf16: ``wgmma`` m64n256k16 on TMA-streamed
+* every hd = 256 c with c >= 2 (hd 512 and up): ``band-wgmma-bf16``
+  and ``band-scalar-fp32``, two passes through a banded score
+  workspace.  Pass 1 takes Q K^T once over the head dim, one block a
+  (128-row q tile, key block of its band, head), the head dim the
+  reduction loop (bf16: ``wgmma`` m64n256k16 on TMA-streamed
   64-column boxes, 256-key blocks; fp32: 32-column boxes staged by TMA,
   8 x 8 register tiles, 128-key blocks), and writes the scaled, masked
   scores as fp32 into the workspace, a (q tile, band) slab an item,
@@ -73,6 +53,16 @@ told to, so a launch counted under a name ran that build:
   over the whole head dim) stays in the C entry for comparison; the
   wrapper never sends it.  This is a dispatch by shape, not a fallback:
   a failed build or launch raises.
+
+Where the band starts was measured on an H100 at RecurrentGemma-9B's
+local-attention shape with hd widened (``tools/swa_band_boundary.py``;
+PERF.md): a (dtype, hd) above 256 goes to the band unless its median is
+more than 3% slower than the build it would replace, and hd 256 only if
+the band is more than 3% faster than the one-block build.  From hd 512
+to 2,048 the band beat the thread-block cluster builds that ran there
+before in both dtypes (fp32 0.45-0.73 of their time, bf16 0.13-0.97),
+so those builds are gone; at fp32 hd 256 it was 2.8-3.1% slower than
+the one-block build, which stays.
 
 Its plain twin is ``repro_torch.kernels.ref.swa_attention_plain``;
 the CUDA-or-CPU dispatch is ``repro_torch.kernels.ops.swa_attention``.
@@ -96,9 +86,8 @@ BUILD_LAUNCHES: dict[str, int] = {}
 
 HEAD_DIMS = (64, 128, 256)  # the kernel's builds; other hd <= 256 are padded
 CHUNK = HEAD_DIMS[-1]  # above it, hd runs in slices of these columns (padded to a multiple)
-MAX_CLUSTER = 8  # CTAs of a portable cluster: the cluster builds run hd up to CHUNK * 8
 # how a launch splits hd: the C entry's `split` (BAND is its own C entry)
-ONE_BLOCK, CLUSTER, CHUNKS, BAND = 0, 1, 2, 3
+ONE_BLOCK, CHUNKS, BAND = 0, 1, 2
 TILE = 64  # S must be a multiple of this
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEADS = 65535  # B * H blocks along gridDim.y
@@ -171,32 +160,31 @@ def padded_head_dim(hd: int) -> int:
     return next((p for p in HEAD_DIMS if p >= hd), -(-hd // CHUNK) * CHUNK)
 
 
-def split_of(hd: int) -> int:
-    """How a launch at the padded head dim ``hd`` splits it, the one
-    place this is decided: :data:`ONE_BLOCK` at :data:`HEAD_DIMS`,
-    :data:`CLUSTER` (hd / 256 CTAs) up to 256 x :data:`MAX_CLUSTER`,
-    :data:`BAND` (the two passes through the score workspace) above.
-    :data:`CHUNKS`, the chunked build the band replaced, is never
-    chosen."""
-    if hd in HEAD_DIMS:
-        return ONE_BLOCK
-    return CLUSTER if hd // CHUNK <= MAX_CLUSTER else BAND
+def split_of(dtype: torch.dtype, hd: int) -> int:
+    """How a launch of ``dtype`` at the padded head dim ``hd`` splits it,
+    the one place this is decided, by the measurement in the module note
+    (taken per dtype; its boundary fell at the same hd in both):
+    :data:`ONE_BLOCK` at :data:`HEAD_DIMS`, :data:`BAND` (the two passes
+    through the score workspace) above.  :data:`CHUNKS`, the chunked
+    build the band replaced, is never chosen."""
+    return ONE_BLOCK if hd in HEAD_DIMS else BAND
 
 
 def build_of(dtype: torch.dtype, hd: int) -> str:
     """The name of the build of ``csrc/swa_attention.cu`` that a launch
-    at the padded head dim ``hd`` runs (the module note lists them): bf16
-    on ``wgmma``, fp32 on the scalar kernel, split as :func:`split_of`
-    says (``cluster-...-hd256x{c}`` for a cluster of c CTAs,
-    ``band-...`` for the two passes)."""
+    at the padded head dim ``hd`` runs, one of :data:`BUILDS` (the module
+    note lists them): bf16 on ``wgmma``, fp32 on the scalar kernel, split
+    as :func:`split_of` says (``band-...`` for the two passes)."""
     kind = "wgmma" if dtype == torch.bfloat16 else "scalar"
     dt = "bf16" if dtype == torch.bfloat16 else "fp32"
-    split = split_of(hd)
-    if split == ONE_BLOCK:
+    if split_of(dtype, hd) == ONE_BLOCK:
         return f"{kind}-{dt}-hd{hd}"
-    if split == CLUSTER:
-        return f"cluster-{kind}-{dt}-hd{CHUNK}x{hd // CHUNK}"
     return f"band-{kind}-{dt}"
+
+
+# every name build_of gives: the one-block builds and the band builds
+BUILDS = (*(f"{kind}-hd{hd}" for kind in ("scalar-fp32", "wgmma-bf16") for hd in HEAD_DIMS),
+          "band-scalar-fp32", "band-wgmma-bf16")
 
 
 def band_blocks(s: int, window: int, dtype: torch.dtype) -> int:
@@ -272,7 +260,7 @@ def _launch(q, k, v, *, window: int, scale: float) -> torch.Tensor:
     global LAUNCHES
     b, s, h, hd = q.shape
     out = torch.empty_like(q)
-    split = split_of(hd)
+    split = split_of(q.dtype, hd)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if split == BAND:

@@ -2,8 +2,9 @@
 ``swa_attention`` twin against JAX's oracle and its Pallas kernel (in
 interpret mode, as ``tests/test_kernels.py`` runs it) at hd 64, 128, 256
 and 96 and at the band builds' hd 2,304 and 4,096, a plain mirror of the
-band builds' two passes, their workspace's band width and group
-planner, the kernel wrapper's head-dim padding (to 512 and beyond too),
+band builds' two passes (hd 512 to 4,096), their workspace's band width
+and group planner, the builds the wrapper routes to and exports, the
+kernel wrapper's head-dim padding (to 512 and beyond too),
 the three branches of ``gqa_attention`` with a spy on the branch taken
 (the banded one also at hd 256 and 512), one bf16 case,
 decode attention over the KV cache, and ``swa_bf16_bound`` against an
@@ -83,7 +84,7 @@ def _branch_case(s, window, branch, heads=(4, 2, 64), tag=""):
     _branch_case(3072, 2048, "flash"), _branch_case(3072, 1024, "banded"),
     # RecurrentGemma-9B's local attention: one KV head of hd 256, window 2048
     _branch_case(4096, 2048, "banded", heads=(2, 1, 256), tag="-hd256"),
-    # hd 512, which the kernel runs on a cluster of two CTAs
+    # hd 512, the band builds' narrowest routed hd
     _branch_case(3072, 1024, "banded", heads=(2, 1, 512), tag="-hd512")])
 def test_gqa_attention_branches_match_jax(s, window, branch, heads):
     h, kh, hd = heads
@@ -106,21 +107,31 @@ def test_padded_head_dim_rule(hd, width):
 @pytest.mark.parametrize("hd,fp32,bf16", [
     (64, "scalar-fp32-hd64", "wgmma-bf16-hd64"), (96, "scalar-fp32-hd128", "wgmma-bf16-hd128"),
     (256, "scalar-fp32-hd256", "wgmma-bf16-hd256"),
-    (288, "cluster-scalar-fp32-hd256x2", "cluster-wgmma-bf16-hd256x2"),
-    (768, "cluster-scalar-fp32-hd256x3", "cluster-wgmma-bf16-hd256x3"),
-    (2048, "cluster-scalar-fp32-hd256x8", "cluster-wgmma-bf16-hd256x8"),
+    (288, "band-scalar-fp32", "band-wgmma-bf16"),
+    (768, "band-scalar-fp32", "band-wgmma-bf16"),
+    (2048, "band-scalar-fp32", "band-wgmma-bf16"),
     (2049, "band-scalar-fp32", "band-wgmma-bf16"), (4096, "band-scalar-fp32", "band-wgmma-bf16"),
     (256 * 65535 - 100, "band-scalar-fp32", "band-wgmma-bf16")])
 def test_build_of_routes_by_dtype_and_head_dim(hd, fp32, bf16):
     """The build a launch runs, by dtype and padded hd, with no launch:
-    the one-block builds up to hd 256, a cluster of hd / 256 CTAs up to
-    the largest portable cluster (8, hd 2,048), the band builds (two
-    passes through a score workspace) above it, up to the widest hd the
-    wrapper takes; never the chunked build they replaced."""
+    the one-block builds up to hd 256, the band builds (two passes
+    through a score workspace) from hd 512 (288 padded to it) up to the
+    widest hd the wrapper takes; never the chunked build they replaced."""
     width = swa_kernel.padded_head_dim(hd)
     assert swa_kernel.build_of(torch.float32, width) == fp32
     assert swa_kernel.build_of(torch.bfloat16, width) == bf16
-    assert swa_kernel.split_of(width) != swa_kernel.CHUNKS
+    for dtype in (torch.float32, torch.bfloat16):
+        assert swa_kernel.split_of(dtype, width) != swa_kernel.CHUNKS
+
+
+@pytest.mark.parametrize("dtype,tag", [(torch.float32, "fp32"), (torch.bfloat16, "bf16")])
+def test_build_of_reaches_every_exported_build(dtype, tag):
+    """Over every hd from 1 to 4,096 (padded as the wrapper pads it), the
+    builds a launch can run are exactly the dtype's share of
+    ``BUILDS``: a routing change cannot leave a build unreached, or
+    reach one the wrapper does not export."""
+    image = {swa_kernel.build_of(dtype, swa_kernel.padded_head_dim(hd)) for hd in range(1, 4097)}
+    assert image == {name for name in swa_kernel.BUILDS if tag in name}
 
 
 @pytest.mark.parametrize("s", [128, 192])
@@ -181,14 +192,15 @@ def _band_two_pass(q, k, v, *, window, block_keys):
 
 @pytest.mark.parametrize("b,s,h,kh,hd,window", [
     (1, 128, 4, 2, 2304, 64), (2, 192, 2, 1, 2304, 100), (1, 320, 4, 1, 4096, 1),
-    (1, 256, 2, 1, 2560, 300)])
+    (1, 256, 2, 1, 2560, 300), (1, 256, 4, 2, 512, 100)])
 def test_band_two_pass_mirror_matches_jax(b, s, h, kh, hd, window):
     """The band builds' decomposition (per-block scores and statistics,
     the merge in block order, P V in 256-column slices), in both block
     widths (bf16's 256 keys, fp32's 128), with K < H, against JAX's
     oracle on the KV repeated to H heads, and its Pallas kernel where it
     takes S.  The band reaches past S's start (window 300), is one tile
-    (window 1), and S % 128 == 64 leaves a half q tile."""
+    (window 1), and S % 128 == 64 leaves a half q tile; hd 512, two
+    slices of 256 columns, is the band's narrowest routed hd."""
     q, k, v = _qkv(b, s, h, kh, hd, seed=s + hd + window)
     want = np.asarray(jax_swa_ref(*_jax(q, _repeat(k, h // kh), _repeat(v, h // kh)),
                                   window=window))

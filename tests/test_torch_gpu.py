@@ -12,7 +12,7 @@ MAML/MetaSGD on the card against the CPU from one set of draws, the
 Table-4 evaluation through ``lstm_forward``, at REPLACE-BG's pooled
 R=71,317 val windows too), the banded branch of ``gqa_attention``,
 a small LM prefill and a small RecurrentGemma prefill (hd 256, both
-dtypes) through ``swa_attention``, its band builds above hd 2,048
+dtypes) through ``swa_attention``, its band builds above hd 256
 bitwise across the groups their workspace cap forces, a round of the sharded mixer over a
 one-rank NCCL group bitwise the tree mixer's, a swept-sharded sweep
 on that group's (1, 1) sweep mesh bitwise the tree sweep, and the LM
@@ -532,13 +532,11 @@ def _swa_inputs(b, s, h, kh, hd, dtype, seed, device):
     (1, 1024, 2, 1, 256, 2048), (2, 192, 4, 2, 256, 100), (1, 320, 3, 1, 96, 100),
     (1, 1024, 4, 4, 256, 100), (1, 320, 16, 1, 256, 2048), (1, 2112, 2, 2, 256, 2048),
     (2, 1024, 4, 2, 96, 300),
-    # hd 512 on a cluster of two CTAs, hd 288 zero-padded to 512
+    # the band builds: hd 512, hd 288 zero-padded to 512, hd 768, 1,280,
+    # 2,048, 2,304, 2,560 and 4,096 (window 1, S % 128 == 64 at B=2, K <
+    # H, a band as wide as S)
     (1, 1024, 2, 1, 512, 2048), (2, 192, 4, 2, 512, 100), (1, 320, 3, 1, 288, 100),
     (2, 1024, 4, 2, 288, 300),
-    # clusters of 3, 5 and 8 (the partial tiles in 2, 4 and 8 rounds in
-    # bf16; 1, 2 and 4 in fp32), and hd 2,304, 2,560 and 4,096 above the
-    # largest cluster (the band builds: window 1, S % 128 == 64 at B=2,
-    # K < H, a band as wide as S)
     (1, 1024, 2, 1, 768, 2048), (2, 192, 2, 2, 768, 100), (1, 320, 2, 1, 1280, 100),
     (1, 192, 2, 1, 2048, 100), (1, 320, 2, 1, 2304, 100), (2, 192, 4, 2, 2304, 1),
     (1, 1024, 4, 1, 2560, 2048), (2, 320, 4, 1, 4096, 300), (1, 256, 2, 2, 4096, 1)]
@@ -573,14 +571,10 @@ _SWA_BUILDS = {
     (torch.float32, 128): ("scalar-fp32-hd128", ("kernel_bulkILi128E",)),
     (torch.float32, 256): ("scalar-fp32-hd256", ("kernel_bulkILi256E",)),
     (torch.bfloat16, 256): ("wgmma-bf16-hd256", ("wgmma_hd256",)),
-    (torch.bfloat16, 512): ("cluster-wgmma-bf16-hd256x2", ("wgmma_cluster2E",)),
-    (torch.bfloat16, 768): ("cluster-wgmma-bf16-hd256x3", ("wgmma_clusterE",)),
-    (torch.float32, 512): ("cluster-scalar-fp32-hd256x2", ("scalar_clusterE",)),
-    (torch.float32, 768): ("cluster-scalar-fp32-hd256x3", ("scalar_clusterE",)),
     **{(torch.bfloat16, hd): ("band-wgmma-bf16", ("band_scores_wgmmaE", "band_pv_wgmmaE"))
-       for hd in (2304, 4096)},
+       for hd in (512, 768, 2304, 4096)},
     **{(torch.float32, hd): ("band-scalar-fp32", ("band_scores_f32E", "band_pv_f32E"))
-       for hd in (2304, 4096)},
+       for hd in (512, 768, 2304, 4096)},
 }
 
 
@@ -595,9 +589,9 @@ _SWA_BUILDS = {
     (torch.float32, 256, 1024, 4, 1, 2048), (torch.float32, 256, 192, 2, 2, 100)])
 def test_swa_runs_its_build_bitwise(cuda, dtype, hd, s, h, kh, window):
     """fp32 at hd 64, 128 and 256 launches the TMA-staged one-block build,
-    bf16 at hd 256 the wgmma build, bf16 and fp32 at hd 512 and 768 the
-    cluster builds (a cluster of hd / 256 CTAs), and at hd 2,304 and 4,096
-    the band builds (two kernels each), never the chunked kernel; two
+    bf16 at hd 256 the wgmma build, and bf16 and fp32 at hd 512, 768,
+    2,304 and 4,096 the band builds (two kernels each), never the chunked
+    kernel; two
     launches agree bitwise; ptxas reports no spill for the build's
     kernels and does not serialize their products."""
     from repro_torch.kernels import _build

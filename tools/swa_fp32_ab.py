@@ -27,6 +27,7 @@ Prints one JSON object, and writes it to ``--out`` when given.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import statistics
 import subprocess
@@ -38,18 +39,54 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
-sys.path.insert(0, str(ROOT / "tools"))
 
 from chip_smoke import FP32_OPS_PER_S, band_sdpa, bound, swa_cost  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import swa_attention as swa_kernel  # noqa: E402
-from swa_cluster_ab import REPS, launcher, time_ms  # noqa: E402
 
+REPS = 20
 TOL = 3e-5
 RG = dict(B=1, S=8192, H=16, K=1, window=2048, hd=256)
 PREFILL = dict(B=1, S=32768, H=96, K=8, window=4096)
 CHECKS = ((1, 320, 16, 1, 256, 2048), (2, 192, 4, 2, 256, 100), (1, 1024, 12, 1, 128, 300),
           (2, 192, 4, 1, 64, 100), (1, 64, 2, 2, 64, 1))
+
+
+def launcher(lib: ctypes.CDLL, split: int):
+    """``swa_attention_launch`` of ``lib`` at one split: ``call(q, k, v,
+    window)`` on the current stream, scale hd^-0.5, raising on a failed
+    launch."""
+    fn = lib.swa_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(q, k, v, window):
+        b, s, h, hd = q.shape
+        out = torch.empty_like(q)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, k.shape[2],
+                 hd, window, hd ** -0.5, int(q.dtype == torch.bfloat16), split,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed with cudaError {err}")
+        return out
+    return call
+
+
+def time_ms(fn) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(350_000_000)  # holds the card while the launches queue
+    pairs = []
+    for _ in range(REPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 def inputs(gen, b, s, h, kh, hd):

@@ -32,7 +32,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tools"))
 
 from repro_torch.kernels import _build  # noqa: E402
-from swa_cluster_ab import launcher  # noqa: E402
+from swa_fp32_ab import launcher  # noqa: E402
 
 PHASES = ("wait_k", "qk", "release_k_softmax_p", "wait_v", "pv", "release_v")
 SHAPES = {"rg256": (1, 8192, 16, 1, 256, 2048), "prefill128": (1, 8192, 96, 8, 128, 4096),
