@@ -1048,13 +1048,20 @@ def launches() -> dict[str, int]:
             "swa_attention": swa_attention.LAUNCHES}
 
 
+def _is_annotation(e) -> bool:
+    """A span's range on the device timeline, not a kernel or copy."""
+    return getattr(e, "is_user_annotation", False) or e.name in SPANS + MASK_SPANS
+
+
 def span_breakdown(prof, spans=SPANS) -> tuple[dict[str, float], dict[str, float], float, int]:
     """Device busy time (ms) of one profile, split by the trainer's
     ``spans``: each device kernel or copy goes to the span whose range
     on the device timeline holds its start ("other" if none).  Also the
     same split of the GEMM kernels alone (a "gemm" in the kernel's
     name), the total, and the number of device kernels and copies.
-    Spans not in ``spans`` are neither ranges nor work."""
+    Spans not in ``spans`` are neither ranges nor work: no user
+    annotation (a span's range on the device timeline, the nested
+    ``step.*`` ones too) counts as work."""
     from torch.autograd import DeviceType
 
     events = list(prof.events())
@@ -1062,7 +1069,7 @@ def span_breakdown(prof, spans=SPANS) -> tuple[dict[str, float], dict[str, float
     ranges = [(e.name, e.time_range.start, e.time_range.end) for e in on_device if e.name in spans]
     busy = dict.fromkeys(spans + ("other",), 0.0)
     gemm = dict.fromkeys(spans + ("other",), 0.0)
-    work = [e for e in on_device if e.name not in SPANS + MASK_SPANS + tuple(spans)]
+    work = [e for e in on_device if not _is_annotation(e) and e.name not in spans]
     for e in work:
         start = e.time_range.start
         owner = next((name for name, lo, hi in ranges if lo <= start < hi), "other")
@@ -1082,7 +1089,7 @@ def span_items(prof, span: str) -> dict[str, float]:
     ranges = [(e.time_range.start, e.time_range.end) for e in on_device if e.name == span]
     items: dict[str, float] = {}
     for e in on_device:
-        if e.name in SPANS + MASK_SPANS:
+        if _is_annotation(e):
             continue
         if any(lo <= e.time_range.start < hi for lo, hi in ranges):
             items[e.name] = items.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3

@@ -1,0 +1,10 @@
+"""``forward_ms``: device ms a round in the program's ``step.forward``
+span, every local step's forward of every row's batch
+(``model.apply_nodes``) and its loss.  Read from the tracer's CUDA
+events at the span's ends (``portbench/spans.py``): elapsed time on the
+stream, so idle gaps inside the span count."""
+from portbench.spans import device_ms_per_round
+
+
+def read(run):
+    return device_ms_per_round(run, "step.forward")

@@ -39,10 +39,10 @@ from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.models.base import Model, Params
 from repro_torch.utils.pytree import ParamLayout
+from repro_torch.utils.tracing import span
 
 # Default rounds per chunk for engine="scan"; the trainers clamp it to
 # the requested round count.
@@ -87,13 +87,13 @@ def val_tensors(val_data, device):
     return tuple(torch.as_tensor(np.asarray(v, np.float32)).to(device) for v in val_data)
 
 
-def draw_stream(draws: Iterable | None, fresh: Callable, span: str) -> Callable:
+def draw_stream(draws: Iterable | None, fresh: Callable, name: str) -> Callable:
     """A callable giving the next round's draws: from ``draws`` when
-    given, else ``fresh()``; inside the ``span`` record."""
+    given, else ``fresh()``; inside the span ``name``."""
     stream = None if draws is None else iter(draws)
 
     def nxt():
-        with record_function(span):
+        with span(name):
             return next(stream) if stream is not None else fresh()
 
     return nxt
@@ -209,7 +209,7 @@ def read_chunk(losses: torch.Tensor, vals: torch.Tensor, stop: StopState | None)
     parts = [losses.to(torch.float32), vals.to(torch.float32)]
     if stop is not None:
         parts.append(stop.stop_round.to(torch.float32).reshape(1))
-    with record_function("chunk.sync"):
+    with span("chunk.sync"):
         host = torch.cat(parts).cpu().numpy()
     c = losses.shape[0]
     stop_round = int(host[2 * c]) if stop is not None else -1

@@ -46,7 +46,6 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.config import FLConfig
 from repro_torch.core import chunked
@@ -65,6 +64,7 @@ from repro_torch.models.base import Model, Params
 from repro_torch.optim import Optimizer
 from repro_torch.utils.pytree import ParamLayout
 from repro_torch.utils.rng import RoundDraws, draw_round
+from repro_torch.utils.tracing import span
 
 
 class FedAvg:
@@ -112,7 +112,7 @@ class FedAvg:
         keep ``params`` and report 0, whatever their data hold."""
         n = self.cfg.num_nodes
         keep = active > 0
-        with record_function("fedavg.local_step"):
+        with span("fedavg.local_step"):
             p = params[None].repeat(n, 1)
             state = self.optimizer.init(p)
             losses = []
@@ -137,7 +137,7 @@ class FedAvg:
         keep = active > 0
         client_params, client_loss = self.client_update(params, data, active,
                                                         draws.batch_idx.to(dev))
-        with record_function("fedavg.aggregate"):
+        with span("fedavg.aggregate"):
             w = active * data.counts.to(torch.float32)
             w = w / torch.clamp_min(torch.sum(w), 1.0)
             new_params = (torch.sum(w[:, None] * client_params, dim=0)
@@ -147,7 +147,7 @@ class FedAvg:
         return new_params, loss
 
     def val_loss(self, params: torch.Tensor, val_x: torch.Tensor, val_y: torch.Tensor):
-        with record_function("fedavg.eval"):
+        with span("fedavg.eval"):
             return val_mse(self.model, self.layout, params, val_x, val_y)
 
     def train(self, generator: torch.Generator | None, x, y, counts, *, batch_size: int = 64,

@@ -38,12 +38,19 @@ RMSE or a caller's ``eval_fn(pop_params, val_x, val_y) -> dict`` of
 float scalars (a 1-argument ``eval_fn(pop_params)`` is resolved by its
 signature, as in the JAX package); it runs eagerly, so any callable
 will do, and its values join the chunk's one host sync.
-Each stage of a round runs inside a ``torch.profiler.record_function``
-span (``round.draws``, ``round.mixing_operator``, ``round.gossip``,
+Each stage of a round runs inside a span (``utils.tracing.span``):
+``round.draws``, ``round.mixing_operator``, ``round.gossip``,
 ``round.local_step``, ``round.mask``, ``round.eval``, ``chunk.sync``;
 with ``gossip_impl="masked"``, ``round.secure_mask`` inside
-``round.gossip``), so a profile splits a round's time by stage; without
-an active profiler a span costs a few microseconds of host time.
+``round.gossip``; inside ``round.local_step``, each local step's
+``step.forward`` and ``step.backward`` (in :func:`mse_value_and_grad`,
+so every trainer that steps through it has them) and
+``step.optimizer``.  So a profile splits a round's time by stage, and
+under a profiler the tracer keeps each span's host and device ms and
+host syncs.  Without an active profiler a span is a
+``record_function`` and one flag check: 9.1-10.3 us on the H100
+machine's host, as much as ``record_function`` alone; armed, a
+top-level span costs ~85-90 us there (PERF.md).
 
 ``gossip_impl="masked"`` adds pairwise-masked secure aggregation
 (``core.secure_agg``): the masks come from a mask source of their own,
@@ -99,7 +106,6 @@ from typing import Callable, Iterable, Iterator, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from repro_torch.config import FLConfig
 from repro_torch.core.chunked import engine_chunk
@@ -129,6 +135,7 @@ from repro_torch.models.base import Model
 from repro_torch.optim import Optimizer
 from repro_torch.utils.pytree import ParamLayout, tree_index
 from repro_torch.utils.rng import RoundDraws, draw_round, draw_sweep
+from repro_torch.utils.tracing import span
 
 # rounds between host syncs of the scan engine's losses and eval records
 DEFAULT_CHUNK = 32
@@ -347,9 +354,12 @@ def mse_value_and_grad(model: Model, layout: ParamLayout, params: torch.Tensor,
     and the cold-start fine-tune (``core.personalize``) both use it."""
     p = params.detach().requires_grad_(True)
     with torch.enable_grad():
-        pred = model.apply_nodes(layout.views(p), bx)
-        losses = torch.mean(torch.square(pred - by), dim=1)
-        (grads,) = torch.autograd.grad(losses.sum(), p)
+        with span("step.forward"):
+            pred = model.apply_nodes(layout.views(p), bx)
+            losses = torch.mean(torch.square(pred - by), dim=1)
+            total = losses.sum()
+        with span("step.backward"):
+            (grads,) = torch.autograd.grad(total, p)
     return losses.detach(), grads
 
 
@@ -510,7 +520,8 @@ class GluADFL:
                 bx = bx + shift[:, None, None]
                 by = by + shift[:, None]
             loss, grads = mse_value_and_grad(self.model, self.layout, p_grad, bx, by)
-            p_apply, state = self.optimizer.update(grads, state, p_apply)
+            with span("step.optimizer"):
+                p_apply, state = self.optimizer.update(grads, state, p_apply)
             p_grad = p_apply
             losses.append(loss)
         return p_apply, state, torch.stack(losses).mean(dim=0)
@@ -521,7 +532,7 @@ class GluADFL:
         device (no host sync).  ``draws`` are the whole federation's; on
         the sharded mixer ``state`` and ``data`` hold this rank's rows."""
         rows = self.plan.rows
-        with record_function("round.mixing_operator"):
+        with span("round.mixing_operator"):
             active, operand, adj = self.mixing_operator(state, draws)
         mine = draws.rows(rows.start, rows.stop)
         act = active[rows]
@@ -531,10 +542,10 @@ class GluADFL:
             if draws.dp_noise is None:
                 raise ValueError("dp_noise_sigma > 0 needs RoundDraws.dp_noise")
             noise = self.dp_noise_sigma * mine.dp_noise
-        with record_function("round.gossip"):
+        with span("round.gossip"):
             mask_ctx = (self.mask_source, adj) if self.plan.masked else None
             mixed = self.plan.gossip(premix, operand, active, noise, mask_ctx)
-        with record_function("round.local_step"):
+        with span("round.local_step"):
             new_params, new_opt, losses = self._local_step(
                 premix, mixed, state.opt_state, data, mine.batch_idx,
                 None if self._shift is None else self._shift[rows])
@@ -546,7 +557,7 @@ class GluADFL:
                 return None
             return torch.where(act.reshape((-1,) + (1,) * (new.dim() - 1)) > 0, new, old)
 
-        with record_function("round.mask"):
+        with span("round.mask"):
             params = keep_inactive(new_params, premix)
             opt_state = {k: keep_inactive(v, state.opt_state[k]) for k, v in new_opt.items()}
             num, den = torch.sum(losses * act), torch.sum(act)
@@ -676,15 +687,15 @@ class GluADFL:
             c = min(chunk, rounds - t)
             losses, evals = [], {}
             for i in range(c):
-                with record_function("round.draws"):
+                with span("round.draws"):
                     rd = next(stream) if stream is not None else self.draw(generator, data, batch_size)
                 state, loss = self.round(state, data, rd)
                 losses.append(loss)
                 if do_eval and (t + i + 1) % eval_every == 0:
-                    with record_function("round.eval"):
+                    with span("round.eval"):
                         evals[i] = eval_record(resolved(self.population(state), val_x, val_y))
             # one host sync per chunk: losses and eval records together
-            with record_function("chunk.sync"):
+            with span("chunk.sync"):
                 host = iter(read_host([torch.stack(losses)]
                                       + [v for rec in evals.values() for v in rec.values()]))
             history += [{"round": t + i, "loss": v} for i, v in enumerate(next(host))]
@@ -743,7 +754,7 @@ class GluADFL:
         g, n = draws.u_act.shape
         rows = plan.rows
         k = data.x.shape[0]
-        with record_function("round.mixing_operator"):
+        with span("round.mixing_operator"):
             active = bernoulli_active(draws.u_act, sc.inactive_ratio)
             if sc.markov is not None:
                 # both schedules read the same uniforms: arming the axis moves no draw
@@ -766,10 +777,10 @@ class GluADFL:
             if draws.dp_noise is None:
                 raise ValueError("a DP sweep needs RoundDraws.dp_noise")
             noise = sc.sigma * draws.dp_noise[:, rows].reshape(g * k, -1)
-        with record_function("round.gossip"):
+        with span("round.gossip"):
             mask_ctx = None if sc.mask_sources is None else (sc.mask_sources, adj)
             mixed = plan.sweep_gossip(premix, operand, active, noise, mask_ctx)
-        with record_function("round.local_step"):
+        with span("round.local_step"):
             new_params, new_opt, losses = self._local_step(
                 premix, mixed, state.opt_state, data,
                 draws.batch_idx[:, rows].reshape(g * k, *draws.batch_idx.shape[2:]), sc.shift)
@@ -780,7 +791,7 @@ class GluADFL:
                 return None
             return torch.where(flat_act.reshape((g * k,) + (1,) * (new.dim() - 1)) > 0, new, old)
 
-        with record_function("round.mask"):
+        with span("round.mask"):
             params = keep_inactive(new_params, premix)
             opt_state = {key: keep_inactive(v, state.opt_state[key]) for key, v in new_opt.items()}
             num, den = torch.sum(losses.view(g, k) * act, dim=1), torch.sum(act, dim=1)
@@ -921,7 +932,7 @@ class GluADFL:
             c = min(chunk, rounds - t)
             losses, evals = [], {}
             for i in range(c):
-                with record_function("round.draws"):
+                with span("round.draws"):
                     if stream is not None:
                         # a whole-grid round; its leading axis is the scenarios'
                         rd = next(stream).rows(scen.start, scen.stop)
@@ -931,12 +942,12 @@ class GluADFL:
                 state, loss = self.sweep_round(state, data, rd, sc)
                 losses.append(loss)
                 if do_eval and (t + i + 1) % eval_every == 0:
-                    with record_function("round.eval"):
+                    with span("round.eval"):
                         evals[i] = self._sweep_eval(state, g, resolved, val_x, val_y, sc.node)
             # one host sync per chunk for the whole grid: this rank's
             # scenarios' losses and eval values as one (G, ...) block,
             # gathered over the grid subgroup
-            with record_function("chunk.sync"):
+            with span("chunk.sync"):
                 block = torch.cat([torch.stack(losses, dim=1).to(torch.float64)]
                                   + [v.to(self.device, torch.float64)[:, None]
                                      for rec in evals.values() for v in rec.values()], dim=1)

@@ -47,8 +47,6 @@ from typing import Any, Callable
 
 import torch
 
-from torch.profiler import record_function
-
 from repro_torch.core.distributed import (
     GOSSIP_IMPLS,
     GOSSIP_REPRS,
@@ -65,6 +63,7 @@ from repro_torch.core.gossip import (
 )
 from repro_torch.core.topology import mixing_matrix, neighbor_candidates, neighbor_table
 from repro_torch.kernels import ops
+from repro_torch.utils.tracing import span
 
 # the mixer knob's legal values (``gossip_impl="gather"`` reroutes the
 # sharded mixer to the sharded_gather_tables backend)
@@ -349,7 +348,7 @@ class GossipPlan:
             out = self._dp(premix, noise, operand, active)
         if mask_ctx is not None:
             source, adj = mask_ctx
-            with record_function("round.secure_mask"):
+            with span("round.secure_mask"):
                 idx, wgt = self.mask_table(operand, adj, active)
                 rows = self.rows
                 out = gossip_mix_masked(out, idx[rows], wgt[rows], source(idx, wgt)[rows])
@@ -382,7 +381,7 @@ class GossipPlan:
             out = self.gossip(premix, flat, active.reshape(-1), noise)
         if mask_ctx is not None:
             sources, adj = mask_ctx
-            with record_function("round.secure_mask"):
+            with span("round.secure_mask"):
                 idx, wgt = self.mask_table(operand, adj, active)
                 rows = self.rows
                 blocks = out.view(g, out.shape[0] // g, -1)

@@ -33,7 +33,6 @@ from __future__ import annotations
 from typing import Callable, Iterable
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import chunked
 from repro_torch.core.chunked import (
@@ -50,6 +49,7 @@ from repro_torch.models.base import Model, Params
 from repro_torch.optim import Optimizer
 from repro_torch.utils.pytree import ParamLayout
 from repro_torch.utils.rng import MetaDraws, draw_meta
+from repro_torch.utils.tracing import span
 
 
 class MAML:
@@ -95,7 +95,7 @@ class MAML:
         n = data.x.shape[0]
         theta = params.detach().requires_grad_(True)
         rate = lrs.detach().requires_grad_(self.learn_inner_lr)
-        with torch.enable_grad(), record_function("meta.inner"):
+        with torch.enable_grad(), span("meta.inner"):
             rows = theta.expand(n, -1)
             for s in range(self.inner_steps):
                 losses = self._task_losses(rows, data, support[:, s])
@@ -104,7 +104,7 @@ class MAML:
         # one span for the query, the meta-gradient and the update, so the
         # backward's kernels (launched by autograd's device thread) fall
         # inside its range on the device timeline
-        with record_function("meta.outer"):
+        with span("meta.outer"):
             with torch.enable_grad():
                 loss = self._task_losses(rows, data, query).mean()
                 wrt = (rate, theta) if self.learn_inner_lr else (theta,)
@@ -118,7 +118,7 @@ class MAML:
             return new[0], lrs, meta_state, loss.detach()
 
     def val_loss(self, params: torch.Tensor, val_x: torch.Tensor, val_y: torch.Tensor):
-        with record_function("meta.eval"):
+        with span("meta.eval"):
             return val_mse(self.model, self.layout, params, val_x, val_y)
 
     def train(self, generator: torch.Generator | None, x, y, counts, *, batch_size: int = 64,

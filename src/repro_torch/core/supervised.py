@@ -26,7 +26,6 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import chunked
 from repro_torch.core.chunked import (
@@ -43,6 +42,7 @@ from repro_torch.models.base import Model, Params
 from repro_torch.optim import Optimizer
 from repro_torch.utils.pytree import ParamLayout
 from repro_torch.utils.rng import draw_supervised
+from repro_torch.utils.tracing import span
 
 
 def train_supervised(
@@ -90,13 +90,13 @@ def train_supervised(
 
     def step(p, st):
         idx = next_idx().to(dev)
-        with record_function("supervised.step"):
+        with span("supervised.step"):
             loss, grads = mse_value_and_grad(model, layout, p, x[idx][None], y[idx][None])
             p, st = optimizer.update(grads, st, p)
         return p, st, loss[0]
 
     def val_loss(p):
-        with record_function("supervised.eval"):
+        with span("supervised.eval"):
             return val_mse(model, layout, p[0], val_x, val_y)
 
     history: list[dict] = []

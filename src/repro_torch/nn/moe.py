@@ -48,10 +48,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.profiler import record_function
 
 from repro_torch.arch.sharding import resolve_partial
 from repro_torch.nn.layers import normal
+from repro_torch.utils.tracing import span
 
 
 def init_moe(gen: torch.Generator, d: int, ff: int, num_experts: int,
@@ -82,7 +82,7 @@ def moe_ffn(x: torch.Tensor, p: dict, *, top_k: int,
             capacity_factor: float = 1.25) -> tuple[torch.Tensor, dict]:
     """x (B, S, d) -> (out (B, S, d) in x's dtype, {"load_balance",
     "router_z"} fp32 scalars)."""
-    with record_function("moe"):  # the profiler's span of the layer's MoE
+    with span("moe"):  # the profiler's span of the layer's MoE
         return _moe_ffn(x, p, top_k, capacity_factor)
 
 

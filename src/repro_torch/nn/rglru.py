@@ -32,13 +32,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
-
 from torch.distributed.tensor import DTensor
 
 from repro_torch.arch.sharding import keep_batch, local_like
 from repro_torch.nn.layers import normal
 from repro_torch.nn.ssm import CONV_K, causal_conv
+from repro_torch.utils.tracing import span
 
 C_EXP = 8.0
 
@@ -93,7 +92,7 @@ def rglru_forward(x: torch.Tensor, p: dict, *, h0: torch.Tensor | None = None):
     a, gated = _gates(xf, p)
     if h0 is not None:
         gated[:, 0] += a[:, 0] * h0.float()
-    with record_function("rglru.scan"):  # the profiler's span of the scan's passes
+    with span("rglru.scan"):  # the profiler's span of the scan's passes
         if isinstance(a, DTensor):
             # channels sharded beside the batch: each rank scans its own
             a, gated = keep_batch(a, -1), keep_batch(gated, -1)

@@ -30,12 +30,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
-
 from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.arch.sharding import keep_batch, local_like
 from repro_torch.nn.layers import normal, rms_norm
+from repro_torch.utils.tracing import span
 
 CONV_K = 4
 
@@ -54,7 +53,7 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
 def ssd_forward(x, dt, a_log, bm, cm, d_skip, *, chunk: int = 64):
     """Chunked SSD.  Returns (y (B, S, H, P) in x's dtype, final state
     (B, H, P, N) fp32)."""
-    with record_function("ssm.ssd"):  # the profiler's span of the SSD's passes
+    with span("ssm.ssd"):  # the profiler's span of the SSD's passes
         if isinstance(x, DTensor):
             return _ssd_on_shards(x, dt, a_log, bm, cm, d_skip, chunk)
         return _ssd_forward(x, dt, a_log, bm, cm, d_skip, chunk)
