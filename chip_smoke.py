@@ -9,8 +9,9 @@ Phases, each printing one JSON line:
   2. build    — compile every CUDA source under ``kernels/csrc`` from the
                 checkout, one ``nvcc`` each, in parallel; each library's
                 ``ptxas`` registers and spills, and 0 bytes of spill in
-                every ``lstm_forward`` kernel and the three staged gossip
-                kernels;
+                every ``lstm_forward`` kernel, the three staged gossip
+                kernels and the four builds of the two gate kernels
+                (``lstm_train``);
   3. kernel   — each kernel against its plain PyTorch twin on the card,
                 on distinct seeded per-row weights (max |diff| <= 1e-5,
                 TF32 off), at every path ``lstm_cell._plan`` takes
@@ -416,6 +417,24 @@ Phases, each printing one JSON line:
                 bytes, their share of the card's memory, collective
                 counts and seconds;
 
+ 28. lstmtrain — run after phase 26 and before phase 27's processes
+                start: the trainer's gate kernels (``lstm_gates_fwd``,
+                ``lstm_gates_bwd``, ``kernels/lstm_train.py``; they port
+                no Pallas kernel) at the benchmark's two cells' shapes
+                (N=3,390, B=64, H=128 and N=226, B=64, H=512; L=12,
+                I=1): one step of each against its plain twin on the
+                same views (gates, c, h, dG, dc within 1e-6; db and dwx
+                within 1e-5 of their largest value; the forward bitwise
+                or not, reported), each timed (CUDA events, 100 runs)
+                beside its byte bound and its twin; then the whole loss
+                and gradient
+                (``mse_value_and_grad``) by hand against autograd through
+                ``apply_nodes``, the path it replaces: L launches of each
+                kernel, losses within 1e-6 relative and every leaf
+                within 1e-5 of its largest |gradient|, both timed in
+                turns (autograd, hand, hand, autograd) beside the
+                operations bound, and the memory each adds;
+
 then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result, as it does when CUDA is absent or when it
@@ -654,6 +673,17 @@ DRYRUN_REQUIRED = ("prefill_32k", "decode_32k")
 DRYRUN_WAIT_S = 600
 # the card's rise above the pre-step baseline, filled by phases 23, 25, 26
 MEASURED_RISE: dict[str, dict[str, int]] = {}
+# phase 28: the trainer's gate kernels at the benchmark's two cells' shapes,
+# (N, B, L, I, H): the Fig-5 sweep's G*N rows at H=128, one federation at
+# H=512; their tolerances against the twins and of the hand-written
+# gradient against autograd (fp32 sums in another order), as the tests'
+LSTM_TRAIN_SHAPES = {"fig5_sweep.replace-bg-h128": (3390, 64, 12, 1, 128),
+                     "train_sparse.replace-bg-h512": (226, 64, 12, 1, 512)}
+LSTM_GATES_ATOL, LSTM_GATE_SUMS_RTOL, LSTM_VG_RTOL = 1e-6, 1e-5, 1e-5
+# every trained window's length L: each local step of the LSTM launches
+# each gate kernel L times
+LSTM_STEPS = 12
+GATE_KERNELS = ("lstm_gates_fwd", "lstm_gates_bwd")
 SWEPT_CLI = ["--fast-data", "--topology", "random", "--sweep-ratios", "0,0.3,0.7",
              "--sweep-seeds", "2", "--rounds", "4"]
 
@@ -1031,21 +1061,40 @@ def served_vs_plain(sv, reqs, preds: dict[int, float]) -> float:
 def reset_launches() -> None:
     """Every kernel's launch count to 0, just before a path runs."""
     from repro_torch.kernels import gossip_mix as gk
-    from repro_torch.kernels import lstm_cell, swa_attention
+    from repro_torch.kernels import lstm_cell, lstm_train, swa_attention
 
     lstm_cell.LAUNCHES = 0
     swa_attention.LAUNCHES = 0
     swa_attention.BUILD_LAUNCHES.clear()
-    for k in gk.LAUNCHES:
-        gk.LAUNCHES[k] = 0
+    for counter in (gk.LAUNCHES, lstm_train.LAUNCHES):
+        for k in counter:
+            counter[k] = 0
 
 
 def launches() -> dict[str, int]:
     from repro_torch.kernels import gossip_mix as gk
-    from repro_torch.kernels import lstm_cell, swa_attention
+    from repro_torch.kernels import lstm_cell, lstm_train, swa_attention
 
-    return {"lstm_forward": lstm_cell.LAUNCHES, **gk.LAUNCHES,
+    return {"lstm_forward": lstm_cell.LAUNCHES, **gk.LAUNCHES, **lstm_train.LAUNCHES,
             "swa_attention": swa_attention.LAUNCHES}
+
+
+def others(counts: dict[str, int]) -> int:
+    """Launches of every kernel but the trainer's two gate kernels."""
+    return sum(v for k, v in counts.items() if k not in GATE_KERNELS)
+
+
+def hand_steps(counts: dict[str, int], what: str, want: int | None = None) -> int:
+    """The local steps a run took through the LSTM's hand-written
+    gradient, each L launches of both gate kernels: ``want`` of them, or
+    at least one where ``want`` is None (a driver whose local steps the
+    smoke does not reckon).  Returns the count."""
+    fwd, bwd = (counts[k] for k in GATE_KERNELS)
+    steps = fwd // LSTM_STEPS
+    require(fwd == bwd == steps * LSTM_STEPS and (steps > 0 if want is None else steps == want),
+            f"{what}: gate kernel launches {fwd} and {bwd}, want {LSTM_STEPS} of each a local "
+            f"step and {'some' if want is None else want} local steps")
+    return steps
 
 
 def _is_annotation(e) -> bool:
@@ -1183,8 +1232,10 @@ def sweep_phase(feds, card: str, flush: torch.Tensor, errs: list) -> dict:
     run_s = time.perf_counter() - t0
     counts = launches()
     evals = SWEEP_ROUNDS // SWEEP_EVAL_EVERY
-    require(counts["lstm_forward"] == evals and sum(counts.values()) == evals,
-            f"Fig-5 sweep: launches {counts}, want {evals} of lstm_forward and no gossip kernel")
+    require(counts["lstm_forward"] == evals and others(counts) == evals,
+            f"Fig-5 sweep: launches {counts}, want {evals} of lstm_forward and no gossip or "
+            f"attention kernel")
+    hand_steps(counts, "Fig-5 sweep", SWEEP_ROUNDS)
     run_peak = peak_gb()
     losses = np.array([[h["loss"] for h in hist] for hist in hists])
     require(losses.shape == (grid.size, SWEEP_ROUNDS) and np.isfinite(losses).all(),
@@ -1231,8 +1282,9 @@ def sweep_phase(feds, card: str, flush: torch.Tensor, errs: list) -> dict:
             f"sweep CLI: {len(records)} records, keys {[sorted(r) for r in records[:1]]}")
     require(all(math.isfinite(r["final_loss"]) and math.isfinite(r["rmse"]) for r in records),
             "sweep CLI: non-finite records")
-    require(cli_counts["lstm_forward"] == n and sum(cli_counts.values()) == n,
+    require(cli_counts["lstm_forward"] == n and others(cli_counts) == n,
             f"sweep CLI: launches {cli_counts}, want {n} lstm_forward (one per patient)")
+    hand_steps(cli_counts, "sweep CLI", int(SWEEP_CLI[SWEEP_CLI.index("--rounds") + 1]))
     emit("sweep_cli", argv=SWEEP_CLI, records=len(records), launches=cli_counts,
          summary=[{k: r[k] for k in ("inactive_ratio", "seed", "final_loss", "rmse", "mard")}
                   for r in records], seconds=run.seconds)
@@ -1271,7 +1323,9 @@ def sweep_phase(feds, card: str, flush: torch.Tensor, errs: list) -> dict:
                 data.x, data.y, data.counts, grid=masked_grid, batch_size=64,
                 rounds=SWEEP_MASKED_ROUNDS)
             sync()
-            require(sum(launches().values()) == 0, f"masked sweep {data.name}: a kernel ran")
+            require(others(launches()) == 0,
+                    f"masked sweep {data.name}: a gossip, attention or forward kernel ran")
+            hand_steps(launches(), f"masked sweep {data.name}", SWEEP_MASKED_ROUNDS)
             runs[impl] = (h, st, peak_gb())
         (ha, a, peak_a), (hb, b, peak_b) = runs["allgather"], runs["masked"]
         require(ha == hb and torch.equal(a.params, b.params) and
@@ -1349,7 +1403,8 @@ def sweep_phase(feds, card: str, flush: torch.Tensor, errs: list) -> dict:
                   library="torch.nn.LSTM (cuDNN) + nn.Linear over the 15 x 2034 windows",
                   bytes=nbytes, ops=ops, plan=lstm_cell._plan(*SWEEP_EVAL)._asdict())
     emit("timing", shape=dict(zip("GRLIH", SWEEP_EVAL)), **timing)
-    return dict(launches_sweep=counts["lstm_forward"], sweep_eval_ms=ms,
+    return dict(launches_sweep=counts["lstm_forward"],
+                gate_launches_sweep={k: counts[k] for k in GATE_KERNELS}, sweep_eval_ms=ms,
                 sweep_eval_bound_ms=bound_ms, sweep_eval_bound_share=timing["bound_share"],
                 sweep_eval_plain_ms=timing["plain_ms"],
                 sweep_eval_library_ms=timing["library_ms"])
@@ -1479,8 +1534,9 @@ def baselines_phase(feds, card: str, flush: torch.Tensor, errs: list) -> dict:
     tested = sum(len(p.test_x) > 0 for p in fed.patients)
     require(len(dispatched) <= 4, f"the Table-4 grid took {len(dispatched)} chunks")
     require(grid_counts["lstm_forward"] == tested * len(grid)
-            and sum(grid_counts.values()) == grid_counts["lstm_forward"],
+            and others(grid_counts) == grid_counts["lstm_forward"],
             f"Table-4 grid: launches {grid_counts}, want {tested} lstm_forward per population")
+    hand_steps(grid_counts, "Table-4 grid")
     grid_rows = {}
     for method, d in grid.items():
         losses = [h["loss"] for h in d["history"]]
@@ -1698,8 +1754,9 @@ def figures_phase(feds, card: str, errs: list) -> dict:
     topos = fig4_topology.TOPOLOGIES
     for name, counts in (("sweep", fig4_counts), ("serial", serial_counts)):
         require(counts["lstm_forward"] == len(topos) * evals
-                and sum(counts.values()) == counts["lstm_forward"],
+                and others(counts) == counts["lstm_forward"],
                 f"Fig 4 {name}: launches {counts}, want {len(topos)} lstm_forward an eval round")
+        hand_steps(counts, f"Fig 4 {name}")
     vx = torch.as_tensor(np.concatenate([p.val_x for p in fed.patients]), device=DEV)
     vy = torch.as_tensor(np.concatenate([p.val_y * fed.sd + fed.mean for p in fed.patients]),
                          dtype=torch.float32, device=DEV)
@@ -1785,8 +1842,9 @@ def figures_phase(feds, card: str, errs: list) -> dict:
     g5 = len(kept)
     require(g5 == len(topos) * len(fig5_async.RATIOS), f"Fig 5: {g5} scenarios evaluated")
     require(fig5_counts["lstm_forward"] == tested * g5
-            and sum(fig5_counts.values()) == fig5_counts["lstm_forward"],
+            and others(fig5_counts) == fig5_counts["lstm_forward"],
             f"Fig 5: launches {fig5_counts}, want {tested} lstm_forward a scenario")
+    hand_steps(fig5_counts, "Fig 5")
     require(finite_leaves(fig5), f"Fig 5: a non-finite curve: {fig5}")
     fig5_err = 0.0
     for g in FIG5_SAMPLE:
@@ -1906,8 +1964,9 @@ def sharded_phase(feds, card: str) -> dict:
             peaks[key] = dict(peak=torch.cuda.max_memory_allocated() / 1e9,
                               added=(torch.cuda.max_memory_allocated() - start) / 1e9)
             require(counts["lstm_forward"] == SHARDED_ROUNDS // SHARDED_EVAL and
-                    sum(counts.values()) == counts["lstm_forward"],
+                    others(counts) == counts["lstm_forward"],
                     f"{key}: launches {counts}, want the evals' lstm_forward alone")
+            hand_steps(counts, key, SHARDED_ROUNDS)
             lstm_launches += counts["lstm_forward"]
             tpop, thist, tstate = trees[(repr_, sigma)]
             require(torch.equal(state.params, tstate.params) and
@@ -1977,8 +2036,9 @@ def sharded_phase(feds, card: str) -> dict:
     cli_counts = launches()
     require(run.trainer.plan.backend == "sharded_gather_tables" and run.trainer.mesh.width == 1
             and run.trainer.mesh.group is None, f"the CLI's plan {run.trainer.plan.backend}")
-    require(cli_counts["lstm_forward"] == n and sum(cli_counts.values()) == n,
+    require(cli_counts["lstm_forward"] == n and others(cli_counts) == n,
             f"the CLI's launches {cli_counts}, want {n} lstm_forward (the test forecasts)")
+    hand_steps(cli_counts, "the sharded CLI", SHARDED_CLI_ROUNDS)
     require(len(run.history) == SHARDED_CLI_ROUNDS and
             np.isfinite([h["loss"] for h in run.history]).all() and run.checkpoint.exists(),
             "the CLI's history or checkpoint")
@@ -2078,7 +2138,8 @@ def swept_phase(feds, card: str) -> dict:
                 peak = torch.cuda.max_memory_allocated()
                 peaks[key] = dict(peak=peak / 1e9, added=(peak - start) / 1e9)
             evals = SWEPT_ROUNDS // SWEPT_EVAL
-            require(counts["lstm_forward"] == evals and sum(counts.values()) == evals
+            hand_steps(counts, key, SWEPT_ROUNDS)
+            require(counts["lstm_forward"] == evals and others(counts) == evals
                     and groups == [g] * evals,
                     f"{key}: launches {counts}, groups {groups}: want {evals} lstm_forward "
                     f"launches of {g} groups and no gossip kernel")
@@ -2164,8 +2225,11 @@ def swept_phase(feds, card: str) -> dict:
     require(run.trainer.plan.backend == "sharded" and run.trainer.mesh.shape ==
             {"grid": 1, "node": 1} and run.trainer.mesh.node.group is None,
             f"the CLI's plan {run.trainer.plan.backend} on {run.trainer.mesh}")
-    require(cli_counts["lstm_forward"] == n and sum(cli_counts.values()) == n,
+    require(cli_counts["lstm_forward"] == n and others(cli_counts) == n,
             f"the CLI's launches {cli_counts}, want {n} lstm_forward (the test forecasts)")
+    for mixer in ("tree", "sharded"):
+        hand_steps(cli[mixer + "_launches"], f"the swept {mixer} CLI",
+                   int(SWEPT_CLI[SWEPT_CLI.index("--rounds") + 1]))
     require(len(run.summary) == 6 and all(np.isfinite(r["final_loss"]) and np.isfinite(r["rmse"])
                                           for r in run.summary), "the CLI's summary")
     require(run.history == cli["tree"].history and run.summary == cli["tree"].summary,
@@ -2730,6 +2794,143 @@ def train_slice_vs_cpu(name: str, seed: int) -> dict:
     return errs
 
 
+def lstm_gates_bytes(n: int, bsz: int, isz: int, hsz: int) -> dict[str, float]:
+    """Bytes one step of each gate kernel moves, each operand once: the
+    forward reads G_t (4H), c_{t-1} and x and writes the activated gates
+    (4H), c_t and h_t, a row; the backward reads the gates, c_{t-1}, c_t,
+    dh and dc and writes dG (4H) and dc, a row, and reads and writes db
+    and dwx; both read b and wx once a row of the federation."""
+    rows, params = n * bsz, n * (isz + 1) * 4 * hsz
+    return {"fwd": 4 * (rows * (11 * hsz + isz) + params),
+            "bwd": 4 * (rows * (13 * hsz + isz) + 2 * params)}
+
+
+def lstm_train_phase(card: str) -> dict:
+    """Phase 28: the trainer's gate kernels and its hand-written
+    backpropagation through time at the benchmark's two cells' shapes
+    (the module docstring).  Returns the rows of the two kernels for the
+    kernels line."""
+    import dataclasses
+
+    from repro_torch.core.gluadfl import mse_value_and_grad
+    from repro_torch.kernels import lstm_train
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import LSTMModel
+    from repro_torch.utils.pytree import ParamLayout
+
+    rows = {"lstm_gates_fwd": {}, "lstm_gates_bwd": {}}
+    for cell, (n, bsz, steps, isz, hsz) in LSTM_TRAIN_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(2800 + hsz)
+
+        def normal(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+
+        model = LSTMModel(history_len=steps, hidden=hsz, input_size=isz)
+        layout = ParamLayout.of(model.init(torch.Generator().manual_seed(0)))
+        stacked = {"wx": normal(n, isz, 4 * hsz, scale=isz ** -0.5),
+                   "wh": normal(n, hsz, 4 * hsz, scale=hsz ** -0.5),
+                   "b": normal(n, 4 * hsz, scale=0.5), "w_out": normal(n, hsz, 1, scale=hsz ** -0.5),
+                   "b_out": normal(n, 1, scale=0.5)}
+        flat = layout.flatten(stacked)
+        del stacked
+        p = layout.views(flat)
+        bx, by = normal(n, bsz, steps), normal(n, bsz)
+
+        # one step of each kernel against its twin, then timed (in place, on
+        # the same buffers: the bytes do not depend on the values)
+        state = {"gates": normal(n, bsz, 4 * hsz), "x": bx[:, :, 1:2], "c_prev": normal(n, bsz, hsz),
+                 "c": torch.empty(n, bsz, hsz, device="cuda"),
+                 "h": torch.empty(n, bsz, hsz, device="cuda"), "dh": normal(n, bsz, hsz),
+                 "dc": normal(n, bsz, hsz), "db": torch.zeros_like(p["b"]),
+                 "dwx": torch.zeros_like(p["wx"])}
+        twin = {k: v.clone() for k, v in state.items()}
+
+        def fwd(fn, v):
+            return lambda: fn(v["gates"], v["x"], p["wx"], p["b"], v["c_prev"], v["c"], v["h"])
+
+        def bwd(fn, v):
+            return lambda: fn(v["gates"], v["c_prev"], v["c"], v["dh"], v["dc"], v["x"], v["db"],
+                              v["dwx"], True)
+
+        fwd(lstm_train.lstm_gates_fwd, state)()
+        fwd(kref.lstm_gates_fwd_plain, twin)()
+        fwd_err = max(float((state[k] - twin[k]).abs().max()) for k in ("gates", "c", "h"))
+        fwd_bitwise = all(torch.equal(state[k], twin[k]) for k in ("gates", "c", "h"))
+        bwd(lstm_train.lstm_gates_bwd, state)()
+        bwd(kref.lstm_gates_bwd_plain, twin)()
+        bwd_err = max(float((state[k] - twin[k]).abs().max()) for k in ("gates", "dc"))
+        sums_err = max(float((state[k] - twin[k]).abs().max() / twin[k].abs().max())
+                       for k in ("db", "dwx"))
+        require(fwd_err <= LSTM_GATES_ATOL and bwd_err <= LSTM_GATES_ATOL
+                and sums_err <= LSTM_GATE_SUMS_RTOL,
+                f"{cell}: gate kernels vs twins {fwd_err}, {bwd_err}, sums {sums_err}")
+        nbytes = lstm_gates_bytes(n, bsz, isz, hsz)
+        for name, make in (("lstm_gates_fwd", fwd), ("lstm_gates_bwd", bwd)):
+            kernel = make(getattr(lstm_train, name), state)
+            plain = make(getattr(kref, name + "_plain"), twin)
+            bound_ms = nbytes[name[-3:]] / HBM_BYTES_PER_S * 1e3
+            ms = time_ms(kernel, runs=100)
+            rows[name][cell] = {
+                "shape": {"N": n, "B": bsz, "I": isz, "H": hsz}, "ms": ms,
+                "bound_ms": bound_ms, "bound": "bytes", "bound_share": bound_ms / ms,
+                "plain_ms": time_ms(plain, runs=20),
+                "max_abs_err": fwd_err if name.endswith("fwd") else bwd_err}
+        rows["lstm_gates_fwd"][cell]["bitwise_twin"] = fwd_bitwise
+        rows["lstm_gates_bwd"][cell]["sums_max_rel_err"] = sums_err
+        del state, twin
+
+        # the whole loss and gradient: the hand-written path against autograd
+        # through apply_nodes (the path it replaces), in turns
+        hand_model = model.as_model()
+        auto_model = dataclasses.replace(hand_model, forward_for_grad=None)
+
+        def hand():
+            return mse_value_and_grad(hand_model, layout, flat, bx, by)
+
+        def auto():
+            return mse_value_and_grad(auto_model, layout, flat, bx, by)
+
+        before = dict(lstm_train.LAUNCHES)
+        losses, grads = hand()
+        torch.cuda.synchronize()
+        require(lstm_train.LAUNCHES == {k: v + steps for k, v in before.items()},
+                f"{cell}: gate launches a local step {before} -> {lstm_train.LAUNCHES}")
+        want_l, want_g = auto()
+        loss_rel = float(((losses - want_l).abs() / want_l.abs()).max())
+        got, want = layout.views(grads), layout.views(want_g)
+        leaf_rel = {k: float((got[k] - want[k]).abs().max() / want[k].abs().max())
+                    for k in layout.names}
+        require(loss_rel <= 1e-6 and max(leaf_rel.values()) <= LSTM_VG_RTOL,
+                f"{cell}: hand vs autograd loss {loss_rel}, leaves {leaf_rel}")
+        del losses, grads, want_l, want_g, got, want
+        peaks = {}
+        for name, fn in (("hand", hand), ("autograd", auto)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+            del out
+        times = {"autograd": [], "hand": []}
+        for name in ("autograd", "hand", "hand", "autograd"):
+            times[name].append(time_ms(hand if name == "hand" else auto, runs=10, warmup=2))
+        ops = 3 * n * bsz * (steps * 2 * (isz + hsz) * 4 * hsz + 2 * hsz)
+        hand_ms, auto_ms = statistics.median(times["hand"]), statistics.median(times["autograd"])
+        vg = {"ms": hand_ms, "autograd_ms": auto_ms, "runs_ms": times,
+              "speedup": auto_ms / hand_ms, "bound_ms": ops / FP32_OPS_PER_S * 1e3,
+              "bound": "operations", "bound_share": ops / FP32_OPS_PER_S * 1e3 / hand_ms,
+              "peak_bytes": peaks["hand"], "autograd_peak_bytes": peaks["autograd"],
+              "loss_max_rel_err": loss_rel, "leaf_max_rel_err": leaf_rel}
+        rows["lstm_gates_bwd"][cell]["value_and_grad"] = vg
+        emit("lstmtrain", cell=cell, card=card, fwd=rows["lstm_gates_fwd"][cell],
+             bwd=rows["lstm_gates_bwd"][cell])
+        del flat, p, bx, by
+        torch.cuda.empty_cache()
+    return rows
+
+
 def train_phase(card: str) -> dict:
     """Phase 26: the LM zoo's train step (the module docstring).  Returns
     the phase's part of the ``swa_attention`` row of the kernels line."""
@@ -3078,7 +3279,7 @@ def main() -> int:
     t0 = time.perf_counter()
     compiled = _build.build()
     seconds = time.perf_counter() - t0
-    libraries = ("gossip_mix", "lstm_forward", "swa_attention")
+    libraries = ("gossip_mix", "lstm_forward", "lstm_train", "swa_attention")
     require(all(_build.library_path(name).exists() for name in libraries),
             f"a kernel library is missing after the build (compiled {compiled})")
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
@@ -3087,6 +3288,9 @@ def main() -> int:
     spills = [ln for ln in ptxas["lstm_forward"] if "spill" in ln]
     require(spills and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
             f"an lstm_forward kernel spills: {spills}")
+    gates_ptxas = ptxas_report(_build.build_log("lstm_train"), "lstm_gates_")
+    require(sum(k != "warnings" for k in gates_ptxas) == 4 and spill_free(gates_ptxas),
+            f"a gate kernel spills or is missing: {gates_ptxas}")
     staged_ptxas = ptxas_report(_build.build_log("gossip_mix"), "gossip_mix_staged_kernel")
     require(sum(k != "warnings" for k in staged_ptxas) == 3 and spill_free(staged_ptxas),
             f"a staged gossip kernel spills or is missing: {staged_ptxas}")
@@ -3323,8 +3527,10 @@ def main() -> int:
         evals = TRAIN_ROUNDS // EVAL_EVERY
         require(f"gossip-repr auto -> {repr_}" in text, f"{dataset}: gossip-repr auto did not pick {repr_}")
         require(counts[name] == TRAIN_ROUNDS, f"{dataset}: {counts[name]} {name} launches in {TRAIN_ROUNDS} rounds")
-        require(all(v == 0 for k, v in counts.items() if k not in (name, "lstm_forward")),
+        require(all(v == 0 for k, v in counts.items()
+                    if k not in (name, "lstm_forward", *GATE_KERNELS)),
                 f"{dataset}: another gossip kernel ran: {counts}")
+        hand_steps(counts, f"the {dataset} CLI", TRAIN_ROUNDS)
         require(counts["lstm_forward"] == evals + n_nodes,
                 f"{dataset}: {counts['lstm_forward']} lstm_forward launches, want {evals} evals + {n_nodes} patients")
         losses = [h["loss"] for h in run.history]
@@ -3400,8 +3606,9 @@ def main() -> int:
         _, hist, state = trainer.train(dp_gen, fed.x, fed.y, fed.counts, batch_size=64, rounds=8)
         torch.cuda.synchronize()
         counts = launches()
-        require(counts[name] == 8 and sum(counts.values()) == 8,
+        require(counts[name] == 8 and others(counts) == 8,
                 f"DP {dataset}: launches {counts}, want 8 of {name}")
+        hand_steps(counts, f"DP {dataset}", 8)
         require(all(math.isfinite(h["loss"]) for h in hist) and bool(torch.isfinite(state.params).all()),
                 f"DP {dataset}: non-finite training")
         dp_counts[name] = counts[name]
@@ -4006,9 +4213,10 @@ def main() -> int:
                                                rounds=MASKED_ROUNDS, chunk=MASKED_ROUNDS)
                 torch.cuda.synchronize()
                 counts = launches()
-                require(counts[name] == MASKED_ROUNDS and sum(counts.values()) == MASKED_ROUNDS,
+                require(counts[name] == MASKED_ROUNDS and others(counts) == MASKED_ROUNDS,
                         f"{impl} {dataset} sigma={sigma}: launches {counts}, want "
                         f"{MASKED_ROUNDS} of {name}")
+                hand_steps(counts, f"{impl} {dataset} sigma={sigma}", MASKED_ROUNDS)
                 require(all(math.isfinite(h["loss"]) for h in hist), f"{impl} {dataset}: losses")
                 runs[impl] = (trainer, hist, state, counts,
                               torch.cuda.max_memory_allocated() / 1e9)
@@ -4062,6 +4270,7 @@ def main() -> int:
 
     # 19. the scenario-sweep engine ----------------------------------------
     sweep_row = sweep_phase(feds, card, flush, errs)
+    gate_launches = sweep_row.pop("gate_launches_sweep")
 
     # 20. the paper's baselines ----------------------------------------------
     baselines_row = baselines_phase(feds, card, flush, errs)
@@ -4088,6 +4297,10 @@ def main() -> int:
     # 26. the LM zoo's train step (Granite-MoE-1B-A400M) and gossip-DP ---------
     torch.cuda.empty_cache()
     train_row = train_phase(card)
+
+    # 28. the trainer's gate kernels and its hand-written gradient ------------
+    torch.cuda.empty_cache()
+    gate_rows = lstm_train_phase(card)
 
     # 27. the multi-pod dry run: its memory fit, and the production mesh -------
     dryrun_phase(card, start_dryruns())
@@ -4136,6 +4349,12 @@ def main() -> int:
                  "prefill_shape_fp32": fp32_timing,
                  "prefill_shape_fp32_hd64_synthetic": fp32_hd64_timing,
                  **zoo_row, **train_row})
+    # the gate kernels' launches in the main-path sweep (phase 19), L of
+    # each in each of its SWEEP_ROUNDS local steps
+    for name, cells in gate_rows.items():
+        rows.append({"name": name, "route": "cuda", "source": sources + "lstm_train.cu",
+                     "replaces": None, "launches": gate_launches[name],
+                     "launches_local_steps": SWEEP_ROUNDS, **cells})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

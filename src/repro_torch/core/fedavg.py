@@ -7,8 +7,8 @@ local steps on its own data from a fresh ``optimizer.init``; the server
 averages the client models weighted by their sample counts.  The N
 clients are one flat ``(N, D)`` buffer (``utils.pytree.ParamLayout``),
 as in ``GluADFL``, and each local step is one
-``core.gluadfl.mse_value_and_grad`` over all of them through
-``Model.apply_nodes``.
+``core.gluadfl.mse_value_and_grad`` over all of them (the LSTM's
+hand-written ``forward_for_grad``).
 
 The two rules the JAX package pins (``tests/test_baselines.py``):
 

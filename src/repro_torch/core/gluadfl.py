@@ -18,12 +18,14 @@ are the nodes' parameter vectors in the JAX package's leaf order
 (``utils.pytree.ParamLayout``); the optimizer's state rows sit beside
 it.  A round is: activity mask -> mixing operator -> gossip -> local
 step -> where-mask (inactive rows stay bitwise copies, and the int32
-``step`` keeps its dtype).  Each node's gradient comes from one
-``backward`` of the sum of the nodes' losses through
-``LSTMModel.apply_nodes``, in plain PyTorch: nodes share no parameters,
-so the sum's gradient is every node's own gradient, which the JAX
-package gets from a ``vmap`` of ``value_and_grad``.  The CUDA kernels
-never carry a gradient (their wrappers refuse inputs that require one).
+``step`` keeps its dtype).  Every node's loss and gradient come from
+one call of :func:`mse_value_and_grad` over all rows: for the LSTM,
+``LSTMModel.forward_for_grad``, backpropagation through time by
+hand (``torch.bmm`` products and the fused gate kernels
+``lstm_gates_fwd`` / ``lstm_gates_bwd``, each weight gradient of ``wh``
+one product over the steps), which the JAX package gets from a ``vmap``
+of ``value_and_grad``.  No CUDA kernel carries an autograd gradient
+(their wrappers refuse inputs that require one).
 
 Randomness enters as one :class:`~repro_torch.utils.rng.RoundDraws`
 per round: drawn with a ``torch.Generator`` in production, or handed
@@ -44,7 +46,7 @@ Each stage of a round runs inside a span (``utils.tracing.span``):
 with ``gossip_impl="masked"``, ``round.secure_mask`` inside
 ``round.gossip``; inside ``round.local_step``, each local step's
 ``step.forward`` and ``step.backward`` (in :func:`mse_value_and_grad`,
-so every trainer that steps through it has them) and
+so every trainer that steps through it has them, on either path) and
 ``step.optimizer``.  So a profile splits a round's time by stage, and
 under a profiler the tracer keeps each span's host and device ms and
 host syncs.  Without an active profiler a span is a
@@ -347,11 +349,21 @@ def mse_value_and_grad(model: Model, layout: ParamLayout, params: torch.Tensor,
                        bx: torch.Tensor, by: torch.Tensor):
     """Per-row MSE losses (N,) and their gradients (N, D) at the flat
     ``params`` (N, D), row n's batch ``bx[n]`` (Bt, L) against
-    ``by[n]``, through the plain differentiable forward
-    ``model.apply_nodes``.  Rows share no parameters, so one backward of
-    the summed losses gives every row its own gradient (the JAX package
-    takes a ``vmap`` of ``value_and_grad``).  The trainer's local step
-    and the cold-start fine-tune (``core.personalize``) both use it."""
+    ``by[n]``.  A model with a hand-written ``forward_for_grad`` (the
+    LSTM) computes them itself: its forward runs inside
+    ``step.forward`` and the call it returns for the gradient inside
+    ``step.backward``.  Any other (N-BEATS, N-HiTS, the linear baseline)
+    takes one autograd backward of the summed losses of
+    ``model.apply_nodes``: rows share no parameters, so that gives every
+    row its own gradient (the JAX package takes a ``vmap`` of
+    ``value_and_grad``).  The trainer's local step, FedAvg, the pooled
+    supervised baseline and the cold-start fine-tune
+    (``core.personalize``) all use it."""
+    if model.forward_for_grad is not None:
+        with span("step.forward"):
+            losses, backward = model.forward_for_grad(layout, params, bx, by)
+        with span("step.backward"):
+            return losses, backward()
     p = params.detach().requires_grad_(True)
     with torch.enable_grad():
         with span("step.forward"):

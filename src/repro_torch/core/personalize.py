@@ -15,9 +15,9 @@ to the padded history length M) or, in the parity tests, by
   * :func:`personalize_batch` / :func:`personalize_batch_fn` run P
     patients as the trainer's local step runs N nodes: the cohort's
     params are one flat (P, D) buffer (``utils.pytree.ParamLayout``),
-    each step one ``LSTMModel.apply_nodes`` forward and one gradient of
-    the summed per-patient losses (``core.gluadfl.mse_value_and_grad``),
-    then ``optimizer.update`` on the rows.  Row i is patient i's own
+    each step one loss and gradient of every patient's rows
+    (``core.gluadfl.mse_value_and_grad``: for the LSTM its hand-written
+    ``forward_for_grad``), then ``optimizer.update`` on the rows.  Row i is patient i's own
     fine-tune: the rows share no parameters.
   * :func:`personalize` is that body for one patient, with no host
     sync between steps (the JAX package's ``lax.scan`` engine).
@@ -25,10 +25,10 @@ to the padded history length M) or, in the parity tests, by
     step's indices on the host (one sync a step) and indexes the
     history with them, and is bitwise :func:`personalize`.
 
-No kernel is on this path: the JAX package fine-tunes through the plain
-``jnp`` cell (its Pallas cell has no backward), and the port through
-plain PyTorch autograd; the CUDA wrappers refuse inputs that require a
-gradient.
+The JAX package fine-tunes through the plain ``jnp`` cell under
+``jax.grad`` (its Pallas cell has no backward); the port through the
+trainer's hand-written gradient, whose gate kernels
+(``lstm_gates_fwd`` / ``lstm_gates_bwd``) run on the card.
 """
 from __future__ import annotations
 

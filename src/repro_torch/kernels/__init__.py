@@ -1,10 +1,14 @@
 """The port's kernels: hand-written CUDA for Hopper under ``csrc/``,
 built by ``_build.py`` and launched through ctypes wrappers
-(``lstm_cell.py``, ``gossip_mix.py``, ``swa_attention.py``), with plain
+(``lstm_cell.py``, ``lstm_train.py``, ``gossip_mix.py``,
+``swa_attention.py``), with plain
 PyTorch twins in ``ref.py`` and the CUDA-or-CPU dispatch in ``ops.py``.
 
   lstm_forward          L LSTM steps + linear head, per-group weights
                         (ports ``repro.kernels.lstm_cell.lstm_cell_pallas``)
+  lstm_gates_fwd        one training step's gates and cell update, and
+  lstm_gates_bwd        its backward (``lstm_train.py``; port no Pallas
+                        kernel: the JAX package trains under jax.grad)
   gossip_mix            dense gossip mix       (``gossip_mix_pallas``)
   gossip_mix_sparse     neighbor-table mix     (``gossip_mix_sparse_pallas``)
   gossip_mix_dp         dense local-DP mix     (``gossip_mix_dp_pallas``)

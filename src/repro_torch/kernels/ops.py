@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import gossip_mix as gossip_kernels
-from repro_torch.kernels import lstm_cell
+from repro_torch.kernels import lstm_cell, lstm_train
 from repro_torch.kernels import ref
 from repro_torch.kernels import swa_attention as swa_kernel
 
@@ -34,6 +34,20 @@ def lstm_forward(x, wx, wh, b, w_out, b_out) -> torch.Tensor:
     x (G, R, L, I) -> y (G, R); see ``kernels/lstm_cell.py``."""
     fn = _route("lstm_forward", x, lstm_cell.lstm_forward, ref.lstm_forward_plain)
     return fn(x, wx, wh, b, w_out, b_out)
+
+
+def lstm_gates_fwd(gates, x, wx, b, c_prev, c, h) -> None:
+    """Step t of the trainer's LSTM forward, in place on ``gates``, ``c``
+    and ``h``; see ``kernels/lstm_train.py``."""
+    fn = _route("lstm_gates_fwd", gates, lstm_train.lstm_gates_fwd, ref.lstm_gates_fwd_plain)
+    fn(gates, x, wx, b, c_prev, c, h)
+
+
+def lstm_gates_bwd(gates, c_prev, c, dh, dc, x, db, dwx, accumulate: bool) -> None:
+    """Step t of the trainer's LSTM backward, in place on ``gates``,
+    ``dc``, ``db`` and ``dwx``; see ``kernels/lstm_train.py``."""
+    fn = _route("lstm_gates_bwd", gates, lstm_train.lstm_gates_bwd, ref.lstm_gates_bwd_plain)
+    fn(gates, c_prev, c, dh, dc, x, db, dwx, accumulate)
 
 
 def gossip_mix(mix, w, active) -> torch.Tensor:

@@ -44,6 +44,57 @@ def lstm_forward_plain(x, wx, wh, b, w_out, b_out):
     return torch.stack(ys)
 
 
+def lstm_gates_fwd_plain(gates, x, wx, b, c_prev, c, h):
+    """Step t of the trainer's LSTM forward in place, the function the
+    ``lstm_gates_fwd`` kernel computes: ``gates`` (N, B, 4H) holds
+    ``h_{t-1} @ wh`` (not read when ``c_prev`` is None and ``x`` is
+    given: step 0) and becomes the activated (i, f, g, o) of
+    ``(gates + x @ wx) + b``, the order of
+    ``repro_torch.models.lstm.lstm_cell``'s sum; ``c`` and ``h`` receive
+    ``c_t = f c_{t-1} + i g`` and ``h_t = o tanh(c_t)``.  x (N, B, 1) and
+    wx (N, 1, 4H), or both None when ``gates`` already holds
+    ``x_t @ wx``; b (N, 4H), c_prev/c/h (N, B, H)."""
+    z = gates if c_prev is not None or x is None else torch.zeros_like(gates)
+    if x is not None:
+        z = z + torch.bmm(x, wx)
+    i, f, g, o = (z + b[:, None, :]).chunk(4, dim=-1)
+    cp = c_prev if c_prev is not None else torch.zeros_like(c)
+    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+    c_new = f * cp + i * g
+    h.copy_(o * torch.tanh(c_new))
+    c.copy_(c_new)
+    gates.copy_(torch.cat([i, f, g, o], dim=-1))
+
+
+def lstm_gates_bwd_plain(gates, c_prev, c, dh, dc, x, db, dwx, accumulate):
+    """Step t of the trainer's LSTM backward in place, the function the
+    ``lstm_gates_bwd`` kernel computes: from the activated gates
+    (N, B, 4H), ``c_prev`` = c_{t-1} (None at step 0), ``c`` = c_t,
+    ``dh`` = dL/dh_t and ``dc`` = dL/dc_t through step t+1, ``gates``
+    becomes dL/d(pre-activation) and ``dc`` dL/dc_{t-1}; ``db`` (N, 4H)
+    and ``dwx`` (N, 1, 4H) receive ``sum_b dG`` and ``x^T dG``, added to
+    what they hold when ``accumulate`` (x and dwx None: db alone).  Each
+    product is rounded as autograd's backward of ``lstm_cell`` rounds
+    it."""
+    i, f, g, o = gates.chunk(4, dim=-1)
+    cp = c_prev if c_prev is not None else torch.zeros_like(c)
+    tc = torch.tanh(c)
+    d_o = (dh * tc) * (1 - o) * o
+    dct = dc + (dh * o) * (1 - tc * tc)
+    dg = torch.cat([(dct * g) * (1 - i) * i, (dct * cp) * (1 - f) * f,
+                    (dct * i) * (1 - g * g), d_o], dim=-1)
+    dc.copy_(dct * f)
+    gates.copy_(dg)
+    sums = [(db, dg.sum(dim=1))]
+    if x is not None:
+        sums.append((dwx, torch.bmm(x.transpose(1, 2), dg)))
+    for out, step in sums:
+        if accumulate:
+            out += step
+        else:
+            out.copy_(step)
+
+
 def _select(active, mixed, w):
     """Active rows take the mix, inactive rows are bitwise copies of w."""
     return torch.where(active[:, None] > 0, mixed, w)

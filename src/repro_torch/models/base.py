@@ -13,11 +13,18 @@ A :class:`Model` bundles plain functions on parameter dicts:
   apply_groups(stacked, x) -> (G, R) prediction of the shared (R, L)
                               windows under each group's weights (a
                               sweep's G population models)
+  forward_for_grad(layout, flat, x, y)
+                           -> ((N,) MSE losses of ``apply_nodes`` at the
+                              flat (N, D) params, a call returning their
+                              (N, D) gradients), computed by hand
 
 ``apply_nodes`` and ``apply_rows`` replace the ``vmap`` of ``apply``
 that the JAX package uses over stacked params.  ``apply_rows`` and
 ``apply_groups`` serve and sweep the LSTM; the baselines have neither
-(None).
+(None).  ``forward_for_grad`` is the LSTM's hand-written
+backpropagation through time; ``core.gluadfl.mse_value_and_grad`` takes
+it where a model has one and autograd through ``apply_nodes`` where it
+has None (the baselines).
 
 Params are flat ``dict[str, Tensor]``.  A model whose JAX params nest
 (N-BEATS, N-HiTS: lists of blocks of dicts) keys its leaves by dotted
@@ -46,6 +53,7 @@ class Model:
     apply_nodes: Callable[[Params, torch.Tensor], torch.Tensor]
     apply_rows: Callable[[Params, torch.Tensor], torch.Tensor] | None = None
     apply_groups: Callable[[Params, torch.Tensor], torch.Tensor] | None = None
+    forward_for_grad: Callable[..., tuple[torch.Tensor, Callable[[], torch.Tensor]]] | None = None
 
 
 def leaf_key(*path) -> str:

@@ -9,19 +9,29 @@ gates ordered i, f, g, o.  ``apply`` and ``apply_rows`` (evaluation
 and serving) and ``apply_groups`` (a sweep's G populations over shared
 windows) are one call of ``kernels.ops.lstm_forward``: the CUDA
 kernel for CUDA tensors, its plain twin for CPU tensors.
-``apply_nodes`` is the trainer's differentiable forward over the
-federation, in plain PyTorch ops that autograd follows; the JAX package
-also trains through its plain ``jnp`` cell (``use_kernel=False``).
+``forward_for_grad`` is the trainer's loss over the federation and a
+call for its gradient (every trainer's local step, through
+``core.gluadfl.mse_value_and_grad``, which times the two as the step's
+forward and backward): backpropagation through time written by hand, ``torch.bmm`` for the products and one
+``kernels.ops.lstm_gates_fwd`` / ``lstm_gates_bwd`` a step for the gates
+and the cell update (the CUDA kernels on the card, their plain twins on
+the CPU), every weight gradient of ``wh`` in one product over the
+steps.  ``apply_nodes`` is the same forward in plain differentiable
+ops, which the meta-learners' second-order gradients
+(``core.meta``) follow with autograd; the JAX package trains through
+its plain ``jnp`` cell (``use_kernel=False``) under ``jax.grad``.
 """
 from __future__ import annotations
 
 import math
+from collections.abc import Callable
 from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels.ops import lstm_forward
+from repro_torch.kernels.ops import lstm_forward, lstm_gates_bwd, lstm_gates_fwd
 from repro_torch.models.base import Model, Params
+from repro_torch.utils.pytree import ParamLayout
 
 
 def lstm_cell(x_t, h, c, wx, wh, b):
@@ -93,8 +103,9 @@ class LSTMModel:
     def apply_nodes(self, stacked: Params, x: torch.Tensor) -> torch.Tensor:
         """x: (N, Bt, L) -> (N, Bt), node n's batch under its own
         weights ``stacked[k][n]``.  Plain batched matmuls (``torch.bmm``
-        per step), so autograd gives each node its own gradient; the
-        kernels are never on this path."""
+        per step), so autograd gives each node its own gradient (the
+        meta-learners' path; the other trainers take
+        :meth:`forward_for_grad`); no kernel is on this path."""
         xs = x if x.dim() == 4 else x[..., None]
         n, bt, steps, _ = xs.shape
         h = xs.new_zeros((n, bt, self.hidden))
@@ -103,6 +114,75 @@ class LSTMModel:
         for t in range(steps):
             h, c = lstm_cell(xs[:, :, t, :], h, c, stacked["wx"], stacked["wh"], b)
         return (torch.bmm(h, stacked["w_out"]) + stacked["b_out"][:, None, :])[..., 0]
+
+    def forward_for_grad(self, layout: ParamLayout, params: torch.Tensor, bx: torch.Tensor,
+                         by: torch.Tensor) -> tuple[torch.Tensor, Callable[[], torch.Tensor]]:
+        """Per-row MSE losses (N,) of ``apply_nodes`` against ``by``
+        (N, Bt) at the flat ``params`` (N, D), row n's batch ``bx[n]``
+        (Bt, L) or (Bt, L, I), and a call that returns their gradients
+        (N, D): the maths of autograd through ``apply_nodes``, by hand.
+
+        The forward keeps the activated gates of every step in one
+        (N, L, Bt, 4H) buffer and h_t, c_t in (N, L, Bt, H) ones: a step
+        is ``torch.bmm(h_{t-1}, wh)`` into its gate slice (none at t = 0)
+        and one ``lstm_gates_fwd``, which adds ``x_t wx + b`` and
+        activates in place.  The backward runs one ``lstm_gates_bwd`` a
+        step, which writes dG_t over the gates and sums db and dwx, and
+        one ``torch.bmm`` for dh_{t-1} = dG_t wh^T; after the loop one
+        product over all (L-1)·Bt rows, [h_0 .. h_{L-2}]^T [dG_1 ..
+        dG_{L-1}], gives dwh.  Every leaf's gradient is written into its
+        view of one (N, D) buffer.  At I > 1 one product over all steps
+        puts every x_t wx into the gate buffer before the forward, each
+        step adds h_{t-1} wh to it, and one product over all steps after
+        the backward gives dwx: the gate kernels take one input a step."""
+        p = layout.views(params)
+        xs = bx if bx.dim() == 4 else bx[..., None]
+        n, bsz, steps, isz = xs.shape
+        hsz = self.hidden
+        one = isz == 1
+        with torch.no_grad():
+            gates = params.new_empty((n, steps, bsz, 4 * hsz))
+            hs = params.new_empty((n, steps, bsz, hsz))
+            cs = params.new_empty((n, steps, bsz, hsz))
+            if not one:
+                xt = xs.transpose(1, 2).reshape(n, steps * bsz, isz)
+                torch.bmm(xt, p["wx"], out=gates.view(n, steps * bsz, 4 * hsz))
+            for t in range(steps):
+                if t and one:
+                    torch.bmm(hs[:, t - 1], p["wh"], out=gates[:, t])
+                elif t:
+                    gates[:, t].baddbmm_(hs[:, t - 1], p["wh"])
+                lstm_gates_fwd(gates[:, t], xs[:, :, t] if one else None, p["wx"] if one else None,
+                               p["b"], cs[:, t - 1] if t else None, cs[:, t], hs[:, t])
+            h = hs[:, -1]
+            err = (torch.bmm(h, p["w_out"]) + p["b_out"][:, None, :])[..., 0] - by
+            losses = torch.mean(torch.square(err), dim=1)
+
+        @torch.no_grad()
+        def backward() -> torch.Tensor:
+            grads = torch.empty_like(params)
+            g = layout.views(grads)
+            dpred = (err * (2.0 / bsz))[..., None]
+            torch.bmm(h.transpose(1, 2), dpred, out=g["w_out"])
+            torch.sum(dpred[..., 0], dim=1, keepdim=True, out=g["b_out"])
+            dh = torch.bmm(dpred, p["w_out"].transpose(1, 2))
+            dc = torch.zeros_like(dh)
+            for t in reversed(range(steps)):
+                lstm_gates_bwd(gates[:, t], cs[:, t - 1] if t else None, cs[:, t], dh, dc,
+                               xs[:, :, t] if one else None, g["b"], g["wx"] if one else None,
+                               accumulate=t < steps - 1)
+                if t:
+                    torch.bmm(gates[:, t], p["wh"].transpose(1, 2), out=dh)
+            if steps > 1:
+                torch.bmm(hs[:, :-1].reshape(n, -1, hsz).transpose(1, 2),
+                          gates[:, 1:].reshape(n, -1, 4 * hsz), out=g["wh"])
+            else:
+                g["wh"].zero_()
+            if not one:
+                torch.bmm(xt.transpose(1, 2), gates.view(n, steps * bsz, 4 * hsz), out=g["wx"])
+            return grads
+
+        return losses, backward
 
     @staticmethod
     def _forward(stacked: Params, xs: torch.Tensor) -> torch.Tensor:
@@ -113,4 +193,5 @@ class LSTMModel:
 
     def as_model(self) -> Model:
         return Model("lstm", self.init, self.apply, self.apply_nodes,
-                     apply_rows=self.apply_rows, apply_groups=self.apply_groups)
+                     apply_rows=self.apply_rows, apply_groups=self.apply_groups,
+                     forward_for_grad=self.forward_for_grad)

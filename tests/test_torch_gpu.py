@@ -35,7 +35,7 @@ from repro_torch.config import FLConfig
 from repro_torch.core import MAML, FedAvg, GluADFL, MetaSGD, train_supervised
 from repro_torch.core.topology import mixing_matrix, neighbor_table, random_adjacency
 from repro_torch.kernels import gossip_mix as gossip_kernels
-from repro_torch.kernels import lstm_cell, ref
+from repro_torch.kernels import lstm_cell, lstm_train, ref
 from repro_torch.kernels import swa_attention as swa_kernel
 from repro_torch.kernels.ref import lstm_forward_plain
 from repro_torch.optim import adam, get_optimizer
@@ -161,6 +161,150 @@ def test_served_equals_direct_apply_through_the_kernel(cuda):
     preds = replay(sv, MicroBatcher(sv.buckets), reqs)
     assert lstm_cell.LAUNCHES > before
     assert selfcheck(sv, reqs, preds) == 0
+
+
+# the trainer's gate kernels (kernels/lstm_train.py) against their twins:
+# the elementwise values (gates, c, h, dG, dc) within 1e-6 (the same
+# IEEE operations; expf and tanhf against PyTorch's kernels'), db and dwx
+# within 1e-5 of their largest value (sums over B rows in another order)
+GATES_ATOL, GATE_SUMS_RTOL = 1e-6, 1e-5
+# the two cells' shapes of the benchmark, H = 30 (the scalar path), and
+# without x (I > 1: the gates already hold x_t wx) on both paths
+GATE_CASES = [(3390, 64, 128, True), (226, 64, 512, True), (37, 7, 30, True), (37, 7, 30, False),
+              (5, 9, 16, False)]
+
+
+def _gate_case(n, bsz, hsz, with_x, seed, device):
+    """Step slices of (N, 2, B, .) buffers, as the trainer passes them,
+    and wx, b, db, dwx as views into (N, D) rows of an odd D; x, wx and
+    dwx None without x."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    d = 8 * hsz + 3
+    flat, sums = normal(n, d), normal(n, d)
+    cs = normal(n, 2, bsz, hsz)
+    views = {"gates": normal(n, 2, bsz, 4 * hsz)[:, 1], "x": normal(n, bsz, 2, 1)[:, :, 1],
+             "wx": flat[:, 4 * hsz + 3:].view(n, 1, 4 * hsz), "b": flat[:, :4 * hsz],
+             "c_prev": cs[:, 0], "c": cs[:, 1], "h": normal(n, 2, bsz, hsz)[:, 1],
+             "dh": normal(n, bsz, hsz), "dc": normal(n, bsz, hsz), "db": sums[:, :4 * hsz],
+             "dwx": sums[:, 4 * hsz + 3:].view(n, 1, 4 * hsz)}
+    return views if with_x else {**views, "x": None, "wx": None, "dwx": None}
+
+
+def _twin_and_kernel(views, run):
+    """``run`` on clones of every view for the kernel and for the twin."""
+    mine = {k: v.clone() if k not in ("x", "wx", "b") and v is not None else v
+            for k, v in views.items()}
+    twin = {k: v.clone() if k not in ("x", "wx", "b") and v is not None else v
+            for k, v in views.items()}
+    run(lstm_train, mine)
+    run(ref, twin)
+    torch.cuda.synchronize()
+    return mine, twin
+
+
+@pytest.mark.parametrize("n,bsz,hsz,with_x", GATE_CASES)
+@pytest.mark.parametrize("first", [False, True])
+def test_gate_kernels_match_their_twins(cuda, n, bsz, hsz, with_x, first):
+    """Both gate kernels against their plain twins on the same views: the
+    forward at a step with state and at step 0, the backward adding to
+    db and dwx and writing them (the last step); one launch each."""
+    views = _gate_case(n, bsz, hsz, with_x, seed=n + hsz, device=cuda)
+    before = dict(lstm_train.LAUNCHES)
+
+    def fwd(mod, v):
+        fn = mod.lstm_gates_fwd if mod is lstm_train else ref.lstm_gates_fwd_plain
+        fn(v["gates"], v["x"], v["wx"], v["b"], None if first else v["c_prev"], v["c"], v["h"])
+
+    mine, twin = _twin_and_kernel(views, fwd)
+    for k in ("gates", "c", "h"):
+        torch.testing.assert_close(mine[k], twin[k], rtol=0, atol=GATES_ATOL, msg=k)
+    views["gates"] = twin["gates"]  # activated gates in (0, 1) and (-1, 1)
+
+    def bwd(mod, v):
+        fn = mod.lstm_gates_bwd if mod is lstm_train else ref.lstm_gates_bwd_plain
+        fn(v["gates"], None if first else v["c_prev"], v["c"], v["dh"], v["dc"], v["x"], v["db"],
+           v["dwx"], accumulate=not first)
+
+    mine, twin = _twin_and_kernel(views, bwd)
+    for k in ("gates", "dc"):
+        torch.testing.assert_close(mine[k], twin[k], rtol=0, atol=GATES_ATOL, msg=k)
+    for k in ("db", "dwx") if with_x else ("db",):
+        scale = float(twin[k].abs().max())
+        torch.testing.assert_close(mine[k], twin[k], rtol=0, atol=GATE_SUMS_RTOL * scale, msg=k)
+    assert lstm_train.LAUNCHES == {k: v + 1 for k, v in before.items()}
+
+
+def test_gate_kernel_wrappers_check_their_operands(cuda):
+    v = _gate_case(4, 3, 8, True, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="unit stride"):
+        lstm_train.lstm_gates_fwd(v["gates"].transpose(1, 2).contiguous().transpose(1, 2), v["x"],
+                                  v["wx"], v["b"], None, v["c"], v["h"])
+    with pytest.raises(ValueError, match="must be"):
+        lstm_train.lstm_gates_fwd(v["gates"][:, :2], v["x"], v["wx"], v["b"], None, v["c"], v["h"])
+    with pytest.raises(TypeError, match="float32"):
+        lstm_train.lstm_gates_bwd(v["gates"], None, v["c"], v["dh"].double(), v["dc"], v["x"],
+                                  v["db"], v["dwx"], accumulate=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm_train.lstm_gates_fwd(v["gates"], v["x"].cpu(), v["wx"], v["b"], None, v["c"], v["h"])
+    with pytest.raises(ValueError, match="together"):
+        lstm_train.lstm_gates_fwd(v["gates"], None, v["wx"], v["b"], None, v["c"], v["h"])
+    with pytest.raises(ValueError, match="must be"):
+        lstm_train.lstm_gates_bwd(v["gates"], None, v["c"], v["dh"], v["dc"], v["x"], v["db"],
+                                  v["dwx"].expand(4, 2, 32), accumulate=False)
+
+
+@pytest.mark.parametrize("hsz,isz", [(128, 1), (30, 1), (30, 2)])
+def test_value_and_grad_on_the_card_matches_autograd(cuda, hsz, isz):
+    """The trainer's hand-written gradient on the card (the gate kernels
+    and cuBLAS products, TF32 off) against autograd through
+    ``apply_nodes`` on the card: losses within 1e-6 relative, each leaf
+    within 1e-5 of its largest |gradient| (fp32 sums in another order)."""
+    from repro_torch.utils.pytree import ParamLayout
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    model = LSTMModel(hidden=hsz, input_size=isz)
+    layout = ParamLayout.of(model.init(torch.Generator().manual_seed(0)))
+    rows = [model.init(torch.Generator().manual_seed(r)) for r in range(37)]
+    flat = layout.flatten({k: torch.stack([r[k] for r in rows]) for k in layout.names}).to(cuda)
+    rng = np.random.default_rng(hsz + isz)
+    shape = (37, 16, L) + ((isz,) if isz > 1 else ())
+    bx = torch.tensor(rng.normal(size=shape), dtype=torch.float32, device=cuda)
+    by = torch.tensor(rng.normal(size=(37, 16)), dtype=torch.float32, device=cuda)
+    before = dict(lstm_train.LAUNCHES)
+    losses, backward = model.forward_for_grad(layout, flat, bx, by)
+    grads = backward()
+    torch.cuda.synchronize()
+    assert lstm_train.LAUNCHES == {k: v + L for k, v in before.items()}
+    p = flat.clone().requires_grad_(True)
+    want_l = torch.mean(torch.square(model.apply_nodes(layout.views(p), bx) - by), dim=1)
+    (want_g,) = torch.autograd.grad(want_l.sum(), p)
+    torch.testing.assert_close(losses, want_l.detach(), rtol=1e-6, atol=0)
+    got, want = layout.views(grads), layout.views(want_g)
+    for k in layout.names:
+        scale = float(want[k].abs().max())
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5 * scale, msg=k)
+
+
+def test_local_steps_launch_the_gate_kernels_l_times_each(cuda):
+    """Every local step of every round goes through the gate kernels: L
+    launches of each a local step, whatever the share of inactive rows
+    (all N rows are computed, then masked)."""
+    n, rounds, local_steps = 12, 3, 2
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(n, 64, L)).astype(np.float32)
+    counts = np.full(n, 64, np.int32)
+    trainer = GluADFL(LSTMModel(hidden=32).as_model(), adam(1e-3),
+                      FLConfig(num_nodes=n, inactive_ratio=0.5, local_steps=local_steps),
+                      mixer="kernel")
+    before = dict(lstm_train.LAUNCHES)
+    _, hist, state = trainer.train(torch.Generator(device=cuda).manual_seed(0), x,
+                                   x[:, :, -1].copy(), counts, batch_size=16, rounds=rounds)
+    assert lstm_train.LAUNCHES == {k: v + rounds * local_steps * L for k, v in before.items()}
+    assert all(np.isfinite(h["loss"]) for h in hist)
 
 
 def _gossip_case(n, d, ratio, seed, device):

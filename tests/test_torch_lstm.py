@@ -8,7 +8,15 @@ Tolerance: ``atol=1e-5`` on normalized forecasts.  Both sides compute in
 fp32 and differ only in summation order, which drifts by ~1e-7 over 12
 recurrent steps at H=128.
 
-The CUDA kernel itself is held against its plain twin in
+The trainer's hand-written backpropagation through time
+(``LSTMModel.forward_for_grad``, here on the gate kernels' plain
+twins) is held against ``torch.autograd.grad`` through ``apply_nodes``:
+losses within 1e-6 relative, each leaf's gradient within ``VG_RTOL`` of
+the leaf's largest |gradient| (fp32 sums over up to L·B = 84 terms in
+another order: dwh as one product over the steps, db and, at I = 1, dwx
+summed a step at a time, at I > 1 dwx as one product over the steps).
+
+The CUDA kernels themselves are held against their plain twins in
 ``tests/test_torch_gpu.py``.
 """
 import stat
@@ -23,12 +31,16 @@ import torch
 from repro.kernels.lstm_cell import lstm_cell_pallas
 from repro.kernels.ref import lstm_cell_ref
 from repro.models import LSTMModel as JaxLSTM
+from repro_torch.core import gluadfl
 from repro_torch.kernels import _build, lstm_cell, ops
 from repro_torch.kernels.ref import lstm_cell_plain, lstm_forward_plain
-from repro_torch.models import LSTMModel, params_from_numpy
+from repro_torch.models import LSTMModel, NBeatsModel, params_from_numpy
+from repro_torch.models import lstm as models_lstm
+from repro_torch.utils.pytree import ParamLayout
 
 ATOL = 1e-5
 L = 12
+VG_RTOL = 1e-5
 
 
 def _np_params(hidden, seed, input_size=1):
@@ -194,6 +206,89 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_ops_refuses_other_devices():
     assert lstm_cell.LAUNCHES == before
 
 
+# ------------------------------------------- the hand-written gradient
+
+
+def _vg_case(model, n=3, seed=0):
+    """Distinct per-row params, a batch and targets from a seed."""
+    layout = ParamLayout.of(model.init(torch.Generator().manual_seed(seed)))
+    rows = [model.init(torch.Generator().manual_seed(seed + r)) for r in range(n)]
+    flat = layout.flatten({k: torch.stack([r[k] for r in rows]) for k in layout.names})
+    rng = np.random.default_rng(seed)
+    isz = getattr(model, "input_size", 1)
+    shape = (n, 7, model.history_len) + ((isz,) if isz > 1 else ())
+    return layout, flat, _t(rng.normal(size=shape)), _t(rng.normal(size=(n, 7)))
+
+
+def _autograd(model, layout, flat, bx, by):
+    p = flat.clone().requires_grad_(True)
+    losses = torch.mean(torch.square(model.apply_nodes(layout.views(p), bx) - by), dim=1)
+    (grads,) = torch.autograd.grad(losses.sum(), p)
+    return losses.detach(), grads
+
+
+@pytest.mark.parametrize("hsz", [8, 12, 128])
+@pytest.mark.parametrize("isz", [1, 2])
+@pytest.mark.parametrize("steps", [1, L])
+@pytest.mark.parametrize("bsz", [1, 7])
+def test_value_and_grad_nodes_matches_autograd(hsz, isz, steps, bsz):
+    model = LSTMModel(history_len=steps, hidden=hsz, input_size=isz)
+    layout, flat, bx, by = _vg_case(model, seed=hsz + isz + steps)
+    bx, by = bx[:, :bsz], by[:, :bsz]
+    losses, backward = model.forward_for_grad(layout, flat, bx, by)
+    grads = backward()
+    want_l, want_g = _autograd(model, layout, flat, bx, by)
+    assert grads.shape == flat.shape and not grads.requires_grad
+    torch.testing.assert_close(losses, want_l, rtol=1e-6, atol=0)
+    got, want = layout.views(grads), layout.views(want_g)
+    for k in layout.names:
+        scale = float(want[k].abs().max())
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=VG_RTOL * scale, msg=k)
+
+
+def test_mse_value_and_grad_routes_the_lstm_by_hand_and_nbeats_through_autograd(monkeypatch):
+    """The LSTM's loss and gradient come from its hand-written
+    backpropagation (one forward and one backward gate call a step, no
+    autograd); N-BEATS, which has none, from autograd through
+    ``apply_nodes``.  Either way the step's ``step.forward`` and
+    ``step.backward`` spans open once each, in that order."""
+    calls = {"fwd": 0, "bwd": 0, "autograd": 0}
+    spans = []
+    real_span = gluadfl.span
+
+    def recording(name):
+        spans.append(name)
+        return real_span(name)
+
+    fwd, bwd, grad = models_lstm.lstm_gates_fwd, models_lstm.lstm_gates_bwd, torch.autograd.grad
+
+    def count(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(models_lstm, "lstm_gates_fwd", count("fwd", fwd))
+    monkeypatch.setattr(models_lstm, "lstm_gates_bwd", count("bwd", bwd))
+    monkeypatch.setattr(torch.autograd, "grad", count("autograd", grad))
+    monkeypatch.setattr(gluadfl, "span", recording)
+    lstm = LSTMModel(hidden=8)
+    layout, flat, bx, by = _vg_case(lstm)
+    assert lstm.as_model().forward_for_grad is not None
+    gluadfl.mse_value_and_grad(lstm.as_model(), layout, flat, bx, by)
+    assert calls == {"fwd": L, "bwd": L, "autograd": 0}
+    assert spans == ["step.forward", "step.backward"]
+
+    nbeats = NBeatsModel(history_len=L, hidden=16)
+    layout, flat, bx, by = _vg_case(nbeats)
+    assert nbeats.as_model().forward_for_grad is None
+    losses, grads = gluadfl.mse_value_and_grad(nbeats.as_model(), layout, flat, bx, by)
+    assert calls == {"fwd": L, "bwd": L, "autograd": 1}
+    assert spans == ["step.forward", "step.backward"] * 2
+    want_l, want_g = _autograd(nbeats, layout, flat, bx, by)
+    assert torch.equal(losses, want_l) and torch.equal(grads, want_g)
+
+
 # ---------------------------------------------------------------- build
 
 
@@ -211,7 +306,7 @@ def _fake_nvcc(tmp_path, fail=False):
 def test_build_compiles_each_source_once_into_a_hashed_library(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(_build, "_nvcc", lambda: _fake_nvcc(tmp_path))
-    assert _build.build() == ["gossip_mix", "lstm_forward", "swa_attention"]
+    assert _build.build() == ["gossip_mix", "lstm_forward", "lstm_train", "swa_attention"]
     lib = _build.library_path("lstm_forward")
     assert lib.parent == tmp_path / "kernels" and lib.name.startswith("lstm_forward-")
     assert lib.read_text() == "lib" and not list(lib.parent.glob("*.tmp"))
